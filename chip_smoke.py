@@ -17,7 +17,21 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    ``ops.grain.apply_grain`` on the card (3-plane and luma-only tables),
    first frames checked against grain_ref, the kernels' launch counters
    read; then kernel times (CUDA events) beside the plain versions', and
-   apply frames/s with the pattern upload included.
+   apply frames/s with the pattern upload included;
+5. the two diff kernels against their plain versions on the card, equal
+   to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
+   small odd and even sizes (a plane under 16 px included) and at
+   3840x2160 10-bit 4:2:0 with 16 frames;
+6. the diff main path at full size: film-like clean frames at 3840x2160
+   10-bit 4:2:0 made from a numpy seed, grained on the card by
+   ``apply_grain`` with the stream's tables reseeded per frame, then two
+   batches of 16 (grainy as source, clean as denoised) through
+   ``DiffEstimator.diff_batch`` on the card; the fitted table must equal
+   the one fitted from the plain versions' statistics, and the recovered
+   luma sigma curve is scored against the injected one; then each diff
+   kernel's time (CUDA events) beside its plain version's at 4K10 B = 16
+   and 1080p8 B = 32, and diff_batch frames/s with the upload and the
+   statistics download included.
 
 Grain patterns come from ``grain_ref`` on the host: the native libav*/
 dav1d shim (and with it ``generate_patterns_native`` and the render
@@ -39,12 +53,21 @@ import numpy as np
 import torch
 
 IVF = ".bench_cache/bench_4k10_grainy.ivf"
-SOURCE = "grav1synth_tpu_torch/csrc/grain_kernels.cu"
+SOURCES = {
+    "grain_luma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
+    "grain_chroma_pair": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
+    "flat_block_activity": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
+    "plane_stats": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
+}
 REPLACES = {
     "grain_luma": "grav1synth_tpu/ops/grain_pallas.py:575",  # _luma_kernel
     "grain_chroma_pair": "grav1synth_tpu/ops/grain_pallas.py:775",  # _chroma_pair_kernel
+    "flat_block_activity": "grav1synth_tpu/ops/diff_pallas.py:272",  # _act_kernel
+    "plane_stats": "grav1synth_tpu/ops/diff_pallas.py:108",  # _stats_kernel
 }
-TOLERANCE = 0  # integer arithmetic: kernels and plain versions must be equal
+# integer arithmetic (grain) and exact int64 / float64 sums (diff): the
+# kernels and their plain versions must be equal
+TOLERANCE = 0
 
 
 def log(msg: str) -> None:
@@ -196,6 +219,232 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def film_frames(rng, n, h, w, bd):
+    """Structured, moving clean 4:2:0 frames (the shape of
+    tests/test_diff_quality.film_like_clip, at any size and bit depth):
+    gradients, texture, a panning bright disc, per-frame exposure wobble.
+    Returns int16 (n, h, w) luma and two (n, hc, wc) chroma planes."""
+    hc, wc = (h + 1) >> 1, (w + 1) >> 1
+    scale = 1 << (bd - 8)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 50 + 120 * (xx / w) + 30 * (yy / h) + 8 * np.sin(xx / 7.0) * np.cos(yy / 9.0)
+    ys = np.empty((n, h, w), np.int16)
+    for i in range(n):
+        cx, cy, rad = w * (0.2 + 0.02 * i), h * 0.5, 28.0 * w / 256
+        disc = 70 * np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * rad**2)))
+        ys[i] = np.clip((base + disc + rng.normal(0, 0.3)) * scale, 16 * scale, 235 * scale)
+    cyy, cxx = np.mgrid[0:hc, 0:wc].astype(np.float32)
+    u = np.clip((110 + 30 * (cxx / wc)) * scale, 16 * scale, 240 * scale).astype(np.int16)
+    v = np.clip((130 - 20 * (cyy / hc)) * scale, 16 * scale, 240 * scale).astype(np.int16)
+    return ys, np.repeat(u[None], n, 0), np.repeat(v[None], n, 0)
+
+
+def stats_err(got: dict, want: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max().item()) for k in want)
+
+
+def diff_planes(rng, b, h, w, bd, sub_x, sub_y):
+    """(sy, dy, sc, dc, sr, dr) int16 numpy planes: each source is its
+    denoised plane plus noise; each denoised plane is flat on its upper
+    half and random below."""
+    maxv = (1 << bd) - 1
+    hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
+    out = []
+    for ph, pw in ((h, w), (hc, wc), (hc, wc)):
+        d = rng.integers(0, maxv + 1, (b, ph, pw))
+        d[:, : ph // 2] = maxv // 3 + rng.integers(0, 3, (b, ph // 2, pw))
+        s = np.clip(d + rng.integers(-40, 41, d.shape), 0, maxv)
+        out += [s.astype(np.int16), d.astype(np.int16)]
+    return out
+
+
+def compare_diff_kernels(planes, bd, sub_x, sub_y, lags, device, errs, what):
+    """Both diff kernels against their plain versions on the same device
+    inputs, luma and (with the x4 luma-residual column) both chroma."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    sy, dy, sc, dc, sr, dr = (torch.from_numpy(a).to(device) for a in planes)
+    lavg4 = de.chroma_lavg4(sy, dy, sc.shape[1], sc.shape[2], sub_x, sub_y)
+    for s, d, aux in ((sy, dy, None), (sc, dc, lavg4), (sr, dr, lavg4)):
+        act = dk.flat_block_activity(d)
+        e_a = max_abs_err(act, dk.flat_block_activity_reference(d)) if act.numel() else 0
+        errs["flat_block_activity"] = max(errs["flat_block_activity"], e_a)
+        blocks = de.flat_blocks(d)
+        for lag in lags:
+            e_s = stats_err(
+                dk.plane_stats(s, d, blocks, aux, lag, bd),
+                dk.plane_stats_reference(s, d, blocks, aux, lag, bd),
+            )
+            errs["plane_stats"] = max(errs["plane_stats"], e_s)
+            if e_a > TOLERANCE or e_s > TOLERANCE:
+                raise AssertionError(
+                    f"{what} lag {lag}: diff kernel vs plain max |err| activity {e_a}, stats {e_s}"
+                )
+
+
+class plain_diff_path:
+    """Within the block, ops.diff_estimate runs the diff kernels' plain
+    PyTorch versions instead of the kernels (the reference the fitted
+    table is held against)."""
+
+    def __enter__(self):
+        from grav1synth_tpu_torch.ops import diff_estimate as de
+        from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+        self.saved = de.flat_block_activity, de.plane_stats
+        de.flat_block_activity = dk.flat_block_activity_reference
+        de.plane_stats = dk.plane_stats_reference
+
+    def __exit__(self, *exc):
+        from grav1synth_tpu_torch.ops import diff_estimate as de
+
+        de.flat_block_activity, de.plane_stats = self.saved
+
+
+def sigma_curve(params, xs):
+    """sigma(intensity) in 8-bit units that a table synthesizes (as
+    tests/test_diff_quality.sigma_curve)."""
+    from grav1synth_tpu.ops import grain_ref
+
+    pat = grain_ref.generate_grain(params, 8, False, 1, 1)
+    sg = float(pat.luma[3:, 3:-3].astype(np.float64).std())
+    lut = grain_ref.build_scaling_lut(params.scaling_points_y, 8)
+    return np.array([lut[x] * sg / (1 << params.scaling_shift) for x in xs])
+
+
+def diff_phases(card, eff, dev):
+    """Phases 5 and 6; returns the diff kernels' launches, times and
+    errors for the summary."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    # 5. kernels against their plain versions
+    errs = {"flat_block_activity": 0, "plane_stats": 0.0}
+    rng = np.random.default_rng(2025)
+    n_cases = 0
+    for bd in (8, 10, 12):
+        for sub_x, sub_y in ((1, 1), (1, 0), (0, 0)):
+            for h, w in ((64, 64), (70, 100), (40, 301), (150, 260), (33, 17), (12, 40)):
+                planes = diff_planes(rng, 3, h, w, bd, sub_x, sub_y)
+                compare_diff_kernels(
+                    planes, bd, sub_x, sub_y, (1, 2, 3), dev, errs, f"{bd}-bit {sub_x}{sub_y} {w}x{h}"
+                )
+                n_cases += 1
+    H, W, BD = 2160, 3840, 10
+    big = diff_planes(rng, 16, H, W, BD, 1, 1)
+    compare_diff_kernels(big, BD, 1, 1, (2,), dev, errs, f"{BD}-bit 4:2:0 {W}x{H} B=16")
+    del big
+    torch.cuda.synchronize()
+    log(f"[diff kernels] {n_cases + 1} cases (x lags, x 3 planes) equal to the plain "
+        f"versions (max |err| {errs})")
+
+    # 6. the diff main path at full size: inject known grain, estimate it back
+    frng = np.random.default_rng(11)
+    clean = film_frames(frng, 32, H, W, BD)
+    params = reseeded(eff, 32)
+    pats = tg.generate_patterns_ref(params, BD, 1, 1)
+    grainy = []
+    for i0 in (0, 16):
+        ps = params[i0 : i0 + 16]
+        prep = tg.prepare_patterns(ps, BD, device=dev, generate=lambda *a, i0=i0: tuple(
+            p[i0 : i0 + 16] for p in pats))
+        out = tg.apply_grain(
+            *(torch.from_numpy(p[i0 : i0 + 16]).to(dev) for p in clean),
+            tg.pack_params(ps, dev), BD, prepared=prep,
+        )
+        grainy.append([t.cpu().numpy() for t in out])
+    grainy = [np.concatenate([g[k] for g in grainy]) for k in range(3)]
+    if np.array_equal(grainy[0], clean[0]):
+        raise AssertionError("no grain was injected")
+
+    def frames_of(planes, i0, n):
+        return [[p[i] for p in planes] for i in range(i0, i0 + n)]
+
+    def estimate(device):
+        est = de.DiffEstimator((30, 1), BD, BD, chunk_frames=1000, device=device)
+        for i0 in (0, 16):
+            est.diff_batch(frames_of(grainy, i0, 16), frames_of(clean, i0, 16))
+        return est.finish()
+
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    tables = estimate(dev)
+    torch.cuda.synchronize()
+    launches = dict(dk.LAUNCHES)
+    log(f"[diff main path] launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a diff kernel of the main path never launched: {launches}")
+    with plain_diff_path():
+        plain_tables = estimate(dev)
+    if not tables or [(t.start_time, t.end_time, t.params) for t in tables] != [
+        (t.start_time, t.end_time, t.params) for t in plain_tables
+    ]:
+        raise AssertionError(f"kernel tables {tables} != plain tables {plain_tables}")
+    got = tables[0].params
+    if not got.scaling_points_y or not got.ar_coeffs_y:
+        raise AssertionError(f"no luma model recovered: {got}")
+    xs = np.arange(40, 236)
+    want = sigma_curve(eff[0], xs)
+    have = sigma_curve(got, xs)
+    rel = np.abs(have - want) / np.maximum(want, 1e-6)
+    if not np.isfinite(rel).all():
+        raise AssertionError("sigma curve error is not finite")
+    log(f"[diff main path] 4K10 4:2:0, 2 batches of 16 through DiffEstimator.diff_batch: "
+        f"{len(tables)} segment(s), table equal to the plain path's; luma sigma-curve error "
+        f"vs injected: median {float(np.median(rel)):.4f}, mean {float(rel.mean()):.4f} "
+        f"(points {got.scaling_points_y}, shift {got.scaling_shift})")
+
+    # times
+    times = {}
+    for label, (h, w, bd, b) in (("4K10 B=16", (H, W, BD, 16)), ("1080p8 B=32", (1080, 1920, 8, 32))):
+        cy, cu, cv = film_frames(np.random.default_rng(3), b, h, w, bd)
+        noise = np.random.default_rng(4)
+        src = [np.clip(p + noise.integers(-8, 9, p.shape, dtype=np.int16), 0, (1 << bd) - 1)
+               for p in (cy, cu, cv)]
+        planes = [torch.from_numpy(a).to(dev) for a in (src[0], cy, src[1], cu, src[2], cv)]
+        sy, dy, sc, dc, sr, dr = planes
+        lavg4 = de.chroma_lavg4(sy, dy, sc.shape[1], sc.shape[2], 1, 1)
+        blk = [de.flat_blocks(d) for d in (dy, dc, dr)]
+        trip = ((sy, dy, blk[0], None), (sc, dc, blk[1], lavg4), (sr, dr, blk[2], lavg4))
+
+        def act(fn):
+            return lambda: [fn(d) for _, d, _, _ in trip]
+
+        def st(fn):
+            return lambda: [fn(s, d, bl, a, 2, bd) for s, d, bl, a in trip]
+
+        t = {
+            "flat_block_activity": (
+                cuda_ms(act(dk.flat_block_activity), 20),
+                cuda_ms(act(dk.flat_block_activity_reference), 3, 1),
+            ),
+            "plane_stats": (
+                cuda_ms(st(dk.plane_stats), 10),
+                cuda_ms(st(dk.plane_stats_reference), 2, 1),
+            ),
+        }
+        for k, (ms, plain) in t.items():
+            log(f"[time] {k} {label} (3 planes, lag 2): kernel {ms:.3f} ms, plain PyTorch "
+                f"{plain:.3f} ms per batch on {card}")
+        if label.startswith("4K"):
+            times = t
+        sf, df = frames_of(src, 0, b), frames_of((cy, cu, cv), 0, b)
+        est = de.DiffEstimator((30, 1), bd, bd, chunk_frames=10**6, device=dev)
+        est.diff_batch(sf, df)
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            est.diff_batch(sf, df)
+        dt = time.perf_counter() - t0
+        log(f"[diff] diff_batch {label} 4:2:0: {b * reps / dt:.1f} frames/s (stack, pinned "
+            f"upload, kernels, one stats download, host chunking) on {card}")
+        del planes, sy, dy, sc, dc, sr, dr, lavg4, blk, trip
+        torch.cuda.empty_cache()
+    return launches, times, errs
+
+
 def main() -> int:
     # 1. card identity
     if not torch.cuda.is_available():
@@ -340,19 +589,26 @@ def main() -> int:
     ) / 1e3
     log(f"[apply] plain PyTorch apply_grain_reference 4K10 B=16: {16 / plain_s:.1f} frames/s on {card}")
 
+    del frames, dev16, out16, out112, outl, luma_args, pair_args, luma112, pair112, prep16
+    torch.cuda.empty_cache()
+    diff_launches, diff_times, diff_errs = diff_phases(card, eff, dev)
+    launches.update(diff_launches)
+    times.update(diff_times)
+    errs.update(diff_errs)
+
     summary = {
         "kernels": [
             {
                 "name": k,
                 "route": "cuda",
-                "source": SOURCE,
+                "source": SOURCES[k],
                 "replaces": REPLACES[k],
                 "launches": launches[k],
                 "max_abs_err": errs[k],
                 "ms": times[k][0],
                 "plain_ms": times[k][1],
             }
-            for k in ("grain_luma", "grain_chroma_pair")
+            for k in ("grain_luma", "grain_chroma_pair", "flat_block_activity", "plane_stats")
         ]
     }
     if "jax" in sys.modules:

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-On first use, ``load()`` compiles every ``csrc/*.cu`` with nvcc into one
-shared library with a plain C interface, for Hopper (``sm_90a``), and
+On first use, ``load()`` compiles every ``csrc/*.cu`` with nvcc for
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+links the objects into one shared library with a plain C interface, and
 loads it with ctypes. The library lands in ``build/grav1synth_tpu_torch/``
 at the root of the checkout (``GRAV1_TORCH_BUILD_DIR`` overrides), named
 by a hash of the sources and flags, so a changed source rebuilds and an
@@ -28,16 +29,19 @@ _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# argtypes of the C entry points in csrc/grain_kernels.cu
+# argtypes of the C entry points in csrc/grain_kernels.cu and
+# csrc/diff_kernels.cu
 SIGNATURES = {
     "grain_luma": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P],
     "grain_chroma_pair": [
         _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
+    "diff_flat_block_activity": [_P, _P, _I, _I, _I, _P],
+    "diff_plane_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grain_error_string": [_I],
 }
 
@@ -89,18 +93,39 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path) and not verbose:
         return lib_path
     os.makedirs(build_dir(), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        objs = [
+            os.path.join(tmp, os.path.basename(src) + ".o") for src in srcs
+        ]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)
+        ]
+        procs = [
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            for cmd in cmds
+        ]
+        outputs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, out in zip(cmds, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+                )
+        so = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        if verbose:
+            print("".join(outputs), end="")
+        os.replace(so, lib_path)
     return lib_path
 
 

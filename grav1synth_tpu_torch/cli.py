@@ -1,21 +1,23 @@
 """Command line of the PyTorch port.
 
-``render`` runs on the port, on ``--device`` (default ``cuda``; without
-a GPU it fails rather than falling back to the CPU). The host-only
-subcommands ``inspect``, ``apply``, ``generate`` and ``remove`` are the
-JAX package's own (they run no device code). ``diff`` and ``estimate``
-are not ported yet.
+``render`` and ``diff`` run on the port, on ``--device`` (default
+``cuda``; without a GPU they fail rather than fall back to the CPU). The
+host-only subcommands ``inspect``, ``apply``, ``generate`` and ``remove``
+are the JAX package's own (they run no device code). ``estimate`` is not
+ported yet.
 
     python -m grav1synth_tpu_torch render in.ivf -o out.y4m [--device cuda]
+    python -m grav1synth_tpu_torch diff grainy.ivf denoised.ivf -o table.txt
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 HOST_COMMANDS = ("inspect", "apply", "generate", "remove")
-NOT_PORTED = ("diff", "estimate")
+NOT_PORTED = ("estimate",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,6 +52,29 @@ def build_parser() -> argparse.ArgumentParser:
         "plain PyTorch path)",
     )
     p.add_argument("-y", action="store_true")
+
+    p = sub.add_parser(
+        "diff", help="estimate a grain table from source vs denoised, on the GPU"
+    )
+    p.add_argument("source")
+    p.add_argument("denoised")
+    p.add_argument("-o", "--output", required=True, help="grain table file to write")
+    p.add_argument("-y", action="store_true", help="overwrite output without asking")
+    p.add_argument(
+        "--filters",
+        help="source preprocessing, e.g. "
+        '"crop:top=42;resize:width=1920,height=1080,alg=lanczos"',
+    )
+    p.add_argument("--batch", type=int, default=16, help="frame pairs per device batch")
+    p.add_argument(
+        "--shards", type=int, default=1, help="devices per batch (only 1 so far)"
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device for the statistics (default cuda; 'cpu' runs the "
+        "plain PyTorch path)",
+    )
     return ap
 
 
@@ -68,6 +93,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from . import pipelines
 
+    if args.command == "diff":
+        if os.path.abspath(args.source) == os.path.abspath(args.denoised):
+            sys.exit("error: source and denoised cannot be the same file")
+        if os.path.abspath(args.denoised) == os.path.abspath(args.output):
+            sys.exit("error: input and output files cannot be the same")
+        host_cli._check_paths(args.source, args.output, args.y)
+        segments = pipelines.diff(
+            args.source, args.denoised, args.output, args.filters,
+            batch=args.batch, shards=args.shards, device=args.device,
+        )
+        print(f"Done, wrote grain table ({len(segments)} segments)")
+        return 0
     host_cli._check_paths(args.input, args.output, args.y)
     n = pipelines.render(
         args.input, args.output, batch=args.batch, grain=not args.no_grain,

@@ -1,0 +1,581 @@
+"""Grain-table estimation from a grainy/denoised frame-pair stream on the
+PyTorch port (counterpart of grav1synth_tpu/ops/diff_estimate.py).
+
+The device half reduces each frame pair to per-frame statistics through
+the two kernels of ``ops.diff_kernels``: the flat-block map of the
+denoised plane (``flat_blocks``), then the masked lag-window Gram and
+64-bin residual moments of every plane (``plane_stats``); chroma planes
+get the collocated x4 luma-residual column (``chroma_lavg4``). The host
+half, the per-chunk model fit, is numpy. It is a copy of the JAX
+package's (``_PlaneStats`` through ``_frame_sigma``), because that module
+imports JAX at load time; tests hold the copy equal to the original.
+``DiffEstimator`` feeds batches through the device half with one upload
+per plane and one download of all of a batch's statistics, and chunks
+frames into grain-table segments exactly as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from grav1synth_tpu.obu.types import FilmGrainParams, GrainTableSegment
+from grav1synth_tpu.ops import grain_ref
+from grav1synth_tpu.tables.aggregate import packet_bounds
+
+from .diff_kernels import FLAT_BLOCK, NUM_BINS, flat_block_activity, offsets, plane_stats
+
+
+def flat_blocks(d: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) int16 denoised plane -> (B, H//16, W//16) uint8 flat-block
+    map (1 = flat): block mean activity below 1.5 x the frame's median
+    block activity + 1e-3, in float32 as diff_estimate._flat_blocks_batch
+    computes it. The median is interpolated by hand as jnp.percentile
+    does (low * (1 - w) + high * w); every value is exact in float32."""
+    act = flat_block_activity(d).to(torch.float32) / (FLAT_BLOCK * FLAT_BLOCK)
+    b, hb, wb = act.shape
+    if act.numel() == 0:
+        return torch.zeros((b, hb, wb), dtype=torch.uint8, device=d.device)
+    n = hb * wb
+    srt = act.reshape(b, n).sort(dim=1).values
+    lo = (n - 1) // 2
+    hw = 0.5 * (n - 1) - lo  # 0 or 0.5
+    med = srt[:, lo] * (1.0 - hw) + srt[:, min(lo + 1, n - 1)] * hw
+    thresh = (med * 1.5 + 1e-3)[:, None, None]
+    return (act < thresh).to(torch.uint8)
+
+
+def chroma_lavg4(
+    s: torch.Tensor, d: torch.Tensor, hc: int, wc: int, sub_x: int, sub_y: int
+) -> torch.Tensor:
+    """x4-scaled collocated luma-residual average, int16, for the stats
+    kernel's aux column: edge-padded 2x2, 2x1 or 1x1 sums of s and of d,
+    their difference, shifted left by 2 - sub_x - sub_y
+    (diff_estimate._chroma_lavg4)."""
+    b, h, w = s.shape
+    need_h, need_w = hc << sub_y, wc << sub_x
+
+    def pool_sum(p):
+        p = p[:, :need_h, :need_w]
+        if need_h > h:
+            p = torch.cat([p, p[:, -1:].expand(b, need_h - h, p.shape[2])], 1)
+        if need_w > w:
+            p = torch.cat([p, p[:, :, -1:].expand(b, need_h, need_w - w)], 2)
+        return p.reshape(b, hc, 1 << sub_y, wc, 1 << sub_x).sum((2, 4), dtype=torch.int32)
+
+    out = (pool_sum(s) - pool_sum(d)) << (2 - (sub_x + sub_y))
+    return out.to(torch.int16)
+
+
+def pair_plane_stats(s, d, aux4, lag: int, bit_depth: int) -> dict:
+    """Statistics of one plane of a frame-pair batch: flat blocks of d,
+    then the stats kernel. uint8 inputs widen to int16 on the device."""
+    s16, d16 = s.to(torch.int16), d.to(torch.int16)
+    return plane_stats(s16, d16, flat_blocks(d16), aux4, lag, bit_depth)
+
+
+def batch_pair_stats_per_frame(
+    sy, dy, sc, dc, sr, dr,
+    lag: int, bit_depth: int, sub_x: int, sub_y: int, has_chroma: bool,
+):
+    """A (B, H, W) frame-pair batch on one device -> PER-FRAME statistics
+    of luma and, with ``has_chroma``, both chroma planes: (y, cb|None,
+    cr|None), each a dict of float64 tensors with a leading batch dim
+    (the contract of diff_estimate.batch_pair_stats_per_frame). Inputs
+    may be uint8 or int16."""
+    y = pair_plane_stats(sy, dy, None, lag, bit_depth)
+    if not has_chroma:
+        return y, None, None
+    hc, wc = sc.shape[1:]
+    lavg4 = chroma_lavg4(sy, dy, hc, wc, sub_x, sub_y)
+    return (
+        y,
+        pair_plane_stats(sc, dc, lavg4, lag, bit_depth),
+        pair_plane_stats(sr, dr, lavg4, lag, bit_depth),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Host half: a copy of grav1synth_tpu/ops/diff_estimate.py:261-482
+
+
+@dataclass
+class _PlaneStats:
+    ata: np.ndarray
+    atb: np.ndarray
+    n_ar: float = 0.0
+    bin_cnt: np.ndarray = None
+    bin_sum: np.ndarray = None
+    bin_sumsq: np.ndarray = None
+
+    @classmethod
+    def zero(cls, k):
+        return cls(
+            ata=np.zeros((k, k)),
+            atb=np.zeros(k),
+            bin_cnt=np.zeros(NUM_BINS),
+            bin_sum=np.zeros(NUM_BINS),
+            bin_sumsq=np.zeros(NUM_BINS),
+        )
+
+    def add(self, stats) -> None:
+        self.ata += np.asarray(stats["ata"], np.float64)
+        self.atb += np.asarray(stats["atb"], np.float64)
+        self.n_ar += float(stats["n_ar"])
+        self.bin_cnt += np.asarray(stats["bin_cnt"], np.float64)
+        self.bin_sum += np.asarray(stats["bin_sum"], np.float64)
+        self.bin_sumsq += np.asarray(stats["bin_sumsq"], np.float64)
+
+    def sigma_bins(self, scale8: float, min_count: float = 256.0):
+        """Per-bin residual sigma in 8-bit units + validity mask."""
+        valid = self.bin_cnt > min_count
+        mean = np.where(valid, self.bin_sum / np.maximum(self.bin_cnt, 1), 0)
+        var = np.where(
+            valid,
+            self.bin_sumsq / np.maximum(self.bin_cnt, 1) - mean**2,
+            0,
+        )
+        return np.sqrt(np.maximum(var, 0)) / scale8, valid
+
+
+@dataclass
+class _ChunkStats:
+    y: _PlaneStats
+    cb: _PlaneStats
+    cr: _PlaneStats
+    frames: int = 0
+
+    @classmethod
+    def zero(cls, k):
+        # chroma design gains the collocated-luma column
+        return cls(
+            y=_PlaneStats.zero(k),
+            cb=_PlaneStats.zero(k + 1),
+            cr=_PlaneStats.zero(k + 1),
+        )
+
+
+def _solve_coeffs(ps: _PlaneStats, shift: int) -> Optional[np.ndarray]:
+    k = ps.ata.shape[0]
+    ridge = np.eye(k) * (np.trace(ps.ata) / max(k, 1)) * 1e-6
+    try:
+        coeffs = np.linalg.solve(ps.ata + ridge, ps.atb)
+    except np.linalg.LinAlgError:
+        return None
+    return np.clip(np.round(coeffs * (1 << shift)), -128, 127).astype(int)
+
+
+def _curve_points(
+    vals: np.ndarray, valid: np.ndarray, max_points: int
+) -> List[Tuple[int, int]]:
+    occ = np.nonzero(valid)[0]
+    take = occ if len(occ) <= max_points else occ[
+        np.round(np.linspace(0, len(occ) - 1, max_points)).astype(int)
+    ]
+    pts = []
+    for b in take:
+        x = int(min(255, round((b + 0.5) * 256 / NUM_BINS)))
+        if pts and x <= pts[-1][0]:
+            continue
+        pts.append((x, int(round(vals[b]))))
+    return pts
+
+
+def _fit_params(
+    stats: _ChunkStats, lag: int, bit_depth: int, seed: int,
+    unit_sigma=None,
+) -> Optional[FilmGrainParams]:
+    """Solve the chunk's model: luma + chroma AR coefficients and
+    per-plane scaling curves (joint scaling_shift, as the syntax shares
+    one field across planes).
+
+    ``unit_sigma``: optional (pattern_2d) -> float measuring the unit
+    pattern's sigma. The single-input estimator passes the same
+    high-pass its residuals went through, so the filter's attenuation
+    of THIS grain's spectral character cancels exactly out of the
+    scaling curve; diff leaves it None (plain std)."""
+    if stats.frames == 0 or stats.y.n_ar < 1000:
+        return None
+    if unit_sigma is None:
+        unit_sigma = lambda pat: float(pat.astype(np.float64).std())
+    shift = 6  # ar_coeff_shift
+    coded_y = _solve_coeffs(stats.y, shift)
+    if coded_y is None:
+        return None
+
+    scale8 = 1 << (bit_depth - 8)
+    sigma_y, valid_y = stats.y.sigma_bins(scale8)
+    if not valid_y.any() or sigma_y[valid_y].max() < 0.05:
+        return None
+
+    # chroma fits are optional: enough flat pixels and non-trivial noise
+    def chroma_fit(ps: _PlaneStats):
+        if ps.n_ar < 1000:
+            return None, None, None
+        coded = _solve_coeffs(ps, shift)
+        if coded is None:
+            return None, None, None
+        sigma, valid = ps.sigma_bins(scale8, min_count=64.0)
+        if not valid.any() or sigma[valid].max() < 0.05:
+            return None, None, None
+        return coded, sigma, valid
+
+    coded_cb, sigma_cb, valid_cb = chroma_fit(stats.cb)
+    coded_cr, sigma_cr, valid_cr = chroma_fit(stats.cr)
+
+    # measure each fitted unit pattern's sigma (chroma patterns include
+    # the cross-plane luma term, so generate all planes together)
+    probe = FilmGrainParams(
+        grain_seed=seed,
+        scaling_points_y=[(0, 1)],
+        scaling_points_cb=[(0, 1)] if coded_cb is not None else [],
+        scaling_points_cr=[(0, 1)] if coded_cr is not None else [],
+        ar_coeff_lag=lag,
+        ar_coeffs_y=[int(c) for c in coded_y],
+        ar_coeffs_cb=[int(c) for c in coded_cb] if coded_cb is not None else [],
+        ar_coeffs_cr=[int(c) for c in coded_cr] if coded_cr is not None else [],
+        ar_coeff_shift=shift,
+        scaling_shift=8,
+    )
+    pat = grain_ref.generate_grain(probe, 8, False, 1, 1)
+    sigma_g = unit_sigma(pat.luma[3:, 3:-3])
+    if sigma_g < 1e-3:
+        return None
+    sigma_g_cb = (
+        unit_sigma(pat.cb[3:, 3:-3]) if coded_cb is not None else 0.0
+    )
+    sigma_g_cr = (
+        unit_sigma(pat.cr[3:, 3:-3]) if coded_cr is not None else 0.0
+    )
+
+    # joint scaling_shift: every plane's curve must fit in 8 bits
+    def plane_vals(sigma, valid, sg, ss):
+        if sigma is None or sg < 1e-3:
+            return None
+        return np.where(valid, sigma * (1 << ss) / sg, 0)
+
+    scaling_shift = 8
+    while scaling_shift < 11:
+        peaks = [np.nanmax(plane_vals(sigma_y, valid_y, sigma_g, scaling_shift))]
+        for sigma, valid, sg in (
+            (sigma_cb, valid_cb, sigma_g_cb),
+            (sigma_cr, valid_cr, sigma_g_cr),
+        ):
+            v = plane_vals(sigma, valid, sg, scaling_shift)
+            if v is not None:
+                peaks.append(np.nanmax(v))
+        if max(peaks) <= 255:
+            break
+        scaling_shift += 1
+
+    pts_y = _curve_points(
+        np.clip(sigma_y * (1 << scaling_shift) / sigma_g, 0, 255), valid_y, 14
+    )
+    if not pts_y:
+        return None
+
+    def chroma_points(sigma, valid, sg):
+        if sigma is None or sg < 1e-3:
+            return []
+        vals = np.clip(sigma * (1 << scaling_shift) / sg, 0, 255)
+        pts = _curve_points(vals, valid, 10)
+        return pts if any(y > 0 for _, y in pts) else []
+
+    pts_cb = chroma_points(sigma_cb, valid_cb, sigma_g_cb)
+    pts_cr = chroma_points(sigma_cr, valid_cr, sigma_g_cr)
+
+    k = coded_y.shape[0]
+    return FilmGrainParams(
+        grain_seed=seed,
+        scaling_points_y=pts_y,
+        scaling_points_cb=pts_cb,
+        scaling_points_cr=pts_cr,
+        scaling_shift=scaling_shift,
+        ar_coeff_lag=lag,
+        ar_coeffs_y=[int(c) for c in coded_y],
+        ar_coeffs_cb=(
+            [int(c) for c in coded_cb] if pts_cb else [0] * (k + 1)
+        ),
+        ar_coeffs_cr=(
+            [int(c) for c in coded_cr] if pts_cr else [0] * (k + 1)
+        ),
+        ar_coeff_shift=shift,
+        grain_scale_shift=0,
+        # identity linearization of the chroma scaling input:
+        # (avg_luma*(128-128) + chroma*(192-128)) >> 6 + (256-256) == chroma
+        cb_mult=192, cb_luma_mult=128, cb_offset=256,
+        cr_mult=192, cr_luma_mult=128, cr_offset=256,
+        overlap_flag=True,
+        clip_to_restricted_range=False,
+    )
+
+
+def _frame_sigma(stats) -> float:
+    """Whole-frame flat-area residual sigma (8-bit-depth units of the
+    source) from one frame's bin moments — the per-frame noise-strength
+    signal driving scene-adaptive segmentation."""
+    cnt = float(np.sum(np.asarray(stats["bin_cnt"], np.float64)))
+    if cnt < 1:
+        return 0.0
+    s = float(np.sum(np.asarray(stats["bin_sum"], np.float64)))
+    ss = float(np.sum(np.asarray(stats["bin_sumsq"], np.float64)))
+    mean = s / cnt
+    return float(np.sqrt(max(ss / cnt - mean * mean, 0.0)))
+
+
+# ---------------------------------------------------------------------------
+# The estimator
+
+
+def _download(dicts: List[dict]) -> List[dict]:
+    """All of a batch's per-frame statistics to the host in ONE copy:
+    concatenated per frame on the device, split on the host into numpy
+    arrays of the original shapes."""
+    keys = [sorted(d) for d in dicts]
+    bsz = next(iter(dicts[0].values())).shape[0]
+    flat = torch.cat(
+        [d[k].reshape(bsz, -1).to(torch.float64) for d, ks in zip(dicts, keys) for k in ks],
+        dim=1,
+    )
+    host = flat.cpu().numpy()
+    out, pos = [], 0
+    for d, ks in zip(dicts, keys):
+        unpacked = {}
+        for k in ks:
+            shape = tuple(d[k].shape[1:])
+            n = int(np.prod(shape, dtype=np.int64))
+            unpacked[k] = host[:, pos : pos + n].reshape((bsz,) + shape)
+            pos += n
+        out.append(unpacked)
+    return out
+
+
+class DiffEstimator:
+    """Streaming source/denoised comparator producing a grain table
+    (diff_estimate.DiffEstimator on ``device``).
+
+    Mixed bit depths are normalised to the source's; a chunk closes when
+    it reaches ``chunk_frames`` pairs or when the per-frame noise
+    strength jumps away from the chunk's running level; adjacent chunks
+    whose fitted models agree are merged back into one segment. The
+    tables are the JAX package's."""
+
+    def __init__(
+        self,
+        fps: Tuple[int, int],
+        source_bit_depth: int = 8,
+        denoised_bit_depth: int = 8,
+        lag: int = 2,
+        chunk_frames: int = 60,
+        seed: int = 7391,
+        min_chunk_frames: int = 8,
+        sigma_jump: float = 0.35,
+        device="cuda",
+    ):
+        self.fps = fps
+        self.src_bd = source_bit_depth
+        self.den_bd = denoised_bit_depth
+        self.lag = lag
+        self.chunk_frames = chunk_frames
+        self.seed = seed
+        self.min_chunk_frames = min_chunk_frames
+        self.sigma_jump = sigma_jump
+        self.device = torch.device(device)
+        # pinned host buffers the planes are stacked into, one per plane
+        # slot, reused from batch to batch (see _stage)
+        self._pinned: Dict[int, torch.Tensor] = {}
+        self._k = len(offsets(lag)) - 1
+        self._chunk = _ChunkStats.zero(self._k)
+        self._chunk_start = 0
+        self._frame_idx = 0
+        self._segments: List[GrainTableSegment] = []
+        self._chunk_sigmas: List[float] = []
+
+    def _scene_cut(self, sigma: float) -> bool:
+        """True when this frame's noise level departs from the chunk's
+        running median by more than ``sigma_jump`` (relative) — only
+        once the chunk is long enough to have a trustworthy level."""
+        if len(self._chunk_sigmas) < self.min_chunk_frames:
+            return False
+        level = float(np.median(self._chunk_sigmas))
+        scale8 = 1 << (self.src_bd - 8)
+        return abs(sigma - level) > max(
+            self.sigma_jump * level, 0.15 * scale8
+        )
+
+    def _stage(self, slot: int, planes, denoised: bool) -> torch.Tensor:
+        """Stack one plane of each frame and start its upload: one copy.
+
+        Samples travel as int16 (every AV1 depth fits; uint16 decoder
+        output is reinterpreted, which is value-preserving up to 12 bits)
+        or, when 8-bit and unshifted, as uint8. Denoised planes are
+        brought to the source's bit depth here, in int16. On a CUDA
+        device the planes are stacked straight into a pinned buffer that
+        this estimator keeps per slot: every diff_batch/diff_frame ends
+        in a download that waits for the stream, so the previous upload
+        from a buffer has finished before the buffer is written again."""
+        nshift = self.src_bd - self.den_bd if denoised else 0
+        first = np.asarray(planes[0])
+        shape = (len(planes),) + first.shape
+        dtype = torch.uint8 if first.dtype == np.uint8 and nshift == 0 else torch.int16
+        if self.device.type == "cuda":
+            buf = self._pinned.get(slot)
+            if buf is None or buf.dtype != dtype or tuple(buf.shape[1:]) != shape[1:] \
+                    or buf.shape[0] < shape[0]:
+                buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+                self._pinned[slot] = buf
+            buf = buf[: shape[0]]
+        else:
+            buf = torch.empty(shape, dtype=dtype)
+        # torch's copy_ spreads a large copy (and a cast) over the host's
+        # cores, where numpy's stack runs on one
+        for i, a in enumerate(planes):
+            a = np.asarray(a)
+            buf[i].copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
+        if nshift > 0:
+            buf.bitwise_left_shift_(nshift)
+        elif nshift < 0:
+            buf.bitwise_right_shift_(-nshift)
+        if self.device.type == "cuda":
+            return buf.to(self.device, non_blocking=True)
+        return buf
+
+    def _add_frames(self, y_st, cb_st=None, cr_st=None) -> None:
+        """Run per-frame host statistics through scene-cut detection and
+        chunking, in frame order."""
+        for i in range(next(iter(y_st.values())).shape[0]):
+            stats = {k: v[i] for k, v in y_st.items()}
+            sigma = _frame_sigma(stats)
+            if self._scene_cut(sigma):
+                self._flush_chunk()
+            self._chunk_sigmas.append(sigma)
+            self._chunk.y.add(stats)
+            if cb_st is not None:
+                self._chunk.cb.add({k: v[i] for k, v in cb_st.items()})
+            if cr_st is not None:
+                self._chunk.cr.add({k: v[i] for k, v in cr_st.items()})
+            self._chunk.frames += 1
+            self._frame_idx += 1
+            if self._frame_idx - self._chunk_start >= self.chunk_frames:
+                self._flush_chunk()
+
+    def diff_frame(self, src_planes, den_planes) -> None:
+        """One frame pair, as a batch of one through the same kernels. A
+        chroma plane whose geometry differs between source and denoised
+        is skipped (its statistics stay out of the chunk)."""
+        h, w = np.shape(src_planes[0])
+        if np.shape(den_planes[0]) != (h, w):
+            raise ValueError(
+                f"source/denoised dimensions differ: {(h, w)} vs {np.shape(den_planes[0])}"
+            )
+        ty = self._stage(0, src_planes[:1], False)
+        tdy = self._stage(1, den_planes[:1], True)
+        dicts = [pair_plane_stats(ty, tdy, None, self.lag, self.src_bd)]
+        planes = []
+        if len(src_planes) >= 3 and len(den_planes) >= 3:
+            hc, wc = np.shape(src_planes[1])
+            sub_y = 1 if hc < h else 0
+            sub_x = 1 if wc < w else 0
+            lavg4 = None
+            for idx in (1, 2):
+                if np.shape(den_planes[idx]) != np.shape(src_planes[idx]):
+                    planes.append(False)
+                    continue
+                if lavg4 is None:
+                    lavg4 = chroma_lavg4(ty, tdy, hc, wc, sub_x, sub_y)
+                tc = self._stage(2 * idx, src_planes[idx : idx + 1], False)
+                tdc = self._stage(2 * idx + 1, den_planes[idx : idx + 1], True)
+                dicts.append(pair_plane_stats(tc, tdc, lavg4, self.lag, self.src_bd))
+                planes.append(True)
+        host = iter(_download(dicts))
+        y_st = next(host)
+        cb_st = next(host) if planes and planes[0] else None
+        cr_st = next(host) if len(planes) > 1 and planes[1] else None
+        self._add_frames(y_st, cb_st, cr_st)
+
+    def diff_batch(self, src_frames, den_frames, mesh=None) -> None:
+        """Feed a batch of frame pairs through one pass of the kernels.
+
+        ``src_frames``/``den_frames`` are sequences of per-frame plane
+        lists with uniform geometry. Each plane goes up as one pinned
+        int16 (or uint8) copy, all per-frame statistics come back in one
+        copy, and then run through the same scene-cut/chunking logic as
+        diff_frame, so the tables do not depend on the batch size."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "diff_batch(mesh=...) is not ported yet (ROADMAP.md Queue 1 "
+                "item 6, multi-GPU sharding)"
+            )
+        if not src_frames:
+            return
+        f0s, f0d = src_frames[0], den_frames[0]
+        if np.shape(f0d[0]) != np.shape(f0s[0]):
+            raise ValueError(
+                f"source/denoised dimensions differ: {np.shape(f0s[0])} vs {np.shape(f0d[0])}"
+            )
+        has_chroma = len(f0s) >= 3 and len(f0d) >= 3
+        sub_x = sub_y = 0
+        if has_chroma:
+            if np.shape(f0d[1]) != np.shape(f0s[1]) or np.shape(f0d[2]) != np.shape(f0s[2]):
+                # chroma geometry mismatch: the streaming path skips only
+                # the mismatched plane per frame; route through it so
+                # batched and streaming tables stay identical
+                for sf, df in zip(src_frames, den_frames):
+                    self.diff_frame(sf, df)
+                return
+            (h, w), (hc, wc) = np.shape(f0s[0]), np.shape(f0s[1])
+            sub_y = 1 if hc < h else 0
+            sub_x = 1 if wc < w else 0
+        up = [
+            self._stage(2 * k + j, [f[k] for f in (den_frames if j else src_frames)], j == 1)
+            for k in range(3 if has_chroma else 1)
+            for j in (0, 1)
+        ]
+        up += [None] * (6 - len(up))
+        y_st, cb_st, cr_st = batch_pair_stats_per_frame(
+            *up, lag=self.lag, bit_depth=self.src_bd,
+            sub_x=sub_x, sub_y=sub_y, has_chroma=has_chroma,
+        )
+        host = _download([y_st] + ([cb_st, cr_st] if has_chroma else []))
+        self._add_frames(*host)
+
+    def add_stats(
+        self, y_stats, cb_stats=None, cr_stats=None, frames: int = 1
+    ) -> None:
+        """Ingest pre-reduced statistics covering ``frames`` frame pairs:
+        the batch joins the current chunk as one block (no per-frame
+        scene-cut detection)."""
+        self._chunk.y.add(y_stats)
+        if cb_stats is not None:
+            self._chunk.cb.add(cb_stats)
+        if cr_stats is not None:
+            self._chunk.cr.add(cr_stats)
+        self._chunk.frames += frames
+        self._frame_idx += frames
+        if self._frame_idx - self._chunk_start >= self.chunk_frames:
+            self._flush_chunk()
+
+    def _flush_chunk(self) -> None:
+        if self._chunk.frames == 0:
+            return
+        params = _fit_params(self._chunk, self.lag, self.src_bd, self.seed)
+        start, _ = packet_bounds(self._chunk_start, *self.fps)
+        _, end = packet_bounds(self._frame_idx - 1, *self.fps)
+        if params is not None:
+            merged = False
+            if self._segments and self._segments[-1].end_time == start:
+                if self._segments[-1].params.equal_ignoring_seed(params):
+                    self._segments[-1].end_time = end
+                    merged = True
+            if not merged:
+                self._segments.append(GrainTableSegment(start, end, params))
+        self._chunk = _ChunkStats.zero(self._k)
+        self._chunk_start = self._frame_idx
+        self._chunk_sigmas = []
+
+    def finish(self) -> List[GrainTableSegment]:
+        self._flush_chunk()
+        return self._segments

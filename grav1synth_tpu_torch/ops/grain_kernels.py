@@ -186,7 +186,7 @@ def _on_cpu(*tensors) -> bool:
         return True
     if devs != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(
-            f"grain kernels take tensors on one CUDA device or on the CPU, "
+            f"the kernels take tensors on one CUDA device or on the CPU, "
             f"got {sorted(str(t.device) for t in tensors)}"
         )
     return False

@@ -1,11 +1,13 @@
-"""The render pipeline on the PyTorch port (counterpart of
-grav1synth_tpu.pipelines.render).
+"""The render and diff pipelines on the PyTorch port (counterparts of
+grav1synth_tpu.pipelines.render and .diff).
 
 Decode (dav1d, grain off) and header parsing run on the host through the
-JAX package's host classes, which contain no JAX; each batch of frames
-goes through ``ops.grain.apply_grain`` on ``device``. The output is
-byte-identical to ``grav1synth_tpu render`` and to dav1d's own grain
-synthesis.
+JAX package's host classes, which contain no JAX. ``render`` sends each
+batch of frames through ``ops.grain.apply_grain`` on ``device``; its
+output is byte-identical to ``grav1synth_tpu render`` and to dav1d's own
+grain synthesis. ``diff`` sends each batch of frame pairs through
+``ops.diff_estimate.DiffEstimator`` on ``device``; its grain table is
+identical to ``grav1synth_tpu diff``'s.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from grav1synth_tpu.obu import Av1Parser
+from grav1synth_tpu.obu import Av1Parser, GrainTableSegment
 from grav1synth_tpu.pipelines import GrainFrameState, VideoFile, _decodable, _grain_visible
 from grav1synth_tpu.utils.progress import Progress
 
@@ -236,3 +238,114 @@ def render(
         bar.done()
         log.info("Done, wrote %d frames to %s", frames_out, output_path)
         return frames_out
+
+
+def diff(
+    source_path: str,
+    denoised_path: str,
+    output_path: str,
+    filters: Optional[str] = None,
+    progress: bool = True,
+    batch: int = 16,
+    shards: int = 1,
+    stage_stats: Optional[dict] = None,
+    device="cuda",
+) -> List[GrainTableSegment]:
+    """Estimate a grain table from a grainy source and a denoised copy,
+    both decoded to pixels by dav1d, and write it to ``output_path``.
+
+    Both decoders run on prefetch threads; ``batch`` frame pairs at a
+    time go through ``DiffEstimator.diff_batch`` on ``device`` (one
+    upload per plane, one download of the batch's statistics). The table
+    does not depend on ``batch``.
+
+    ``stage_stats``: optional dict filled with the wall seconds the
+    driving thread spent in "decode" (pulling both decoders) and
+    "device" (diff_batch: upload, kernels, the statistics download and
+    the host-side chunking)."""
+    from grav1synth_tpu.container.ffshim import Decoder
+    from grav1synth_tpu.tables import dump_table
+    from grav1synth_tpu.utils.filters import FilterChain
+    from grav1synth_tpu.utils.prefetch import maybe_prefetch
+
+    from .ops.diff_estimate import DiffEstimator
+
+    if shards > 1:
+        raise NotImplementedError(
+            "diff --shards > 1 is not ported yet (ROADMAP.md Queue 1 item 6, "
+            "multi-GPU sharding)"
+        )
+    device = resolve_device(device)
+    chain = FilterChain.parse(filters) if filters else None
+
+    with VideoFile(source_path) as vs, VideoFile(denoised_path) as vd:
+
+        def frames_of(vf):
+            dec = Decoder("libdav1d", apply_grain=False)
+            return maybe_prefetch(
+                dec.decode_all(
+                    (_decodable(p), p.pts) for p in vf.packets() if p.is_video
+                ),
+                depth=batch,
+            )
+
+        src_it = frames_of(vs)
+        den_it = frames_of(vd)
+        est: Optional[DiffEstimator] = None
+        bar = Progress(total=vs.nb_frames or None, enabled=progress, unit="fr")
+        n = 0
+        pend_src: list = []
+        pend_den: list = []
+        pend_geom = None
+        stats = stage_stats if stage_stats is not None else {}
+        stats.setdefault("decode", 0.0)
+        stats.setdefault("device", 0.0)
+
+        def flush():
+            if pend_src:
+                t0 = time.time()
+                est.diff_batch(pend_src, pend_den)
+                stats["device"] += time.time() - t0
+                pend_src.clear()
+                pend_den.clear()
+
+        while True:
+            t0 = time.time()
+            sf = next(src_it, None)
+            df = next(den_it, None)
+            stats["decode"] += time.time() - t0
+            if sf is None or df is None:
+                if (sf is None) != (df is None):
+                    log.warning(
+                        "source and denoised have different frame counts; "
+                        "stopping at the shorter stream"
+                    )
+                break
+            src_planes = sf.planes
+            if chain is not None:
+                src_planes = chain.apply(src_planes, sf.bit_depth)
+            if est is None:
+                est = DiffEstimator(
+                    vs.fps,
+                    source_bit_depth=sf.bit_depth,
+                    denoised_bit_depth=df.bit_depth,
+                    device=device,
+                )
+            geom = tuple(p.shape for p in src_planes) + tuple(p.shape for p in df.planes)
+            if pend_geom is not None and geom != pend_geom:
+                flush()
+            pend_geom = geom
+            pend_src.append(list(src_planes))
+            pend_den.append(list(df.planes))
+            if len(pend_src) >= batch:
+                flush()
+            n += 1
+            bar.step()
+        flush()
+        src_it.close()
+        den_it.close()
+        bar.done()
+        segments = est.finish() if est is not None else []
+        dump_table(segments, output_path)
+        log.info("Done, wrote grain table to %s (%d frames)", output_path, n)
+        return segments

@@ -80,3 +80,97 @@ def test_kernel_wrappers_check_inputs_on_cuda(cuda):
             torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda),
             torch.zeros((1, gk.P_LEN), dtype=torch.int32, device=cuda), 8,
         )
+
+
+# --- the diff kernels -------------------------------------------------------
+
+DIFF_SIZES = [(64, 64), (70, 100), (40, 301), (150, 260), (33, 17), (12, 40)]
+
+
+def _diff_planes(rng, b, h, w, bd, sub_x, sub_y):
+    """Source = denoised + noise, denoised flat on its upper half and
+    textured below, for luma and both chroma planes."""
+    maxv = (1 << bd) - 1
+    out = []
+    for ph, pw in ((h, w), ((h + sub_y) >> sub_y, (w + sub_x) >> sub_x)):
+        d = rng.integers(0, maxv + 1, (b, ph, pw))
+        d[:, : ph // 2] = maxv // 3 + rng.integers(0, 3, (b, ph // 2, pw))
+        s = np.clip(d + rng.integers(-40, 41, d.shape), 0, maxv)
+        out.append((s.astype(np.int16), d.astype(np.int16)))
+    return out
+
+
+def _stats_equal(got, want, what):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == torch.float64, (what, k)
+        assert torch.equal(got[k].cpu(), want[k].cpu()), (what, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_diff_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    rng = np.random.default_rng(100 + bd)
+    for h, w in DIFF_SIZES:
+        (sy, dy), (sc, dc) = _diff_planes(rng, 3, h, w, bd, sub_x, sub_y)
+        sy, dy, sc, dc = (torch.from_numpy(a).to(cuda) for a in (sy, dy, sc, dc))
+        for d in (dy, dc):
+            before = dk.LAUNCHES["flat_block_activity"]
+            act = dk.flat_block_activity(d)
+            ran = dk.LAUNCHES["flat_block_activity"] - before
+            assert ran == (1 if act.numel() else 0)
+            assert torch.equal(act.cpu(), dk.flat_block_activity_reference(d).cpu())
+        lavg4 = de.chroma_lavg4(sy, dy, sc.shape[1], sc.shape[2], sub_x, sub_y)
+        for lag in (1, 2, 3):
+            for s, d, aux in ((sy, dy, None), (sc, dc, lavg4)):
+                blocks = de.flat_blocks(d)
+                before = dk.LAUNCHES["plane_stats"]
+                got = dk.plane_stats(s, d, blocks, aux, lag, bd)
+                assert dk.LAUNCHES["plane_stats"] == before + 1
+                want = dk.plane_stats_reference(s, d, blocks, aux, lag, bd)
+                _stats_equal(got, want, f"{bd}-bit {w}x{h} lag {lag} aux {aux is not None}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_diff_batch_on_cuda_matches_cpu(cuda):
+    """DiffEstimator on the card and on the CPU: the same statistics to the
+    last bit, so the same table."""
+    from grav1synth_tpu_torch.ops.diff_estimate import DiffEstimator
+
+    rng = np.random.default_rng(5)
+    frames = []
+    for _ in range(6):
+        (sy, dy), (sc, dc) = _diff_planes(rng, 1, 96, 128, 10, 1, 1)
+        frames.append(([sy[0], sc[0], sc[0]], [dy[0], dc[0], dc[0]]))
+    tables = []
+    for dev in ("cpu", cuda):
+        est = DiffEstimator((24, 1), 10, 10, chunk_frames=1000, device=dev)
+        est.diff_batch([f[0] for f in frames], [f[1] for f in frames])
+        tables.append(est.finish())
+    assert len(tables[0]) == len(tables[1]) == 1
+    assert tables[0][0].params == tables[1][0].params
+
+
+@pytest.mark.cuda
+def test_diff_wrappers_check_inputs_on_cuda(cuda):
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    d = torch.zeros((1, 32, 32), dtype=torch.int16, device=cuda)
+    blocks = torch.zeros((1, 2, 2), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError, match="int16"):
+        dk.flat_block_activity(d.to(torch.int32))
+    with pytest.raises(TypeError, match="uint8"):
+        dk.plane_stats(d, d, blocks.float(), None, 2, 8)
+    with pytest.raises(ValueError, match="shape"):
+        dk.plane_stats(d, d, blocks[:, :1], None, 2, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.plane_stats(d, d.transpose(1, 2), blocks, None, 2, 8)
+    with pytest.raises(ValueError, match="one CUDA device or on the CPU"):
+        dk.plane_stats(d, d.cpu(), blocks, None, 2, 8)
+    with pytest.raises(ValueError, match="lag"):
+        dk.plane_stats(d, d, blocks, None, 4, 8)

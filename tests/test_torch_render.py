@@ -91,10 +91,25 @@ def test_cli(tmp_path, capsys):
     table = tmp_path / "t.txt"
     assert torch_cli.main(["inspect", path, "-o", str(table), "-y"]) == 0
     assert table.read_text().startswith("filmgrn1")
-    for cmd in ("diff", "estimate"):
-        with pytest.raises(SystemExit) as e:
-            torch_cli.main([cmd, path, "-o", str(tmp_path / "x.txt")])
-        assert "not yet ported" in str(e.value.code)
+    # diff runs on the port (the two inputs are the same content in two
+    # files: the guards refuse one path given twice)
+    (tmp_path / "b").mkdir()
+    other, _ = _grainy_ivf(tmp_path / "b", 64, 64, 8, False, 3, "")
+    diff_out = tmp_path / "d.txt"
+    assert torch_cli.main(
+        ["diff", path, other, "-o", str(diff_out), "--batch", "2", "--device", "cpu"]
+    ) == 0
+    assert diff_out.read_text().startswith("filmgrn1")
+    for argv in (
+        ["diff", path, path, "-o", str(tmp_path / "e.txt")],
+        ["diff", path, other, "-o", other],
+        ["diff", path, other, "-o", str(diff_out), "--device", "cpu"],  # exists, no -y
+    ):
+        with pytest.raises(SystemExit):
+            torch_cli.main(argv)
+    with pytest.raises(SystemExit) as e:
+        torch_cli.main(["estimate", path, "-o", str(tmp_path / "x.txt")])
+    assert "not yet ported" in str(e.value.code)
 
 
 def test_port_never_imports_jax():
@@ -106,7 +121,7 @@ def test_port_never_imports_jax():
         import numpy as np, torch
         import grav1synth_tpu_torch, grav1synth_tpu_torch._build
         import grav1synth_tpu_torch.cli, grav1synth_tpu_torch.pipelines
-        from grav1synth_tpu_torch.ops import grain, grain_kernels
+        from grav1synth_tpu_torch.ops import diff_estimate, diff_kernels, grain, grain_kernels
         from grav1synth_tpu.obu.types import FilmGrainParams
         p = FilmGrainParams(grain_seed=7, scaling_points_y=[(0, 20), (255, 40)],
                             scaling_points_cb=[(0, 10), (255, 12)], cb_mult=128,
@@ -116,6 +131,9 @@ def test_port_never_imports_jax():
         out = grain.apply_grain(y, c, c.clone(), grain.pack_params([p], "cpu"), 8,
                                 host_params=[p])
         assert out[0].shape == y.shape and not torch.equal(out[0], y)
+        est = diff_estimate.DiffEstimator((24, 1), device="cpu")
+        est.diff_batch([[np.full((40, 40), 9, np.uint8)]], [[np.full((40, 40), 8, np.uint8)]])
+        assert est.finish() == []
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
         """
