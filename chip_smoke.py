@@ -31,7 +31,23 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    luma sigma curve is scored against the injected one; then each diff
    kernel's time (CUDA events) beside its plain version's at 4K10 B = 16
    and 1080p8 B = 32, and diff_batch frames/s with the upload and the
-   statistics download included.
+   statistics download included;
+7. the single-chroma-plane kernel against its plain version on the card,
+   integer-equal, over the sizes of phase 3 and, as its main path, the
+   entry point ``apply_plane_chroma`` on Cb and Cr at 3840x2160 10-bit
+   4:2:0 with 16 frames (averaged luma from ``_avg_luma``): equal to the
+   plain version, to the chroma-pair kernel and, on frame 0, to
+   grain_ref; two small frames also against grain_ref; then its time
+   (CUDA events) beside its plain version's;
+8. the estimate main path at full size: the grained film-like frames of
+   phase 6, two batches of 16 through ``NoiseEstimator.push_batch`` and
+   ``finish`` on the card (the flat-block kernel's launches counted);
+   the table must equal the one from the same estimator with the
+   flat-block kernel's plain version, and the blurred plane, the flat
+   map and the statistics of the first two frames must agree with the
+   port's CPU run (rtol 1e-9); the recovered luma sigma curve is scored
+   against the injected one, and push_batch frames/s is timed with the
+   upload and the statistics download.
 
 Grain patterns come from ``grain_ref`` on the host: the native libav*/
 dav1d shim (and with it ``generate_patterns_native`` and the render
@@ -56,18 +72,24 @@ IVF = ".bench_cache/bench_4k10_grainy.ivf"
 SOURCES = {
     "grain_luma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_chroma_pair": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
+    "grain_chroma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "flat_block_activity": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
     "plane_stats": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
 }
 REPLACES = {
     "grain_luma": "grav1synth_tpu/ops/grain_pallas.py:575",  # _luma_kernel
     "grain_chroma_pair": "grav1synth_tpu/ops/grain_pallas.py:775",  # _chroma_pair_kernel
+    "grain_chroma": "grav1synth_tpu/ops/grain_pallas.py:584",  # _chroma_kernel
     "flat_block_activity": "grav1synth_tpu/ops/diff_pallas.py:272",  # _act_kernel
     "plane_stats": "grav1synth_tpu/ops/diff_pallas.py:108",  # _stats_kernel
 }
 # integer arithmetic (grain) and exact int64 / float64 sums (diff): the
 # kernels and their plain versions must be equal
 TOLERANCE = 0
+# the estimate statistics on the card against the CPU run: float64 sums of
+# integer products, taken in another order (cuBLAS, atomics)
+ESTIMATE_RTOL = 1e-9
+KERNELS = ("grain_luma", "grain_chroma_pair", "grain_chroma", "flat_block_activity", "plane_stats")
 
 
 def log(msg: str) -> None:
@@ -313,12 +335,53 @@ def sigma_curve(params, xs):
     return np.array([lut[x] * sg / (1 << params.scaling_shift) for x in xs])
 
 
-def diff_phases(card, eff, dev):
+def grained_film(eff, dev, n=32, h=2160, w=3840, bd=10):
+    """Film-like clean 4:2:0 frames and the same frames grained on the
+    card by ``apply_grain`` with the stream's tables reseeded per frame,
+    16 at a time: (clean, grainy), each three int16 (n, ., .) arrays."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    clean = film_frames(np.random.default_rng(11), n, h, w, bd)
+    params = reseeded(eff, n)
+    pats = tg.generate_patterns_ref(params, bd, 1, 1)
+    grainy = []
+    for i0 in range(0, n, 16):
+        ps = params[i0 : i0 + 16]
+        prep = tg.prepare_patterns(ps, bd, device=dev, generate=lambda *a, i0=i0: tuple(
+            p[i0 : i0 + 16] for p in pats))
+        out = tg.apply_grain(
+            *(torch.from_numpy(p[i0 : i0 + 16]).to(dev) for p in clean),
+            tg.pack_params(ps, dev), bd, prepared=prep,
+        )
+        grainy.append([t.cpu().numpy() for t in out])
+    grainy = [np.concatenate([g[k] for g in grainy]) for k in range(3)]
+    if np.array_equal(grainy[0], clean[0]):
+        raise AssertionError("no grain was injected")
+    return clean, grainy
+
+
+def frames_of(planes, i0, n):
+    """Per-frame [y, cb, cr] plane lists of frames i0 .. i0 + n - 1."""
+    return [[p[i] for p in planes] for i in range(i0, i0 + n)]
+
+
+def sigma_curve_error(injected, got) -> str:
+    """The recovered luma sigma curve against the injected one over
+    intensities 40-235: median and mean relative error."""
+    xs = np.arange(40, 236)
+    want = sigma_curve(injected, xs)
+    rel = np.abs(sigma_curve(got, xs) - want) / np.maximum(want, 1e-6)
+    if not np.isfinite(rel).all():
+        raise AssertionError("sigma curve error is not finite")
+    return (f"median {float(np.median(rel)):.4f}, mean {float(rel.mean()):.4f} "
+            f"(points {got.scaling_points_y}, shift {got.scaling_shift})")
+
+
+def diff_phases(card, eff, dev, clean, grainy):
     """Phases 5 and 6; returns the diff kernels' launches, times and
     errors for the summary."""
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import diff_kernels as dk
-    from grav1synth_tpu_torch.ops import grain as tg
 
     # 5. kernels against their plain versions
     errs = {"flat_block_activity": 0, "plane_stats": 0.0}
@@ -341,27 +404,6 @@ def diff_phases(card, eff, dev):
         f"versions (max |err| {errs})")
 
     # 6. the diff main path at full size: inject known grain, estimate it back
-    frng = np.random.default_rng(11)
-    clean = film_frames(frng, 32, H, W, BD)
-    params = reseeded(eff, 32)
-    pats = tg.generate_patterns_ref(params, BD, 1, 1)
-    grainy = []
-    for i0 in (0, 16):
-        ps = params[i0 : i0 + 16]
-        prep = tg.prepare_patterns(ps, BD, device=dev, generate=lambda *a, i0=i0: tuple(
-            p[i0 : i0 + 16] for p in pats))
-        out = tg.apply_grain(
-            *(torch.from_numpy(p[i0 : i0 + 16]).to(dev) for p in clean),
-            tg.pack_params(ps, dev), BD, prepared=prep,
-        )
-        grainy.append([t.cpu().numpy() for t in out])
-    grainy = [np.concatenate([g[k] for g in grainy]) for k in range(3)]
-    if np.array_equal(grainy[0], clean[0]):
-        raise AssertionError("no grain was injected")
-
-    def frames_of(planes, i0, n):
-        return [[p[i] for p in planes] for i in range(i0, i0 + n)]
-
     def estimate(device):
         est = de.DiffEstimator((30, 1), BD, BD, chunk_frames=1000, device=device)
         for i0 in (0, 16):
@@ -385,16 +427,9 @@ def diff_phases(card, eff, dev):
     got = tables[0].params
     if not got.scaling_points_y or not got.ar_coeffs_y:
         raise AssertionError(f"no luma model recovered: {got}")
-    xs = np.arange(40, 236)
-    want = sigma_curve(eff[0], xs)
-    have = sigma_curve(got, xs)
-    rel = np.abs(have - want) / np.maximum(want, 1e-6)
-    if not np.isfinite(rel).all():
-        raise AssertionError("sigma curve error is not finite")
     log(f"[diff main path] 4K10 4:2:0, 2 batches of 16 through DiffEstimator.diff_batch: "
         f"{len(tables)} segment(s), table equal to the plain path's; luma sigma-curve error "
-        f"vs injected: median {float(np.median(rel)):.4f}, mean {float(rel.mean()):.4f} "
-        f"(points {got.scaling_points_y}, shift {got.scaling_shift})")
+        f"vs injected: {sigma_curve_error(eff[0], got)}")
 
     # times
     times = {}
@@ -443,6 +478,166 @@ def diff_phases(card, eff, dev):
         del planes, sy, dy, sc, dc, sr, dr, lavg4, blk, trip
         torch.cuda.empty_cache()
     return launches, times, errs
+
+
+def chroma_args(pair_args):
+    """``apply_plane_chroma``'s arguments for Cb and for Cr, from the pair
+    kernel's: the averaged luma from ``_avg_luma``, the plane's rows of
+    the parameter table."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    y, cb, cr, cbp, crp, offs, p2, bd, sub_x, sub_y = pair_args
+    b = y.shape[0]
+    avg = tg._avg_luma(y.to(torch.int32), cb.shape[1], cb.shape[2], sub_x, sub_y)
+    avg = avg.to(torch.int16)
+    return [
+        (src, avg, pat, offs, prm, bd, sub_x, sub_y)
+        for src, pat, prm in ((cb, cbp, p2[:b]), (cr, crp, p2[b:]))
+    ]
+
+
+def hold_chroma_to_plain(outs, cargs, errs, what):
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    for plane, got, args in zip(("cb", "cr"), outs, cargs):
+        e = max_abs_err(got, gk.apply_plane_chroma_reference(*args))
+        errs["grain_chroma"] = max(errs["grain_chroma"], e)
+        if e > TOLERANCE:
+            raise AssertionError(f"{what} {plane}: chroma kernel vs plain max |err| {e}")
+
+
+def chroma_phase(card, eff, dev):
+    """Phase 7; returns the single-chroma-plane kernel's launches, time
+    and error for the summary."""
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    errs = {"grain_chroma": 0}
+    rng = np.random.default_rng(2026)
+    n_cases = 0
+    for bd in (8, 10, 12):
+        for sub_x, sub_y in ((1, 1), (1, 0), (0, 0)):
+            for h, w in ((64, 64), (70, 100), (128, 160), (40, 99), (40, 301)):
+                params = small_params(eff[0])
+                planes = random_planes(rng, len(params), h, w, bd, sub_x, sub_y)
+                _, pair_args = kernel_inputs(params, planes, bd, sub_x, sub_y, dev)
+                cargs = chroma_args(pair_args)
+                outs = [gk.apply_plane_chroma(*a) for a in cargs]
+                hold_chroma_to_plain(outs, cargs, errs, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
+                n_cases += 1
+    small = small_params(eff[0])[:2]
+    sp = random_planes(rng, 2, 70, 301, 10, 1, 1)
+    luma_args, pair_args = kernel_inputs(small, sp, 10, 1, 1, dev)
+    out = [gk.apply_plane_luma(*luma_args)] + [gk.apply_plane_chroma(*a) for a in chroma_args(pair_args)]
+    check_against_grain_ref(out, sp, small, 10, 1, 1, range(2), "small frames, chroma kernel")
+
+    # the main path: the entry point on both chroma planes of a 4K10 batch
+    H, W, BD = 2160, 3840, 10
+    params = reseeded(eff, 16)
+    planes = random_planes(rng, 16, H, W, BD, 1, 1)
+    luma_args, pair_args = kernel_inputs(params, planes, BD, 1, 1, dev)
+    cargs = chroma_args(pair_args)
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    outs = [gk.apply_plane_chroma(*a) for a in cargs]
+    torch.cuda.synchronize()
+    launches = gk.LAUNCHES["grain_chroma"]
+    log(f"[chroma main path] launches {{'grain_chroma': {launches}}}")
+    if launches < 1:
+        raise AssertionError("the chroma kernel never launched on its main path")
+    for t, src in zip(outs, cargs):
+        if tuple(t.shape) != tuple(src[0].shape) or t.dtype != torch.int16:
+            raise AssertionError(f"chroma kernel output {tuple(t.shape)} {t.dtype}")
+    hold_chroma_to_plain(outs, cargs, errs, f"{BD}-bit 4:2:0 {W}x{H} B=16")
+    pair = gk.apply_planes_pair(*pair_args)
+    if not all(torch.equal(o, p) for o, p in zip(outs, pair)):
+        raise AssertionError("chroma kernel on Cb and Cr differs from the chroma-pair kernel")
+    check_against_grain_ref(
+        [gk.apply_plane_luma(*luma_args)] + outs, planes, params, BD, 1, 1, [0], "4K B=16 chroma kernel"
+    )
+    torch.cuda.synchronize()
+    log(f"[chroma kernel] {n_cases + 1} cases x 2 planes integer-equal to the plain version "
+        f"(max |err| {errs}); 2 small frames and 4K frame 0 equal to grain_ref; 4K10 B=16 "
+        f"Cb and Cr equal to the chroma-pair kernel's")
+    ms = cuda_ms(lambda: gk.apply_plane_chroma(*cargs[0]), 20)
+    plain = cuda_ms(lambda: gk.apply_plane_chroma_reference(*cargs[0]), 3, 1)
+    ms_pair = cuda_ms(lambda: gk.apply_planes_pair(*pair_args), 20)
+    log(f"[time] grain_chroma 4K10 4:2:0 B=16, one plane (Cb): kernel {ms:.3f} ms, plain "
+        f"PyTorch {plain:.3f} ms (grain_chroma_pair, both planes, {ms_pair:.3f} ms) on {card}")
+    return {"grain_chroma": launches}, {"grain_chroma": (ms, plain)}, errs
+
+
+def stats_rel_err(got: dict, want: dict) -> float:
+    """Largest difference of each statistic, over its largest magnitude."""
+    return max(
+        float((got[k].cpu() - want[k]).abs().max()) / max(float(want[k].abs().max()), 1.0)
+        for k in want
+    )
+
+
+def estimate_phase(card, eff, dev, grainy):
+    """Phase 8: the estimate main path at full size."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    from grav1synth_tpu_torch.ops import estimate as te
+
+    BD = 10
+
+    def estimate(device):
+        est = te.NoiseEstimator((30, 1), BD, device=device)
+        for i0 in (0, 16):
+            est.push_batch(frames_of(grainy, i0, 16))
+        return est.finish()
+
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    tables = estimate(dev)
+    torch.cuda.synchronize()
+    launches = dk.LAUNCHES["flat_block_activity"]
+    log(f"[estimate main path] launches {{'flat_block_activity': {launches}}}")
+    if launches < 1:
+        raise AssertionError("the flat-block kernel never launched on the estimate path")
+    with plain_diff_path():
+        plain_tables = estimate(dev)
+    if not tables or [(t.start_time, t.end_time, t.params) for t in tables] != [
+        (t.start_time, t.end_time, t.params) for t in plain_tables
+    ]:
+        raise AssertionError(f"kernel tables {tables} != plain tables {plain_tables}")
+    got = tables[0].params
+    if not got.scaling_points_y or not got.ar_coeffs_y:
+        raise AssertionError(f"no luma model recovered: {got}")
+
+    # the first two frames against the port's CPU run
+    y, cb, cr = (torch.from_numpy(p[:2]) for p in grainy)
+    den_c, _ = te.box_blur(y, BD)
+    den_d, _ = te.box_blur(y.to(dev), BD)
+    if not torch.equal(den_d.cpu(), den_c):
+        raise AssertionError("blurred plane on the card differs from the CPU's")
+    if not torch.equal(te.flat_blocks(den_d).cpu(), te.flat_blocks(den_c)):
+        raise AssertionError("flat map on the card differs from the CPU's")
+    err = stats_rel_err(te.batch_self_stats(y.to(dev), 2, BD), te.batch_self_stats(y, 2, BD))
+    for c in (cb, cr):
+        err = max(err, stats_rel_err(
+            te.batch_self_stats_chroma(c.to(dev), y.to(dev), 2, BD, 1, 1),
+            te.batch_self_stats_chroma(c, y, 2, BD, 1, 1),
+        ))
+    if err > ESTIMATE_RTOL:
+        raise AssertionError(f"estimate statistics on the card vs CPU: rel err {err}")
+    log(f"[estimate main path] 4K10 4:2:0, 2 batches of 16 through NoiseEstimator.push_batch "
+        f"and finish: {len(tables)} segment(s), table equal to the plain flat-block path's; "
+        f"frames 0-1 blur and flat map equal to the CPU run, statistics within {err:.3g} "
+        f"(rtol {ESTIMATE_RTOL}); luma sigma-curve error vs injected: "
+        f"{sigma_curve_error(eff[0], got)}")
+
+    est = te.NoiseEstimator((30, 1), BD, device=dev)
+    batch = frames_of(grainy, 0, 16)
+    est.push_batch(batch)
+    reps = 4
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        est.push_batch(batch)
+    dt = time.perf_counter() - t0
+    log(f"[estimate] push_batch 4K10 4:2:0 B=16: {16 * reps / dt:.1f} frames/s (pinned stack, "
+        f"upload, blur, flat map, Gram and moments, one stats download) on {card}")
+    return launches
 
 
 def main() -> int:
@@ -523,7 +718,7 @@ def main() -> int:
     out112 = run(112, batches[112], 112)
     outl = run(16, lum16, "luma16")
     torch.cuda.synchronize()
-    launches = dict(gk.LAUNCHES)
+    launches = {k: gk.LAUNCHES[k] for k in ("grain_luma", "grain_chroma_pair")}
     log(f"[main path] launches {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
@@ -591,10 +786,17 @@ def main() -> int:
 
     del frames, dev16, out16, out112, outl, luma_args, pair_args, luma112, pair112, prep16
     torch.cuda.empty_cache()
-    diff_launches, diff_times, diff_errs = diff_phases(card, eff, dev)
-    launches.update(diff_launches)
-    times.update(diff_times)
-    errs.update(diff_errs)
+    clean, grainy = grained_film(eff, dev)
+    for phase in (
+        lambda: diff_phases(card, eff, dev, clean, grainy),
+        lambda: chroma_phase(card, eff, dev),
+    ):
+        phase_launches, phase_times, phase_errs = phase()
+        launches.update(phase_launches)
+        times.update(phase_times)
+        errs.update(phase_errs)
+        torch.cuda.empty_cache()
+    estimate_phase(card, eff, dev, grainy)
 
     summary = {
         "kernels": [
@@ -608,7 +810,7 @@ def main() -> int:
                 "ms": times[k][0],
                 "plain_ms": times[k][1],
             }
-            for k in ("grain_luma", "grain_chroma_pair", "flat_block_activity", "plane_stats")
+            for k in KERNELS
         ]
     }
     if "jax" in sys.modules:

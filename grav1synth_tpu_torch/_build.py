@@ -40,6 +40,7 @@ SIGNATURES = {
     "grain_chroma_pair": [
         _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
+    "grain_chroma": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "diff_flat_block_activity": [_P, _P, _I, _I, _I, _P],
     "diff_plane_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grain_error_string": [_I],

@@ -1,13 +1,13 @@
 """Command line of the PyTorch port.
 
-``render`` and ``diff`` run on the port, on ``--device`` (default
-``cuda``; without a GPU they fail rather than fall back to the CPU). The
-host-only subcommands ``inspect``, ``apply``, ``generate`` and ``remove``
-are the JAX package's own (they run no device code). ``estimate`` is not
-ported yet.
+``render``, ``diff`` and ``estimate`` run on the port, on ``--device``
+(default ``cuda``; without a GPU they fail rather than fall back to the
+CPU). The host-only subcommands ``inspect``, ``apply``, ``generate`` and
+``remove`` are the JAX package's own (they run no device code).
 
     python -m grav1synth_tpu_torch render in.ivf -o out.y4m [--device cuda]
     python -m grav1synth_tpu_torch diff grainy.ivf denoised.ivf -o table.txt
+    python -m grav1synth_tpu_torch estimate in.ivf -o table.txt [--raw sigmas.txt]
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ import os
 import sys
 
 HOST_COMMANDS = ("inspect", "apply", "generate", "remove")
-NOT_PORTED = ("estimate",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -30,8 +29,6 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="command", required=True)
     for name in HOST_COMMANDS:
         sub.add_parser(name, help="host-only; see grav1synth " + name + " --help")
-    for name in NOT_PORTED:
-        sub.add_parser(name, help="not yet ported")
     p = sub.add_parser(
         "render",
         help="decode to pixels with film grain synthesized on the GPU (y4m out)",
@@ -75,6 +72,21 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device for the statistics (default cuda; 'cpu' runs the "
         "plain PyTorch path)",
     )
+
+    p = sub.add_parser(
+        "estimate",
+        help="(experimental) estimate noise from a single input, no reference, on the GPU",
+    )
+    p.add_argument("input")
+    p.add_argument("-o", "--output", required=True, help="grain table file to write")
+    p.add_argument("-y", action="store_true", help="overwrite output without asking")
+    p.add_argument("--raw", help="also write raw per-frame sigma estimates here")
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device for the statistics (default cuda; 'cpu' runs the "
+        "plain PyTorch path)",
+    )
     return ap
 
 
@@ -84,15 +96,17 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in HOST_COMMANDS:
         return host_cli.main(argv)
-    if argv and argv[0] in NOT_PORTED:
-        sys.exit(
-            f"error: {argv[0]} is not yet ported to grav1synth_tpu_torch "
-            "(ROADMAP.md Queue 1); use grav1synth_tpu"
-        )
     host_cli._setup_logging()
     args = build_parser().parse_args(argv)
     from . import pipelines
 
+    if args.command == "estimate":
+        host_cli._check_paths(args.input, args.output, args.y)
+        if args.raw:
+            host_cli._check_paths(args.input, args.raw, args.y)
+        segments = pipelines.estimate(args.input, args.output, args.raw, device=args.device)
+        print(f"Done, wrote grain table ({len(segments)} segments)")
+        return 0
     if args.command == "diff":
         if os.path.abspath(args.source) == os.path.abspath(args.denoised):
             sys.exit("error: source and denoised cannot be the same file")

@@ -1,12 +1,13 @@
-// AV1 film grain application on Hopper (sm_90a): a luma kernel and a
-// Cb+Cr chroma-pair kernel, bound to Python through a plain C interface
-// (ctypes; see grav1synth_tpu_torch/_build.py).
+// AV1 film grain application on Hopper (sm_90a): a luma kernel, a Cb+Cr
+// chroma-pair kernel and a single-chroma-plane kernel, bound to Python
+// through a plain C interface (ctypes; see grav1synth_tpu_torch/_build.py).
 //
 // grain_luma_kernel replaces grav1synth_tpu/ops/grain_pallas.py:
 // _luma_kernel (body _apply_groups); grain_chroma_pair_kernel replaces
 // grain_pallas.py: _chroma_pair_kernel (body _apply_groups_pair). Run back
 // to back on one stream they also replace _fused_kernel, which is the two
-// bodies in one launch.
+// bodies in one launch. grain_chroma_kernel replaces grain_pallas.py:
+// _chroma_kernel (one chroma plane, its averaged luma read from an input).
 //
 // What bounds them on this card: bytes. A 3840x2160 4:2:0 frame moves
 // about 50 MB of int16 samples in and out; a frame's patterns, scaling
@@ -272,6 +273,66 @@ grain_chroma_pair_kernel(const int16_t* __restrict__ y,
   }
 }
 
+// One chroma plane with its scaling input's averaged luma given as an
+// input. Grid (ceil(NB / CTA_BLOCKS), S, B) over the LUMA blocks of the
+// offsets (S, NB come from the caller's offsets, not from Hc and Wc);
+// each CTA grains the collocated (32>>SY) x (CTA_BLOCKS * 32>>SX) tile.
+template <int SX, int SY>
+__global__ void __launch_bounds__(THREADS)
+grain_chroma_kernel(const int16_t* __restrict__ src, const int16_t* __restrict__ avg,
+                    int16_t* __restrict__ out, const int16_t* __restrict__ pattern,
+                    int64_t pat_stride, const int* __restrict__ offsets,
+                    const int* __restrict__ params, int Hc, int Wc, int S, int NB,
+                    int bit_depth) {
+  constexpr int GH = SY ? 38 : 73, GW = SX ? 44 : 82;
+  constexpr int BW = BLOCK >> SX, BH = BLOCK >> SY;
+  constexpr int TW = CTA_BLOCKS * BW;  // tile width in chroma samples
+  constexpr int RP = THREADS / TW;     // tile rows per pass
+  __shared__ int16_t spat[GH * GW];
+  __shared__ int lut[256];
+  __shared__ int rnd[2][CTA_BLOCKS + 1];
+
+  const int bi = blockIdx.z, s = blockIdx.y, bx0 = blockIdx.x * CTA_BLOCKS;
+  const int* prm = params + (int64_t)bi * P_LEN;
+  const int64_t frame = (int64_t)bi * Hc * Wc;
+  const int yc0 = s * BH, xc0 = bx0 * BW;
+  const int rows = min(BH, Hc - yc0), cols = min(TW, Wc - xc0);
+  const int xl = threadIdx.x % TW;
+
+  if (!prm[P_ACTIVE]) {  // inactive plane: samples pass through
+    if (xl < cols)
+      for (int r = threadIdx.x / TW; r < rows; r += RP) {
+        const int64_t idx = frame + (int64_t)(yc0 + r) * Wc + xc0 + xl;
+        out[idx] = src[idx];
+      }
+    return;
+  }
+  const int16_t* pat = pattern + bi * pat_stride;
+  for (int i = threadIdx.x; i < GH * GW; i += THREADS) spat[i] = pat[i];
+  lut[threadIdx.x] = prm[P_LUT + threadIdx.x];
+  load_randoms(rnd, offsets, bi, s, bx0, S, NB);
+  __syncthreads();
+  if (xl >= cols) return;
+
+  const int ss = prm[P_SCALING_SHIFT], lo = prm[P_CLIP_LO], hi = prm[P_CLIP_HI];
+  const int gmin = prm[P_GMIN], gmax = prm[P_GMAX];
+  const bool overlap = prm[P_OVERLAP] != 0;
+  const bool use_mult = prm[P_USE_MULT] != 0;
+  const int mult = prm[P_MULT] - 128, luma_mult = prm[P_LUMA_MULT] - 128;
+  // (offset - 256) << (bd - 8), written as a product (see the pair kernel)
+  const int offset = (prm[P_OFFSET] - 256) * (1 << (bit_depth - 8));
+  const int maxval = (1 << bit_depth) - 1;
+  const int j = xl / BW, c = xl % BW, jg = bx0 + j;
+  for (int r = threadIdx.x / TW; r < rows; r += RP) {
+    const int64_t idx = frame + (int64_t)(yc0 + r) * Wc + xc0 + xl;
+    const int v = src[idx];
+    const int a = avg[idx];
+    const int val = use_mult ? clampi(((a * luma_mult + v * mult) >> 6) + offset, 0, maxval) : a;
+    const int n = grain_noise<SX, SY>(spat, rnd, j, jg, c, r, s, overlap, gmin, gmax);
+    out[idx] = (int16_t)grained(v, n, scale_lookup(lut, val, bit_depth), ss, lo, hi);
+  }
+}
+
 int nblocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
@@ -302,6 +363,29 @@ int grain_chroma_pair(const void* y, const void* cb, const void* cr, void* out_c
       (int16_t*)out_cb, (int16_t*)out_cr, (const int16_t*)cb_pat, cb_stride,    \
       (const int16_t*)cr_pat, cr_stride, (const int*)offsets,                   \
       (const int*)params2, B, H, W, S, NB, bit_depth)
+  if (sub_x == 1 && sub_y == 1) {
+    LAUNCH(1, 1);
+  } else if (sub_x == 1 && sub_y == 0) {
+    LAUNCH(1, 0);
+  } else if (sub_x == 0 && sub_y == 0) {
+    LAUNCH(0, 0);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+int grain_chroma(const void* src, const void* avg, void* out, const void* pattern,
+                 int64_t pat_stride, const void* offsets, const void* params, int B,
+                 int Hc, int Wc, int S, int NB, int sub_x, int sub_y, int bit_depth,
+                 void* stream) {
+  const dim3 grid((NB + CTA_BLOCKS - 1) / CTA_BLOCKS, S, B);
+#define LAUNCH(SX, SY)                                                              \
+  grain_chroma_kernel<SX, SY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(          \
+      (const int16_t*)src, (const int16_t*)avg, (int16_t*)out,                      \
+      (const int16_t*)pattern, pat_stride, (const int*)offsets, (const int*)params, \
+      Hc, Wc, S, NB, bit_depth)
   if (sub_x == 1 && sub_y == 1) {
     LAUNCH(1, 1);
   } else if (sub_x == 1 && sub_y == 0) {

@@ -48,6 +48,21 @@ def flat_blocks(d: torch.Tensor) -> torch.Tensor:
     return (act < thresh).to(torch.uint8)
 
 
+def pool_sum(p: torch.Tensor, hc: int, wc: int, sub_x: int, sub_y: int) -> torch.Tensor:
+    """(B, H, W) luma -> (B, hc, wc) int32 sums over each chroma sample's
+    collocated 2x2, 2x1 or 1x1 luma block, the last row and column
+    repeated where the chroma plane reaches past the luma plane (as
+    jnp.pad mode="edge" does)."""
+    b, h, w = p.shape
+    need_h, need_w = hc << sub_y, wc << sub_x
+    p = p[:, :need_h, :need_w]
+    if need_h > h:
+        p = torch.cat([p, p[:, -1:].expand(b, need_h - h, p.shape[2])], 1)
+    if need_w > w:
+        p = torch.cat([p, p[:, :, -1:].expand(b, need_h, need_w - w)], 2)
+    return p.reshape(b, hc, 1 << sub_y, wc, 1 << sub_x).sum((2, 4), dtype=torch.int32)
+
+
 def chroma_lavg4(
     s: torch.Tensor, d: torch.Tensor, hc: int, wc: int, sub_x: int, sub_y: int
 ) -> torch.Tensor:
@@ -55,19 +70,8 @@ def chroma_lavg4(
     kernel's aux column: edge-padded 2x2, 2x1 or 1x1 sums of s and of d,
     their difference, shifted left by 2 - sub_x - sub_y
     (diff_estimate._chroma_lavg4)."""
-    b, h, w = s.shape
-    need_h, need_w = hc << sub_y, wc << sub_x
-
-    def pool_sum(p):
-        p = p[:, :need_h, :need_w]
-        if need_h > h:
-            p = torch.cat([p, p[:, -1:].expand(b, need_h - h, p.shape[2])], 1)
-        if need_w > w:
-            p = torch.cat([p, p[:, :, -1:].expand(b, need_h, need_w - w)], 2)
-        return p.reshape(b, hc, 1 << sub_y, wc, 1 << sub_x).sum((2, 4), dtype=torch.int32)
-
-    out = (pool_sum(s) - pool_sum(d)) << (2 - (sub_x + sub_y))
-    return out.to(torch.int16)
+    pooled = pool_sum(s, hc, wc, sub_x, sub_y) - pool_sum(d, hc, wc, sub_x, sub_y)
+    return (pooled << (2 - (sub_x + sub_y))).to(torch.int16)
 
 
 def pair_plane_stats(s, d, aux4, lag: int, bit_depth: int) -> dict:
@@ -353,6 +357,46 @@ def _download(dicts: List[dict]) -> List[dict]:
     return out
 
 
+def stage_planes(
+    pinned: Dict[int, torch.Tensor], device: torch.device, slot: int, planes,
+    nshift: int = 0,
+) -> torch.Tensor:
+    """Stack one plane of each frame and start its upload: one copy.
+
+    Samples travel as int16 (every AV1 depth fits; uint16 decoder output
+    is reinterpreted, which is value-preserving up to 12 bits) or, when
+    8-bit and unshifted, as uint8; ``nshift`` shifts them left (or right
+    when negative) in int16. On a CUDA device the planes are stacked
+    straight into a pinned buffer kept in ``pinned`` per slot: the
+    estimators end every batch in a download that waits for the stream,
+    so the previous upload from a buffer has finished before the buffer
+    is written again."""
+    first = np.asarray(planes[0])
+    shape = (len(planes),) + first.shape
+    dtype = torch.uint8 if first.dtype == np.uint8 and nshift == 0 else torch.int16
+    if device.type == "cuda":
+        buf = pinned.get(slot)
+        if buf is None or buf.dtype != dtype or tuple(buf.shape[1:]) != shape[1:] \
+                or buf.shape[0] < shape[0]:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+            pinned[slot] = buf
+        buf = buf[: shape[0]]
+    else:
+        buf = torch.empty(shape, dtype=dtype)
+    # torch's copy_ spreads a large copy (and a cast) over the host's
+    # cores, where numpy's stack runs on one
+    for i, a in enumerate(planes):
+        a = np.asarray(a)
+        buf[i].copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
+    if nshift > 0:
+        buf.bitwise_left_shift_(nshift)
+    elif nshift < 0:
+        buf.bitwise_right_shift_(-nshift)
+    if device.type == "cuda":
+        return buf.to(device, non_blocking=True)
+    return buf
+
+
 class DiffEstimator:
     """Streaming source/denoised comparator producing a grain table
     (diff_estimate.DiffEstimator on ``device``).
@@ -407,41 +451,9 @@ class DiffEstimator:
         )
 
     def _stage(self, slot: int, planes, denoised: bool) -> torch.Tensor:
-        """Stack one plane of each frame and start its upload: one copy.
-
-        Samples travel as int16 (every AV1 depth fits; uint16 decoder
-        output is reinterpreted, which is value-preserving up to 12 bits)
-        or, when 8-bit and unshifted, as uint8. Denoised planes are
-        brought to the source's bit depth here, in int16. On a CUDA
-        device the planes are stacked straight into a pinned buffer that
-        this estimator keeps per slot: every diff_batch/diff_frame ends
-        in a download that waits for the stream, so the previous upload
-        from a buffer has finished before the buffer is written again."""
+        """Denoised planes are brought to the source's bit depth here."""
         nshift = self.src_bd - self.den_bd if denoised else 0
-        first = np.asarray(planes[0])
-        shape = (len(planes),) + first.shape
-        dtype = torch.uint8 if first.dtype == np.uint8 and nshift == 0 else torch.int16
-        if self.device.type == "cuda":
-            buf = self._pinned.get(slot)
-            if buf is None or buf.dtype != dtype or tuple(buf.shape[1:]) != shape[1:] \
-                    or buf.shape[0] < shape[0]:
-                buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-                self._pinned[slot] = buf
-            buf = buf[: shape[0]]
-        else:
-            buf = torch.empty(shape, dtype=dtype)
-        # torch's copy_ spreads a large copy (and a cast) over the host's
-        # cores, where numpy's stack runs on one
-        for i, a in enumerate(planes):
-            a = np.asarray(a)
-            buf[i].copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
-        if nshift > 0:
-            buf.bitwise_left_shift_(nshift)
-        elif nshift < 0:
-            buf.bitwise_right_shift_(-nshift)
-        if self.device.type == "cuda":
-            return buf.to(self.device, non_blocking=True)
-        return buf
+        return stage_planes(self._pinned, self.device, slot, planes, nshift)
 
     def _add_frames(self, y_st, cb_st=None, cr_st=None) -> None:
         """Run per-frame host statistics through scene-cut detection and

@@ -1,12 +1,15 @@
-"""The two grain kernels of the apply path (counterparts of the Pallas
-kernels in grav1synth_tpu/ops/grain_pallas.py), each beside its plain
-PyTorch version.
+"""The grain kernels (counterparts of the Pallas kernels in
+grav1synth_tpu/ops/grain_pallas.py), each beside its plain PyTorch
+version.
 
-- ``apply_plane_luma``  -> CUDA ``grain_luma_kernel``
+- ``apply_plane_luma``   -> CUDA ``grain_luma_kernel``
   (replaces ``grain_pallas._luma_kernel``)
-- ``apply_planes_pair`` -> CUDA ``grain_chroma_pair_kernel``
+- ``apply_planes_pair``  -> CUDA ``grain_chroma_pair_kernel``
   (replaces ``grain_pallas._chroma_pair_kernel``; run after the luma
   kernel on one stream, the pair also covers ``_fused_kernel``)
+- ``apply_plane_chroma`` -> CUDA ``grain_chroma_kernel``
+  (replaces ``grain_pallas._chroma_kernel``: one chroma plane, with the
+  averaged luma of its scaling input given as an input)
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
@@ -54,7 +57,7 @@ P_OFFSET = 10
 P_LUT = 16  # 256 scaling values at the 8-bit nodes
 P_LEN = P_LUT + 256
 
-LAUNCHES: Dict[str, int] = {"grain_luma": 0, "grain_chroma_pair": 0}
+LAUNCHES: Dict[str, int] = {"grain_luma": 0, "grain_chroma_pair": 0, "grain_chroma": 0}
 
 
 def reset_launch_counts() -> None:
@@ -139,6 +142,35 @@ def apply_plane_luma_reference(
     return _grain_plane(src, noise, params, bit_depth, src.to(torch.int32))
 
 
+def apply_plane_chroma_reference(
+    src: torch.Tensor,  # (B, Hc, Wc)
+    avg: torch.Tensor,  # (B, Hc, Wc) averaged ungrained luma (_avg_luma)
+    pattern: torch.Tensor,  # (B, ch, cw)
+    offsets: torch.Tensor,  # (B, S, NB), luma-block indexed
+    params: torch.Tensor,  # (B, P_LEN) from pack_plane_params "cb" or "cr"
+    bit_depth: int,
+    sub_x: int,
+    sub_y: int,
+) -> torch.Tensor:
+    _, hc, wc = src.shape
+    maxval = (1 << bit_depth) - 1
+    noise = _noise_plane(
+        pattern, offsets, hc, wc, sub_x, sub_y,
+        params[:, P_OVERLAP], params[:, P_GMIN], params[:, P_GMAX],
+    )
+
+    def col(k):
+        return params[:, k, None, None]
+
+    avg = avg.to(torch.int32)
+    combined = avg * (col(P_LUMA_MULT) - 128) + src.to(torch.int32) * (col(P_MULT) - 128)
+    val_mult = torch.clamp(
+        (combined >> 6) + ((col(P_OFFSET) - 256) << (bit_depth - 8)), 0, maxval
+    )
+    val = torch.where(col(P_USE_MULT) > 0, val_mult, avg)
+    return _grain_plane(src, noise, params, bit_depth, val)
+
+
 def apply_planes_pair_reference(
     y: torch.Tensor,  # (B, H, W) ungrained source luma
     cb: torch.Tensor,  # (B, Hc, Wc)
@@ -152,28 +184,11 @@ def apply_planes_pair_reference(
     sub_y: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     b = y.shape[0]
-    hc, wc = cb.shape[1], cb.shape[2]
-    maxval = (1 << bit_depth) - 1
-    avg = _avg_luma(y.to(torch.int32), hc, wc, sub_x, sub_y)
-    outs = []
-    for src, pat, prm in ((cb, cb_pat, params2[:b]), (cr, cr_pat, params2[b:])):
-        noise = _noise_plane(
-            pat, offsets, hc, wc, sub_x, sub_y,
-            prm[:, P_OVERLAP], prm[:, P_GMIN], prm[:, P_GMAX],
-        )
-
-        def col(k):
-            return prm[:, k, None, None]
-
-        combined = avg * (col(P_LUMA_MULT) - 128) + src.to(torch.int32) * (
-            col(P_MULT) - 128
-        )
-        val_mult = torch.clamp(
-            (combined >> 6) + ((col(P_OFFSET) - 256) << (bit_depth - 8)), 0, maxval
-        )
-        val = torch.where(col(P_USE_MULT) > 0, val_mult, avg)
-        outs.append(_grain_plane(src, noise, prm, bit_depth, val))
-    return outs[0], outs[1]
+    avg = _avg_luma(y.to(torch.int32), cb.shape[1], cb.shape[2], sub_x, sub_y)
+    return tuple(
+        apply_plane_chroma_reference(src, avg, pat, offsets, prm, bit_depth, sub_x, sub_y)
+        for src, pat, prm in ((cb, cb_pat, params2[:b]), (cr, cr_pat, params2[b:]))
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +273,65 @@ def apply_plane_luma(
     return out
 
 
+def _check_depth_and_subsampling(bit_depth: int, sub_x: int, sub_y: int) -> None:
+    if (sub_x, sub_y) not in ((1, 1), (1, 0), (0, 0)):
+        raise ValueError(f"unsupported subsampling {(sub_x, sub_y)}")
+    if bit_depth not in (8, 10, 12):
+        raise ValueError(f"bit depth {bit_depth} not in (8, 10, 12)")
+
+
+def _chroma_pattern_shape(sub_x: int, sub_y: int) -> Tuple[int, int]:
+    return (CHROMA_H_420 if sub_y else GRAIN_H, CHROMA_W_420 if sub_x else GRAIN_W)
+
+
+def apply_plane_chroma(
+    src: torch.Tensor,  # (B, Hc, Wc) int16
+    avg: torch.Tensor,  # (B, Hc, Wc) int16 averaged ungrained luma
+    pattern: torch.Tensor,  # (B, ch, cw) int16
+    offsets: torch.Tensor,  # (B, S, NB) int32, luma-block indexed
+    params: torch.Tensor,  # (B, P_LEN) int32 from pack_plane_params "cb" or "cr"
+    bit_depth: int,
+    sub_x: int,
+    sub_y: int,
+) -> torch.Tensor:
+    """Grain of one chroma plane whose scaling input's luma average is
+    given (``grain_pallas.apply_plane_chroma``); returns a new (B, Hc, Wc)
+    int16. The stripes and blocks are those of ``offsets``, which must
+    cover the plane."""
+    if _on_cpu(src, avg, pattern, offsets, params):
+        return apply_plane_chroma_reference(
+            src, avg, pattern, offsets, params, bit_depth, sub_x, sub_y
+        )
+    _check_depth_and_subsampling(bit_depth, sub_x, sub_y)
+    b, hc, wc = src.shape
+    if offsets.dim() != 3:
+        raise ValueError(f"offsets: expected (B, S, NB), got shape {tuple(offsets.shape)}")
+    s, nb = offsets.shape[1], offsets.shape[2]
+    if s * (BLOCK >> sub_y) < hc or nb * (BLOCK >> sub_x) < wc:
+        raise ValueError(
+            f"offsets of {s} stripes x {nb} blocks do not cover a {hc}x{wc} plane "
+            f"at subsampling {(sub_x, sub_y)}"
+        )
+    _check("src", src, torch.int16, (b, hc, wc))
+    _check("avg", avg, torch.int16, (b, hc, wc))
+    _check("offsets", offsets, torch.int32, (b, s, nb))
+    _check("params", params, torch.int32, (b, P_LEN))
+    pat_stride = _check_pattern("pattern", pattern, b, *_chroma_pattern_shape(sub_x, sub_y))
+    out = torch.empty_like(src)
+    if b == 0 or hc == 0 or wc == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(src.device):
+        err = lib.grain_chroma(
+            src.data_ptr(), avg.data_ptr(), out.data_ptr(), pattern.data_ptr(),
+            pat_stride, offsets.data_ptr(), params.data_ptr(),
+            b, hc, wc, s, nb, sub_x, sub_y, bit_depth, _stream(src),
+        )
+    _raise_on(err, "grain_chroma launch")
+    LAUNCHES["grain_chroma"] += 1
+    return out
+
+
 def apply_planes_pair(
     y: torch.Tensor,  # (B, H, W) int16, ungrained
     cb: torch.Tensor,  # (B, Hc, Wc) int16
@@ -275,15 +349,11 @@ def apply_planes_pair(
         return apply_planes_pair_reference(
             y, cb, cr, cb_pat, cr_pat, offsets, params2, bit_depth, sub_x, sub_y
         )
-    if (sub_x, sub_y) not in ((1, 1), (1, 0), (0, 0)):
-        raise ValueError(f"unsupported subsampling {(sub_x, sub_y)}")
-    if bit_depth not in (8, 10, 12):
-        raise ValueError(f"bit depth {bit_depth} not in (8, 10, 12)")
+    _check_depth_and_subsampling(bit_depth, sub_x, sub_y)
     b, h, w = y.shape
     hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
     s, nb = (h + BLOCK - 1) // BLOCK, (w + BLOCK - 1) // BLOCK
-    gh = CHROMA_H_420 if sub_y else GRAIN_H
-    gw = CHROMA_W_420 if sub_x else GRAIN_W
+    gh, gw = _chroma_pattern_shape(sub_x, sub_y)
     _check("y", y, torch.int16, (b, h, w))
     _check("cb", cb, torch.int16, (b, hc, wc))
     _check("cr", cr, torch.int16, (b, hc, wc))

@@ -1,13 +1,15 @@
-"""The render and diff pipelines on the PyTorch port (counterparts of
-grav1synth_tpu.pipelines.render and .diff).
+"""The render, diff and estimate pipelines on the PyTorch port
+(counterparts of grav1synth_tpu.pipelines.render, .diff and .estimate).
 
-Decode (dav1d, grain off) and header parsing run on the host through the
-JAX package's host classes, which contain no JAX. ``render`` sends each
+Decode (dav1d) and header parsing run on the host through the JAX
+package's host classes, which contain no JAX. ``render`` sends each
 batch of frames through ``ops.grain.apply_grain`` on ``device``; its
 output is byte-identical to ``grav1synth_tpu render`` and to dav1d's own
 grain synthesis. ``diff`` sends each batch of frame pairs through
-``ops.diff_estimate.DiffEstimator`` on ``device``; its grain table is
-identical to ``grav1synth_tpu diff``'s.
+``ops.diff_estimate.DiffEstimator`` on ``device``, and ``estimate`` each
+batch of grainy frames through ``ops.estimate.NoiseEstimator``; their
+grain tables are identical to ``grav1synth_tpu diff``'s and
+``estimate``'s.
 """
 
 from __future__ import annotations
@@ -349,3 +351,62 @@ def diff(
         dump_table(segments, output_path)
         log.info("Done, wrote grain table to %s (%d frames)", output_path, n)
         return segments
+
+
+ESTIMATE_BATCH = 16  # frames per NoiseEstimator.push_batch
+
+
+def estimate(
+    input_path: str,
+    output_path: str,
+    raw_output: Optional[str] = None,
+    progress: bool = True,
+    device="cuda",
+) -> List[GrainTableSegment]:
+    """Single-input noise estimation: decode the stream with its grain
+    applied (dav1d, on a prefetch thread), feed batches of 16 frames
+    through ``ops.estimate.NoiseEstimator`` on ``device`` (a batch also
+    ends where the plane shapes change), and write the fitted grain table
+    and, with ``raw_output``, one "index sigma" line per frame. Both files
+    are byte-identical to ``grav1synth_tpu estimate``'s."""
+    from grav1synth_tpu.container.ffshim import Decoder
+    from grav1synth_tpu.tables import dump_table
+    from grav1synth_tpu.utils.prefetch import maybe_prefetch
+
+    from .ops.estimate import NoiseEstimator
+
+    device = resolve_device(device)
+    with VideoFile(input_path) as vf:
+        dec = Decoder("libdav1d", apply_grain=True)
+        est: Optional[NoiseEstimator] = None
+        bar = Progress(total=vf.nb_frames or None, enabled=progress, unit="fr")
+        pend: list = []
+        frames = maybe_prefetch(
+            dec.decode_all((_decodable(p), p.pts) for p in vf.packets() if p.is_video),
+            depth=ESTIMATE_BATCH,
+        )
+        try:
+            for frame in frames:
+                if est is None:
+                    est = NoiseEstimator(vf.fps, frame.bit_depth, device=device)
+                if pend and [p.shape for p in pend[-1]] != [p.shape for p in frame.planes]:
+                    est.push_batch(pend)
+                    pend.clear()
+                pend.append(list(frame.planes))
+                if len(pend) >= ESTIMATE_BATCH:
+                    est.push_batch(pend)
+                    pend.clear()
+                bar.step()
+            if est is not None and pend:
+                est.push_batch(pend)
+        finally:
+            frames.close()
+        bar.done()
+    segments = est.finish() if est is not None else []
+    dump_table(segments, output_path)
+    if raw_output and est is not None:
+        with open(raw_output, "w") as fh:
+            for i, s in enumerate(est.per_frame_sigma):
+                fh.write(f"{i} {s:.4f}\n")
+    log.info("Done, wrote grain table to %s", output_path)
+    return segments

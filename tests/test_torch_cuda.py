@@ -72,6 +72,35 @@ def test_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_chroma_kernel_matches_plain_on_cuda(cuda, sub_x, sub_y, bd):
+    params = _params()
+    b = len(params)
+    rng = np.random.default_rng(50 + bd)
+    maxv = (1 << bd) - 1
+    pb = tg.pack_params(params, cuda)
+    _, cbp, crp = (
+        torch.from_numpy(a.astype(np.int16)).to(cuda)
+        for a in tg.generate_patterns_ref(params, bd, sub_x, sub_y)
+    )
+    for h, w in ((70, 301), (33, 17), (64, 64)):
+        hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
+        y = torch.from_numpy(rng.integers(0, maxv + 1, (b, h, w)).astype(np.int16)).to(cuda)
+        avg = tg._avg_luma(y.to(torch.int32), hc, wc, sub_x, sub_y).to(torch.int16)
+        offs = tg.block_offsets(pb.seed, (h + 31) // 32, (w + 31) // 32)
+        for plane, pat in (("cb", cbp), ("cr", crp)):
+            src = torch.from_numpy(rng.integers(0, maxv + 1, (b, hc, wc)).astype(np.int16)).to(cuda)
+            args = (src, avg, pat, offs, gk.pack_plane_params(pb, plane, bd), bd, sub_x, sub_y)
+            before = gk.LAUNCHES["grain_chroma"]
+            got = gk.apply_plane_chroma(*args)
+            assert gk.LAUNCHES["grain_chroma"] == before + 1
+            want = gk.apply_plane_chroma_reference(*args)
+            assert torch.equal(got.cpu(), want.cpu()), f"{plane} {w}x{h}"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_check_inputs_on_cuda(cuda):
     src = torch.zeros((1, 32, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="int16"):
@@ -80,6 +109,19 @@ def test_kernel_wrappers_check_inputs_on_cuda(cuda):
             torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda),
             torch.zeros((1, gk.P_LEN), dtype=torch.int32, device=cuda), 8,
         )
+    c = torch.zeros((1, 40, 40), dtype=torch.int16, device=cuda)
+    pat = torch.zeros((1, 38, 44), dtype=torch.int16, device=cuda)
+    prm = torch.zeros((1, gk.P_LEN), dtype=torch.int32, device=cuda)
+
+    def offs(n):
+        return torch.zeros((1, n, n), dtype=torch.int32, device=cuda)
+
+    with pytest.raises(ValueError, match="do not cover"):  # 2 x 16 rows < 40
+        gk.apply_plane_chroma(c, c, pat, offs(2), prm, 8, 1, 1)
+    with pytest.raises(ValueError, match="avg: expected shape"):
+        gk.apply_plane_chroma(c, c[:, :20], pat, offs(3), prm, 8, 1, 1)
+    with pytest.raises(ValueError, match="pattern: expected shape"):
+        gk.apply_plane_chroma(c, c, pat, offs(3), prm, 8, 0, 0)
 
 
 # --- the diff kernels -------------------------------------------------------
@@ -174,3 +216,44 @@ def test_diff_wrappers_check_inputs_on_cuda(cuda):
         dk.plane_stats(d, d.cpu(), blocks, None, 2, 8)
     with pytest.raises(ValueError, match="lag"):
         dk.plane_stats(d, d, blocks, None, 4, 8)
+
+
+# --- the estimate path ------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_estimate_on_cuda_matches_cpu(cuda):
+    """The blur, the flat map (the flat-block kernel) and the statistics on
+    the card against the CPU run; NoiseEstimator tables equal."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    from grav1synth_tpu_torch.ops import estimate as te
+
+    rng = np.random.default_rng(8)
+    frames = []
+    for _ in range(6):
+        (sy, _), (sc, _) = _diff_planes(rng, 1, 96, 130, 10, 1, 1)
+        frames.append([sy[0], sc[0], sc[0][::-1].copy()])
+    y = torch.from_numpy(np.stack([f[0] for f in frames]))
+    c = torch.from_numpy(np.stack([f[1] for f in frames]))
+    den_cpu, q_cpu = te.box_blur(y, 10)
+    den, q = te.box_blur(y.to(cuda), 10)
+    assert torch.equal(den.cpu(), den_cpu) and torch.equal(q.cpu(), q_cpu)
+    before = dk.LAUNCHES["flat_block_activity"]
+    assert torch.equal(te.flat_blocks(den).cpu(), te.flat_blocks(den_cpu))
+    assert dk.LAUNCHES["flat_block_activity"] == before + 1
+    for got, want in (
+        (te.batch_self_stats(y.to(cuda), 2, 10), te.batch_self_stats(y, 2, 10)),
+        (
+            te.batch_self_stats_chroma(c.to(cuda), y.to(cuda), 3, 10, 1, 1),
+            te.batch_self_stats_chroma(c, y, 3, 10, 1, 1),
+        ),
+    ):
+        for k in want:
+            scale = max(float(want[k].abs().max()), 1.0)
+            assert float((got[k].cpu() - want[k]).abs().max()) / scale < 1e-9, k
+    tables = []
+    for dev in ("cpu", cuda):
+        est = te.NoiseEstimator((24, 1), 10, device=dev)
+        est.push_batch(frames)
+        tables.append(est.finish())
+    assert len(tables[0]) == 1 and tables[0][0].params == tables[1][0].params

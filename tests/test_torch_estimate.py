@@ -1,0 +1,203 @@
+"""The PyTorch port's single-input estimate path against the JAX
+package's, on the CPU (the flat-block kernel's plain version).
+
+- the blurred plane ``den`` and the flat map: identical to the JAX
+  intermediates (``round(_box_blur)``, ``_flat_mask``);
+- per-frame statistics: within rtol 1e-5 (of each array's largest
+  magnitude) of ``batch_self_stats`` / ``batch_self_stats_chroma``, the
+  bar the JAX package holds its own two stats backends to;
+- the copied host code (``highpass_np``, ``_fallback_lag0``): equal;
+- ``NoiseEstimator`` tables (calibration on): identical, per-frame
+  sigmas within rtol 1e-5; ``pipelines.estimate`` table and ``--raw``
+  files: byte-identical.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from grav1synth_tpu import pipelines as jax_pipelines
+from grav1synth_tpu.container.ffshim import Encoder
+from grav1synth_tpu.container.ivf import IvfHeader, IvfPacket, write_ivf
+from grav1synth_tpu.ops import diff_estimate as jd
+from grav1synth_tpu.ops import estimate as je
+from grav1synth_tpu.ops import grain_ref
+from grav1synth_tpu_torch import pipelines
+from grav1synth_tpu_torch.ops import diff_kernels as dk
+from grav1synth_tpu_torch.ops import estimate as te
+
+from test_estimate_quality import (
+    inject,
+    inject_chroma,
+    smooth_clip,
+    smooth_clip_chroma,
+    true_params,
+    true_params_chroma,
+)
+
+
+def _planes(rng, b, h, w, bd, sub_x, sub_y):
+    """Luma and chroma with smooth and textured halves plus noise: both
+    sides of the flat-block threshold."""
+    maxv = (1 << bd) - 1
+    out = []
+    for ph, pw in ((h, w), ((h + sub_y) >> sub_y, (w + sub_x) >> sub_x)):
+        yy, xx = np.mgrid[0:ph, 0:pw]
+        base = (0.2 + 0.5 * xx / pw + 0.1 * yy / ph) * maxv
+        tex = rng.integers(0, maxv + 1, (b, ph, pw))
+        p = np.where(yy[None] < ph // 2, base[None], tex)
+        p = p + rng.normal(0, 0.02 * maxv, (b, ph, pw))
+        out.append(np.clip(np.round(p), 0, maxv).astype(np.int16))
+    return out
+
+
+@pytest.mark.parametrize("bd,h,w", [(8, 37, 53), (10, 64, 70), (12, 33, 81)])
+def test_den_and_flat_map_identical_to_jax(bd, h, w):
+    (y,) = _planes(np.random.default_rng(bd), 2, h, w, bd, 0, 0)[:1]
+    den, q = te.box_blur(torch.from_numpy(y), bd)
+    maxv = (1 << bd) - 1
+    for i in range(2):
+        sm = je._box_blur(jnp.asarray(y[i], jnp.float32))
+        want = np.clip(np.round(np.asarray(sm)), 0, maxv)
+        assert np.array_equal(den[i].numpy(), want)
+        # r = q / 81 is the JAX residual f - sm up to float32 rounding
+        r = q[i].numpy() / 81.0
+        assert np.abs(r - (y[i] - np.asarray(sm, np.float64))).max() < 1e-3
+        flat = dk._pixel_flat(te.flat_blocks(den[i : i + 1]), h, w)[0]
+        assert np.array_equal(flat.numpy(), np.asarray(jd._flat_mask(jnp.asarray(want))) > 0)
+
+
+def _close(got: dict, want: dict, what):
+    assert set(got) == set(want)
+    for k in want:
+        cv = np.asarray(want[k], np.float64)
+        av = got[k].numpy()
+        assert av.shape == cv.shape, (what, k)
+        scale = max(np.abs(cv).max(), 1.0)
+        assert np.abs(av - cv).max() / scale < 1e-5, (what, k, np.abs(av - cv).max() / scale)
+
+
+SIZES = [(37, 53), (49, 70), (33, 81)]  # odd, with full 16x16 blocks
+
+
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("lag", [1, 2, 3])
+def test_self_stats_match_jax(lag, bd, sub_x, sub_y):
+    h, w = SIZES[(lag + bd) % 3]
+    y, c = _planes(np.random.default_rng(lag * 100 + bd), 2, h, w, bd, sub_x, sub_y)
+    ty, tc = torch.from_numpy(y), torch.from_numpy(c)
+    jy, jc = jnp.asarray(y, jnp.int32), jnp.asarray(c, jnp.int32)
+    got_y = te.batch_self_stats(ty, lag, bd)
+    got_c = te.batch_self_stats_chroma(tc, ty, lag, bd, sub_x, sub_y)
+    _close(got_y, je.batch_self_stats(jy, lag, bd), "y")
+    _close(got_c, je.batch_self_stats_chroma(jc, jy, lag, bd, sub_x, sub_y), "chroma")
+    # every frame of both planes has flat pixels in the statistics
+    for st in (got_y, got_c):
+        assert float(st["n_ar"].min()) > 0 and float(st["bin_cnt"].sum(1).min()) > 0
+
+
+def test_no_full_block_gives_zero_stats():
+    """A 12x40 plane has no full 16x16 block. The port gives zero
+    statistics; the reference's batch_self_stats raises there (a median
+    of an empty block map), a defect of the reference, so there is no
+    JAX comparison."""
+    y = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 12, 40)).astype(np.int16))
+    for st in (
+        te.batch_self_stats(y, 2, 8),
+        te.batch_self_stats_chroma(y[:, :6, :20].contiguous(), y, 2, 8, 1, 1),
+    ):
+        for k, v in st.items():
+            assert float(v.abs().sum()) == 0, k
+
+
+def test_highpass_np_equal_to_original():
+    pat = grain_ref.generate_grain(true_params(), 8, True, 1, 1).luma[3:, 3:-3]
+    assert te.highpass_np(pat) == je.highpass_np(pat)
+    rnd = np.random.default_rng(2).normal(0, 9, (38, 44))
+    assert te.highpass_np(rnd) == je.highpass_np(rnd)
+
+
+def test_fallback_lag0_equal_to_original():
+    """The sigma-curve escape hatch on the same moments: the same table."""
+    stats = je.batch_self_stats(
+        jnp.asarray(np.stack(inject(smooth_clip(n=3), true_params())), jnp.int32), 2, 8
+    )
+    stats = {k: np.asarray(v) for k, v in stats.items()}
+    tables = []
+    for est in (te.NoiseEstimator((24, 1), device="cpu"), je.NoiseEstimator((24, 1))):
+        for i in range(3):
+            est._ingest({k: v[i] for k, v in stats.items()})
+        tables.append(est._fallback_lag0())
+    assert tables[0] and tables[0][0].params.ar_coeff_lag == 0
+    assert tables[0] == tables[1]
+
+
+def _run(est, frames):
+    est.push_batch(frames[:7])
+    est.push_batch(frames[7:])
+    return est.finish()
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+def test_noise_estimator_tables_match_jax(chroma):
+    if chroma:
+        frames = inject_chroma(smooth_clip_chroma(), true_params_chroma())
+    else:
+        frames = inject(smooth_clip(), true_params())
+    mine_est = te.NoiseEstimator((24, 1), bit_depth=8, device="cpu")
+    theirs_est = je.NoiseEstimator((24, 1), bit_depth=8)
+    mine, theirs = _run(mine_est, frames), _run(theirs_est, frames)
+    assert len(mine) == 1 and mine[0].params.ar_coeff_lag == 2
+    if chroma:
+        assert mine[0].params.scaling_points_cb and mine[0].params.scaling_points_cr
+    assert [(s.start_time, s.end_time, s.params) for s in mine] == [
+        (s.start_time, s.end_time, s.params) for s in theirs
+    ]
+    np.testing.assert_allclose(mine_est.per_frame_sigma, theirs_est.per_frame_sigma, rtol=1e-5)
+
+
+def test_push_frame_equals_push_batch():
+    frames = inject(smooth_clip(n=4), true_params())
+    e1 = te.NoiseEstimator((24, 1), device="cpu", calibrate=False)
+    e2 = te.NoiseEstimator((24, 1), device="cpu", calibrate=False)
+    sig = [e1.push_frame(f) for f in frames]
+    e2.push_batch(frames)
+    assert sig == e1.per_frame_sigma
+    np.testing.assert_allclose(e1.per_frame_sigma, e2.per_frame_sigma, rtol=1e-12)
+    assert e1.finish()[0].params == e2.finish()[0].params
+
+
+def _noisy_ivf(tmp_path):
+    """tests/test_pipelines.py TestEstimate's clip: 6 frames of flat
+    128x128 luma plus gaussian noise, libaom-encoded."""
+    rng = np.random.default_rng(7)
+    frames = []
+    for _ in range(6):
+        y = np.clip(
+            np.full((128, 128), 100.0) + rng.normal(0, 8.0, (128, 128)), 0, 255
+        ).astype(np.uint8)
+        u = np.full((64, 64), 128, np.uint8)
+        frames.append((y, u, u.copy()))
+    enc = Encoder(128, 128, 8, extra_opts="crf=10")
+    pkts = enc.encode_frames(frames)
+    enc.close()
+    src = tmp_path / "in.ivf"
+    write_ivf(
+        str(src), IvfHeader(width=128, height=128, timebase_den=24, timebase_num=1),
+        [IvfPacket(p.pts, p.data) for p in pkts],
+    )
+    return str(src)
+
+
+def test_pipeline_estimate_matches_jax(tmp_path):
+    src = _noisy_ivf(tmp_path)
+    jax_pipelines.estimate(src, str(tmp_path / "j.tbl"), str(tmp_path / "j.raw"), progress=False)
+    segs = pipelines.estimate(
+        src, str(tmp_path / "t.tbl"), str(tmp_path / "t.raw"), progress=False, device="cpu"
+    )
+    assert len(segs) == 1 and segs[0].params.scaling_points_y
+    assert (tmp_path / "t.tbl").read_bytes() == (tmp_path / "j.tbl").read_bytes()
+    assert (tmp_path / "t.raw").read_bytes() == (tmp_path / "j.raw").read_bytes()
+    assert len((tmp_path / "t.raw").read_text().splitlines()) == 6

@@ -107,9 +107,20 @@ def test_cli(tmp_path, capsys):
     ):
         with pytest.raises(SystemExit):
             torch_cli.main(argv)
-    with pytest.raises(SystemExit) as e:
-        torch_cli.main(["estimate", path, "-o", str(tmp_path / "x.txt")])
-    assert "not yet ported" in str(e.value.code)
+    # estimate runs on the port too, with the JAX CLI's guards
+    est_out, raw = tmp_path / "e.tbl", tmp_path / "e.raw"
+    assert torch_cli.main(
+        ["estimate", path, "-o", str(est_out), "--raw", str(raw), "--device", "cpu"]
+    ) == 0
+    assert est_out.read_text().startswith("filmgrn1")
+    assert len(raw.read_text().splitlines()) == 3
+    for argv in (
+        ["estimate", path, "-o", path, "-y"],
+        ["estimate", path, "-o", str(tmp_path / "f.tbl"), "--raw", path, "-y"],
+        ["estimate", path, "-o", str(est_out), "--device", "cpu"],  # exists, no -y
+    ):
+        with pytest.raises(SystemExit):
+            torch_cli.main(argv)
 
 
 def test_port_never_imports_jax():
@@ -121,7 +132,9 @@ def test_port_never_imports_jax():
         import numpy as np, torch
         import grav1synth_tpu_torch, grav1synth_tpu_torch._build
         import grav1synth_tpu_torch.cli, grav1synth_tpu_torch.pipelines
-        from grav1synth_tpu_torch.ops import diff_estimate, diff_kernels, grain, grain_kernels
+        from grav1synth_tpu_torch.ops import (
+            diff_estimate, diff_kernels, estimate, grain, grain_kernels,
+        )
         from grav1synth_tpu.obu.types import FilmGrainParams
         p = FilmGrainParams(grain_seed=7, scaling_points_y=[(0, 20), (255, 40)],
                             scaling_points_cb=[(0, 10), (255, 12)], cb_mult=128,
@@ -134,6 +147,9 @@ def test_port_never_imports_jax():
         est = diff_estimate.DiffEstimator((24, 1), device="cpu")
         est.diff_batch([[np.full((40, 40), 9, np.uint8)]], [[np.full((40, 40), 8, np.uint8)]])
         assert est.finish() == []
+        ne = estimate.NoiseEstimator((24, 1), device="cpu")
+        ne.push_batch([np.full((40, 40), 9, np.uint8)])
+        assert ne.per_frame_sigma == [0.0] and ne.finish() == []
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
         """
