@@ -47,11 +47,28 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    map and the statistics of the first two frames must agree with the
    port's CPU run (rtol 1e-9); the recovered luma sigma curve is scored
    against the injected one, and push_batch frames/s is timed with the
-   upload and the statistics download.
+   upload and the statistics download;
+9. the grain-pattern kernel against its plain version on the card, equal
+   (tolerance 0), over 8/10/12-bit x 4:2:0/4:2:2/4:4:4/monochrome with
+   mixed batches (AR lag 0-3, grain_scale_shift 0-3, chroma scaling from
+   luma, inactive planes), and on the 16 and 112 reseeded frames of
+   phase 4 against grain_ref's patterns; then the main path with patterns
+   made on the card: ``apply_grain`` with no host patterns at 3840x2160
+   10-bit 4:2:0, B = 16 and 112, 3-plane and luma-only, equal on every
+   frame to phase 4's host-pattern output and on frame 0 to grain_ref,
+   with the pattern, luma and chroma-pair kernels' launches counted; then
+   the pattern kernel's time (CUDA events) beside its plain version's and
+   grain_ref's host ms/frame, and apply+generate frames/s;
+10. the sharded paths: ``sharded_apply_with_stats`` over ``make_mesh()``
+   (every card) and over a two-shard mesh that names the card twice, at
+   4K10 B = 16, equal to the unsharded output, frames exact, energy
+   within rtol 1e-6 of an int64 recount; ``DiffEstimator.diff_batch``
+   over the two-shard mesh fits phase 6's table.
 
-Grain patterns come from ``grain_ref`` on the host: the native libav*/
-dav1d shim (and with it ``generate_patterns_native`` and the render
-pipeline's decoder) is not built on hosts without those libraries.
+Phases 1-8 take grain patterns from ``grain_ref`` on the host (the native
+libav*/dav1d shim, and with it ``generate_patterns_native`` and the
+render pipeline's decoder, is not built on hosts without those
+libraries); phases 9 and 10 make them on the card.
 
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
@@ -73,6 +90,7 @@ SOURCES = {
     "grain_luma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_chroma_pair": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_chroma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
+    "grain_pattern": "grav1synth_tpu_torch/csrc/pattern_kernels.cu",
     "flat_block_activity": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
     "plane_stats": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
 }
@@ -80,6 +98,9 @@ REPLACES = {
     "grain_luma": "grav1synth_tpu/ops/grain_pallas.py:575",  # _luma_kernel
     "grain_chroma_pair": "grav1synth_tpu/ops/grain_pallas.py:775",  # _chroma_pair_kernel
     "grain_chroma": "grav1synth_tpu/ops/grain_pallas.py:584",  # _chroma_kernel
+    # _ar_filter: an XLA lax.scan (with _gaussian_base and
+    # _ar_filter_chroma), not a Pallas kernel
+    "grain_pattern": "grav1synth_tpu/ops/grain_jax.py:266",
     "flat_block_activity": "grav1synth_tpu/ops/diff_pallas.py:272",  # _act_kernel
     "plane_stats": "grav1synth_tpu/ops/diff_pallas.py:108",  # _stats_kernel
 }
@@ -89,7 +110,15 @@ TOLERANCE = 0
 # the estimate statistics on the card against the CPU run: float64 sums of
 # integer products, taken in another order (cuBLAS, atomics)
 ESTIMATE_RTOL = 1e-9
-KERNELS = ("grain_luma", "grain_chroma_pair", "grain_chroma", "flat_block_activity", "plane_stats")
+KERNELS = (
+    "grain_luma", "grain_chroma_pair", "grain_chroma", "grain_pattern",
+    "flat_block_activity", "plane_stats",
+)
+# energy of the sharded apply (an exact int64 sum per shard, added in
+# float64) against an int64 recount
+ENERGY_RTOL = 1e-6
+# (sub_x, sub_y, monochrome) of the pattern kernel's cases
+PATTERN_LAYOUTS = ((1, 1, False), (1, 0, False), (0, 0, False), (1, 1, True))
 
 
 def log(msg: str) -> None:
@@ -640,6 +669,205 @@ def estimate_phase(card, eff, dev, grainy):
     return launches
 
 
+def frames_per_s(fn, b: int, reps: int) -> float:
+    """Frames/s of ``fn`` (one batch of ``b`` frames), host clock around
+    ``reps`` calls that end in a synchronise, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return b * reps / (time.perf_counter() - t0)
+
+
+def pattern_grid(base, seed: int, n: int = 8):
+    """A mixed batch of variants of one table covering what pattern
+    generation branches on: AR lag 0-3, ar_coeff_shift 6-9,
+    grain_scale_shift 0-3, chroma scaling from luma, inactive planes (no
+    luma points, no Cr points, no points at all) and random coefficients,
+    small on even frames and over the whole int8 range on odd ones (as
+    tests/test_torch_cuda.pattern_zoo)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        y, cb, cr = base.scaling_points_y, base.scaling_points_cb, base.scaling_points_cr
+        csfl = False
+        kind = i % 5
+        if kind == 0:
+            y = []
+        elif kind == 1:
+            csfl, cb, cr = True, [], []
+        elif kind == 2:
+            cr = []
+        elif kind == 3:
+            y, cb, cr = [], [], []
+        lag = i % 4
+        bound = 128 if i % 2 else 12
+
+        def coeffs(k):
+            return [int(c) for c in rng.integers(-bound, bound, k)]
+
+        n_pos = 2 * lag * (lag + 1)
+        n_chroma = n_pos + (1 if y else 0)
+        out.append(dataclasses.replace(
+            base, grain_seed=int(rng.integers(0, 1 << 16)), scaling_points_y=y,
+            scaling_points_cb=cb, scaling_points_cr=cr, chroma_scaling_from_luma=csfl,
+            ar_coeff_lag=lag, ar_coeff_shift=6 + int(rng.integers(0, 4)),
+            grain_scale_shift=int(rng.integers(0, 4)),
+            ar_coeffs_y=coeffs(n_pos) if y else [],
+            ar_coeffs_cb=coeffs(n_chroma) if cb or csfl else [],
+            ar_coeffs_cr=coeffs(n_chroma) if cr or csfl else [],
+        ))
+    return out
+
+
+def pattern_phase(card, eff, dev, apply4):
+    """Phase 9; returns the pattern kernel's launches, time and error for
+    the summary, and the device-pattern outputs of the main path."""
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    BD, SX, SY = 10, 1, 1
+    err = 0
+    n_cases = 0
+    for bd in (8, 10, 12):
+        for sub_x, sub_y, mono in PATTERN_LAYOUTS:
+            pb = tg.pack_params(pattern_grid(eff[0], 100 * bd + n_cases), dev)
+            got = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
+            want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
+            if got.shape != want.shape or got.dtype != torch.int16:
+                raise AssertionError(f"pattern kernel output {tuple(got.shape)} {got.dtype}")
+            e = max_abs_err(got, want)
+            err = max(err, e)
+            if e > TOLERANCE:
+                raise AssertionError(
+                    f"{bd}-bit {sub_x}{sub_y} mono={mono}: pattern kernel vs plain max |err| {e}"
+                )
+            n_cases += 1
+    batches, frames, pats, outs = (apply4[k] for k in ("batches", "frames", "pats", "outs"))
+    pbs = {b: tg.pack_params(ps, dev) for b, ps in batches.items()}
+    for b, pb in pbs.items():
+        got = gk.generate_patterns_packed(pb, BD, SX, SY).cpu()
+        want = torch.from_numpy(
+            np.concatenate([p.reshape(b, -1) for p in pats[b]], 1).astype(np.int16)
+        )
+        if not torch.equal(got, want):
+            raise AssertionError(f"4K stream B={b}: pattern kernel differs from grain_ref")
+    torch.cuda.synchronize()
+    log(f"[pattern kernel] {n_cases} cases (8/10/12-bit x 4:2:0/4:2:2/4:4:4/mono, mixed "
+        f"batches) equal to the plain version (max |err| {err}); the 4K stream's 16 and 112 "
+        f"reseeded frames equal to grain_ref")
+
+    # the main path with patterns made on the card
+    pbl = tg.pack_params(apply4["lum16"], dev)
+
+    def run(b, key):
+        pb = pbl if key == "luma16" else tg.pack_params(batches[b], dev)
+        return tg.apply_grain(*frames[b], pb, BD, SX, SY)
+
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    dev_outs = {key: run(b, key) for b, key in ((16, 16), (112, 112), (16, "luma16"))}
+    torch.cuda.synchronize()
+    launches = {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")}
+    log(f"[pattern main path] launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the device-pattern path never launched: {launches}")
+    for key, got in dev_outs.items():
+        for k, (g, w) in enumerate(zip(got, outs[key])):
+            if not torch.equal(g, w):
+                raise AssertionError(f"device patterns {key} plane {k}: differs from host patterns")
+    check_against_grain_ref(
+        dev_outs[16], apply4["host16"], batches[16], BD, SX, SY, [0], "4K B=16 device patterns"
+    )
+    log("[pattern main path] 4K10 B=16, B=112 and luma-only batches through apply_grain "
+        "without host patterns: every frame equal to the host-pattern output, frame 0 to "
+        "grain_ref")
+
+    # times: the kernel alone on rows built once, and the wrapper with the
+    # row pack (a dozen small device ops) in front of it
+    ms, wrapped, plain = {}, {}, {}
+    for b, pb in pbs.items():
+        rows = gk.pattern_params(pb)
+        ms[b] = cuda_ms(lambda: gk.pattern_kernel(rows, BD, SX, SY), 50)
+        wrapped[b] = cuda_ms(lambda: gk.generate_patterns_packed(pb, BD, SX, SY), 50)
+        plain[b] = cuda_ms(lambda: gk.generate_patterns_packed_reference(pb, BD, SX, SY), 3, 1)
+        log(f"[time] grain_pattern 4K10 4:2:0 B={b}: kernel {ms[b]:.4f} ms, with the row pack "
+            f"{wrapped[b]:.4f} ms, plain PyTorch {plain[b]:.3f} ms per batch; grain_ref on the "
+            f"host {apply4['gen_ms']:.1f} ms/frame ({apply4['gen_ms'] * b:.1f} ms per batch) "
+            f"on {card}")
+    for b, key in ((16, 16), (112, 112), (16, "luma16")):
+        fps = frames_per_s(lambda: run(b, key), b, 10 if b == 16 else 3)
+        kind = "luma-only" if key == "luma16" else "3-plane"
+        host = apply4["host_fps"][key]
+        log(f"[apply] 4K10 4:2:0 {kind} B={b}, patterns made on the card: {fps:.1f} frames/s "
+            f"apply+generate (param pack, pattern kernel, offsets, grain kernels); phase 4 "
+            f"with host patterns: {host:.1f} frames/s apply alone, "
+            f"{1e3 / (1e3 / host + apply4['gen_ms']):.1f} with grain_ref's generation, on {card}")
+        # the same with the dispatch facts host params give (segment bound,
+        # chroma kernel off for luma-only tables), as apply_grain_device_patterns takes them
+        ps = apply4["lum16"] if key == "luma16" else batches[b]
+        facts = dict(zip(("n_seg", "chroma_static"), tg._host_metadata(ps, False)))
+        fps_facts = frames_per_s(
+            lambda: tg.apply_grain_device_patterns(
+                *frames[b], tg.pack_params(ps, dev), BD, SX, SY, **facts
+            ), b, 10 if b == 16 else 3,
+        )
+        log(f"[apply] 4K10 4:2:0 {kind} B={b}, patterns made on the card, host facts {facts} "
+            f"(apply_grain_device_patterns): {fps_facts:.1f} frames/s on {card}")
+    return {"grain_pattern": launches["grain_pattern"]}, {"grain_pattern": (ms[16], plain[16])}, \
+        {"grain_pattern": err}, dev_outs
+
+
+def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
+    """Phase 10: the sharded apply and diff paths."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.parallel import DeviceMesh, make_mesh, sharded_apply_with_stats
+
+    BD = 10
+    y, cb, cr = apply4["frames"][16]
+    pb = tg.pack_params(apply4["batches"][16], dev)
+    want = dev_outs[16]
+    d = want[0].to(torch.int64) - y.to(torch.int64)
+    recount = float((d * d).sum())
+    for name, mesh in (("make_mesh()", make_mesh()), ("two shards on one card", DeviceMesh([dev, dev]))):
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        out = sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)
+        torch.cuda.synchronize()
+        launches = {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")}
+        if min(launches.values()) < len(mesh):
+            raise AssertionError(f"sharded apply over {name}: launches {launches}")
+        for k in range(3):
+            if not torch.equal(out[k], want[k]):
+                raise AssertionError(f"sharded apply over {name}: plane {k} differs from unsharded")
+        energy, frames = float(out[3]), int(out[4])
+        if frames != 16 or not abs(energy - recount) <= ENERGY_RTOL * recount:
+            raise AssertionError(
+                f"sharded apply over {name}: frames {frames}, energy {energy} vs {recount}"
+            )
+        fps = frames_per_s(lambda: sharded_apply_with_stats(mesh, y, cb, cr, pb, BD), 16, 10)
+        log(f"[sharded] sharded_apply_with_stats over {name} ({len(mesh)} shard(s)), 4K10 4:2:0 "
+            f"B=16: planes equal to the unsharded apply, frames 16, energy {energy:.6g} "
+            f"(int64 recount {recount:.6g}); launches {launches}; {fps:.1f} frames/s on {card}")
+
+    def estimate(mesh):
+        est = de.DiffEstimator((30, 1), BD, BD, chunk_frames=1000, device=dev)
+        for i0 in (0, 16):
+            est.diff_batch(frames_of(grainy, i0, 16), frames_of(clean, i0, 16), mesh=mesh)
+        return [(t.start_time, t.end_time, t.params) for t in est.finish()]
+
+    tables = estimate(None)
+    sharded = estimate(DeviceMesh([dev, dev]))
+    if not tables or sharded != tables:
+        raise AssertionError(f"diff over two shards: {sharded} != {tables}")
+    log(f"[sharded] DiffEstimator.diff_batch over two shards on one card, 4K10 4:2:0, "
+        f"2 batches of 16: {len(sharded)} segment(s), table equal to the unsharded one")
+
+
 def main() -> int:
     # 1. card identity
     if not torch.cuda.is_available():
@@ -702,9 +930,8 @@ def main() -> int:
     t0 = time.perf_counter()
     pats = {b: tg.generate_patterns_ref(ps, BD, SX, SY) for b, ps in batches.items()}
     pats["luma16"] = tg.generate_patterns_ref(lum16, BD, SX, SY)
-    gen_s = time.perf_counter() - t0
-    log(f"[patterns] grain_ref on the host: {gen_s / (16 + 112 + 16) * 1e3:.1f} ms/frame "
-        f"({16 + 112 + 16} frames)")
+    gen_ms = (time.perf_counter() - t0) / (16 + 112 + 16) * 1e3
+    log(f"[patterns] grain_ref on the host: {gen_ms:.1f} ms/frame ({16 + 112 + 16} frames)")
 
     def run(b, params, key):
         prep = tg.prepare_patterns(
@@ -759,18 +986,12 @@ def main() -> int:
     ms_c = cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10)
     log(f"[time] 4K10 4:2:0 B=112: grain_luma {ms_l:.3f} ms, grain_chroma_pair {ms_c:.3f} ms "
         f"({(ms_l + ms_c) / 112:.4f} ms/frame) on {card}")
+    host_fps = {}
     for b, key in ((16, 16), (112, 112), (16, "luma16")):
         params = batches[b] if key != "luma16" else lum16
-        reps = 10 if b == 16 else 3
-        run(b, params, key)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            run(b, params, key)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        host_fps[key] = frames_per_s(lambda: run(b, params, key), b, 10 if b == 16 else 3)
         kind = "luma-only" if key == "luma16" else "3-plane"
-        log(f"[apply] 4K10 4:2:0 {kind} B={b}: {b * reps / dt:.1f} frames/s "
+        log(f"[apply] 4K10 4:2:0 {kind} B={b}: {host_fps[key]:.1f} frames/s "
             f"(pattern upload, param pack, offsets and kernels; host pattern "
             f"generation excluded) on {card}")
     prep16 = tg.prepare_patterns(
@@ -784,7 +1005,12 @@ def main() -> int:
     ) / 1e3
     log(f"[apply] plain PyTorch apply_grain_reference 4K10 B=16: {16 / plain_s:.1f} frames/s on {card}")
 
-    del frames, dev16, out16, out112, outl, luma_args, pair_args, luma112, pair112, prep16
+    # phases 9 and 10 reuse the batches, frames and host-pattern outputs
+    apply4 = dict(
+        batches=batches, lum16=lum16, host16=host16, frames=frames, pats=pats,
+        outs={16: out16, 112: out112, "luma16": outl}, gen_ms=gen_ms, host_fps=host_fps,
+    )
+    del luma_args, pair_args, luma112, pair112, prep16
     torch.cuda.empty_cache()
     clean, grainy = grained_film(eff, dev)
     for phase in (
@@ -797,6 +1023,11 @@ def main() -> int:
         errs.update(phase_errs)
         torch.cuda.empty_cache()
     estimate_phase(card, eff, dev, grainy)
+    phase_launches, phase_times, phase_errs, dev_outs = pattern_phase(card, eff, dev, apply4)
+    launches.update(phase_launches)
+    times.update(phase_times)
+    errs.update(phase_errs)
+    sharded_phase(card, dev, apply4, dev_outs, clean, grainy)
 
     summary = {
         "kernels": [

@@ -40,7 +40,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-grain", action="store_true", help="skip grain synthesis (clean decode)"
     )
     p.add_argument(
-        "--shards", type=int, default=1, help="devices per batch (only 1 so far)"
+        "--shards",
+        type=int,
+        default=1,
+        help="spread each batch's frames over this many CUDA devices, grain "
+        "patterns made on each (clamped to the devices present; with --device "
+        "cpu, shards run one after another on the CPU)",
     )
     p.add_argument(
         "--device",
@@ -64,7 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--batch", type=int, default=16, help="frame pairs per device batch")
     p.add_argument(
-        "--shards", type=int, default=1, help="devices per batch (only 1 so far)"
+        "--shards",
+        type=int,
+        default=1,
+        help="spread each batch's frame pairs over this many CUDA devices "
+        "(clamped to the devices present; the table does not change)",
     )
     p.add_argument(
         "--device",

@@ -12,12 +12,15 @@ imports JAX at load time; tests hold the copy equal to the original.
 ``DiffEstimator`` feeds batches through the device half with one upload
 per plane and one download of all of a batch's statistics, and chunks
 frames into grain-table segments exactly as the JAX package's does.
+``mesh_pair_stats_per_frame``, ``sharded_diff_stats`` and
+``DiffEstimator.diff_batch(mesh=...)`` shard the frames over a
+``parallel.DeviceMesh``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from grav1synth_tpu.obu.types import FilmGrainParams, GrainTableSegment
 from grav1synth_tpu.ops import grain_ref
 from grav1synth_tpu.tables.aggregate import packet_bounds
 
+from ..parallel.mesh import shard_slices
 from .diff_kernels import FLAT_BLOCK, NUM_BINS, flat_block_activity, offsets, plane_stats
 
 
@@ -99,6 +103,87 @@ def batch_pair_stats_per_frame(
         y,
         pair_plane_stats(sc, dc, lavg4, lag, bit_depth),
         pair_plane_stats(sr, dr, lavg4, lag, bit_depth),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Frame sharding over a device mesh
+
+
+def _wire(a) -> torch.Tensor:
+    """A plane batch as a tensor; uint16 samples reinterpreted as int16
+    (value-preserving for every AV1 depth)."""
+    if isinstance(a, np.ndarray) and a.dtype == np.uint16:
+        a = a.view(np.int16)
+    return torch.as_tensor(a)
+
+
+def _shard_stats(shards, lag: int, bit_depth: int, sub_x: int, sub_y: int, has_chroma: bool):
+    """Per-frame statistics of each shard on its own device: ``shards``
+    holds each shard's [sy, dy(, sc, dc, sr, dr)] on that device."""
+    return [
+        batch_pair_stats_per_frame(
+            *planes, *[None] * (6 - len(planes)), lag=lag, bit_depth=bit_depth,
+            sub_x=sub_x, sub_y=sub_y, has_chroma=has_chroma,
+        )
+        for planes in shards
+    ]
+
+
+def _concat_on(home: torch.device, outs):
+    """Per-shard (y, cb, cr) statistics, concatenated along frames on
+    ``home``."""
+    return tuple(
+        None if outs[0][k] is None
+        else {key: torch.cat([o[k][key].to(home) for o in outs]) for key in outs[0][k]}
+        for k in range(3)
+    )
+
+
+def _split(mesh: Sequence[torch.device], planes) -> list:
+    """Each shard's slices of full-batch planes, on its device."""
+    planes = [_wire(a) for a in planes]
+    return [
+        [a[sl].to(dev, non_blocking=True) for a in planes]
+        for dev, sl in zip(mesh, shard_slices(planes[0].shape[0], len(mesh)))
+    ]
+
+
+def mesh_pair_stats_per_frame(
+    mesh, sy, dy, sc, dc, sr, dr, lag: int, bit_depth: int, sub_x: int, sub_y: int,
+    has_chroma: bool,
+):
+    """``batch_pair_stats_per_frame`` with the frames sharded over a device
+    mesh (diff_estimate.mesh_pair_stats_per_frame): each device reduces its
+    shard, and the per-frame statistics are concatenated on ``mesh[0]``.
+    The batch must divide evenly over the mesh."""
+    planes = [sy, dy] + ([sc, dc, sr, dr] if has_chroma else [])
+    outs = _shard_stats(_split(mesh, planes), lag, bit_depth, sub_x, sub_y, has_chroma)
+    return _concat_on(mesh[0], outs)
+
+
+def sharded_diff_stats(mesh, src_planes, den_planes, lag: int, bit_depth: int):
+    """Frame-parallel diff reduction (diff_estimate.sharded_diff_stats):
+    each device sums its shard's statistics, and the per-shard sums are
+    added on the host in float64. Every sum is exact (integer products, the
+    chroma aux column in quarters), so the result equals the unsharded
+    one. Returns (y, cb|None, cr|None) dicts of numpy float64 arrays."""
+    has_chroma = len(src_planes) >= 3 and len(den_planes) >= 3
+    sub_x = sub_y = 0
+    if has_chroma:
+        (h, w), (hc, wc) = np.shape(src_planes[0])[1:], np.shape(src_planes[1])[1:]
+        sub_y, sub_x = int(hc < h), int(wc < w)
+    planes = [src_planes[0], den_planes[0]]
+    if has_chroma:
+        planes += [src_planes[1], den_planes[1], src_planes[2], den_planes[2]]
+    outs = _shard_stats(_split(mesh, planes), lag, bit_depth, sub_x, sub_y, has_chroma)
+    return tuple(
+        None if outs[0][k] is None
+        else {
+            key: np.asarray(sum(o[k][key].sum(0).cpu().numpy() for o in outs))
+            for key in outs[0][k]
+        }
+        for k in range(3)
     )
 
 
@@ -358,7 +443,7 @@ def _download(dicts: List[dict]) -> List[dict]:
 
 
 def stage_planes(
-    pinned: Dict[int, torch.Tensor], device: torch.device, slot: int, planes,
+    pinned: Dict[Hashable, torch.Tensor], device: torch.device, slot: Hashable, planes,
     nshift: int = 0,
 ) -> torch.Tensor:
     """Stack one plane of each frame and start its upload: one copy.
@@ -429,8 +514,8 @@ class DiffEstimator:
         self.sigma_jump = sigma_jump
         self.device = torch.device(device)
         # pinned host buffers the planes are stacked into, one per plane
-        # slot, reused from batch to batch (see _stage)
-        self._pinned: Dict[int, torch.Tensor] = {}
+        # slot (and shard), reused from batch to batch (see _stage)
+        self._pinned: Dict[Hashable, torch.Tensor] = {}
         self._k = len(offsets(lag)) - 1
         self._chunk = _ChunkStats.zero(self._k)
         self._chunk_start = 0
@@ -450,10 +535,13 @@ class DiffEstimator:
             self.sigma_jump * level, 0.15 * scale8
         )
 
-    def _stage(self, slot: int, planes, denoised: bool) -> torch.Tensor:
-        """Denoised planes are brought to the source's bit depth here."""
+    def _stage(self, slot: Hashable, planes, denoised: bool, device=None) -> torch.Tensor:
+        """Stack and upload ``planes`` to ``device`` (default: the
+        estimator's) through the pinned buffer kept for ``slot``. Denoised
+        planes are brought to the source's bit depth here."""
+        device = self.device if device is None else device
         nshift = self.src_bd - self.den_bd if denoised else 0
-        return stage_planes(self._pinned, self.device, slot, planes, nshift)
+        return stage_planes(self._pinned, device, slot, planes, nshift)
 
     def _add_frames(self, y_st, cb_st=None, cr_st=None) -> None:
         """Run per-frame host statistics through scene-cut detection and
@@ -515,12 +603,14 @@ class DiffEstimator:
         lists with uniform geometry. Each plane goes up as one pinned
         int16 (or uint8) copy, all per-frame statistics come back in one
         copy, and then run through the same scene-cut/chunking logic as
-        diff_frame, so the tables do not depend on the batch size."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "diff_batch(mesh=...) is not ported yet (ROADMAP.md Queue 1 "
-                "item 6, multi-GPU sharding)"
-            )
+        diff_frame, so the tables do not depend on the batch size.
+
+        ``mesh`` (a ``parallel.DeviceMesh``) shards the frames over its
+        devices: the batch is padded to a multiple of the mesh size with
+        copies of its last pair, each shard is staged and uploaded to its
+        own device, the per-frame statistics come together on ``mesh[0]``,
+        and only the first ``len(src_frames)`` frames are used. The tables
+        equal the unsharded ones."""
         if not src_frames:
             return
         f0s, f0d = src_frames[0], den_frames[0]
@@ -541,18 +631,28 @@ class DiffEstimator:
             (h, w), (hc, wc) = np.shape(f0s[0]), np.shape(f0s[1])
             sub_y = 1 if hc < h else 0
             sub_x = 1 if wc < w else 0
-        up = [
-            self._stage(2 * k + j, [f[k] for f in (den_frames if j else src_frames)], j == 1)
-            for k in range(3 if has_chroma else 1)
-            for j in (0, 1)
+        b = len(src_frames)
+        mesh = (self.device,) if mesh is None else mesh
+        pad = (-b) % len(mesh)
+        src_frames = list(src_frames) + [src_frames[-1]] * pad
+        den_frames = list(den_frames) + [den_frames[-1]] * pad
+        # one staging buffer per shard and plane: a mesh may name a device
+        # twice, and each shard's upload must keep its own source
+        shards = [
+            [
+                self._stage(
+                    (i, 2 * k + j), [f[k] for f in (den_frames if j else src_frames)[sl]],
+                    j == 1, device=dev,
+                )
+                for k in range(3 if has_chroma else 1)
+                for j in (0, 1)
+            ]
+            for i, (dev, sl) in enumerate(zip(mesh, shard_slices(b + pad, len(mesh))))
         ]
-        up += [None] * (6 - len(up))
-        y_st, cb_st, cr_st = batch_pair_stats_per_frame(
-            *up, lag=self.lag, bit_depth=self.src_bd,
-            sub_x=sub_x, sub_y=sub_y, has_chroma=has_chroma,
-        )
+        outs = _shard_stats(shards, self.lag, self.src_bd, sub_x, sub_y, has_chroma)
+        y_st, cb_st, cr_st = _concat_on(mesh[0], outs)
         host = _download([y_st] + ([cb_st, cr_st] if has_chroma else []))
-        self._add_frames(*host)
+        self._add_frames(*({k: v[:b] for k, v in d.items()} for d in host))
 
     def add_stats(
         self, y_stats, cb_stats=None, cr_stats=None, frames: int = 1

@@ -1,12 +1,15 @@
 """AV1 film grain application in PyTorch (counterpart of
-grav1synth_tpu/ops/grain_jax.py, host-pattern path).
+grav1synth_tpu/ops/grain_jax.py).
 
-Grain patterns are generated on the host (the native C++ recurrence,
-or ``grain_ref`` where the native shim is missing) and uploaded as one
-packed int16 buffer per batch; the per-pixel work runs in the two CUDA
-kernels of ``grain_kernels`` (luma, then Cb+Cr in one pass). Everything
-here is integer arithmetic and bit-exact against ``grain_ref`` (itself
-validated against dav1d).
+Grain patterns come either from the host (the native C++ recurrence, or
+``grain_ref`` where the native shim is missing), uploaded as one packed
+int16 buffer per batch, or from the device: the pattern kernel of
+``grain_kernels`` writes the same packed buffer from the parameter batch
+(``prepare_patterns_device``; ``generate_patterns`` is its plain
+version). The per-pixel work runs in the two CUDA kernels of
+``grain_kernels`` (luma, then Cb+Cr in one pass). Everything here is
+integer arithmetic and bit-exact against ``grain_ref`` (itself validated
+against dav1d).
 
 ``apply_grain_reference`` is the plain PyTorch version of the whole
 apply, written from the same pieces as the JAX package's XLA
@@ -24,6 +27,7 @@ import torch
 
 from grav1synth_tpu.obu.types import FilmGrainParams
 from grav1synth_tpu.ops import grain_ref
+from grav1synth_tpu.ops.tables_data import GAUSSIAN_SEQUENCE
 
 GRAIN_W = 82
 GRAIN_H = 73
@@ -546,18 +550,174 @@ def prepare_patterns(
         generate = generate_patterns_native
     n_seg, chroma_static = _host_metadata(host_params, monochrome)
     lp, cbp, crp = generate(host_params, bit_depth, sub_x, sub_y, monochrome)
-    b = lp.shape[0]
-    parts = [lp.reshape(b, -1)]
-    chroma_shape = None
-    if cbp is not None:
-        chroma_shape = tuple(int(v) for v in cbp.shape[1:])
-        parts += [cbp.reshape(b, -1), crp.reshape(b, -1)]
-    host = torch.from_numpy(np.concatenate(parts, axis=1).astype(np.int16))
+    chroma_shape = None if cbp is None else tuple(int(v) for v in cbp.shape[1:])
+    host = pack_patterns(*(None if a is None else torch.from_numpy(a) for a in (lp, cbp, crp)))
     device = torch.device(device)
     if device.type == "cuda":
         packed = host.pin_memory().to(device, non_blocking=True)
     else:
         packed = host.to(device)
+    return PreparedPatterns(packed, chroma_shape, n_seg, chroma_static)
+
+
+# ---------------------------------------------------------------------------
+# Grain patterns on the device (grain_jax.generate_patterns)
+
+
+def chroma_pattern_shape(sub_x: int, sub_y: int) -> Tuple[int, int]:
+    """(rows, cols) of a chroma pattern: 38 x 44 at 4:2:0, 73 x 44 at
+    4:2:2, 73 x 82 at 4:4:4."""
+    return (CHROMA_H_420 if sub_y else GRAIN_H, CHROMA_W_420 if sub_x else GRAIN_W)
+
+
+@functools.lru_cache(maxsize=None)
+def gaussian_table(device: torch.device) -> torch.Tensor:
+    """The spec's 2048-entry Gaussian sequence as int16 on ``device``
+    (uploaded once per device; never written)."""
+    return torch.as_tensor(GAUSSIAN_SEQUENCE, dtype=torch.int16, device=device)
+
+
+def _round2(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Spec Round2 for per-frame shifts >= 0 broadcast against ``x``
+    (shift 0 leaves x as it is; arithmetic on negatives)."""
+    add = torch.bitwise_left_shift(torch.ones_like(shift), torch.clamp(shift - 1, min=0))
+    return torch.where(shift > 0, (x + add) >> shift, x)
+
+
+def _gaussian_base(
+    seeds: torch.Tensor, h: int, w: int, shift: torch.Tensor, active: torch.Tensor
+) -> torch.Tensor:
+    """(B,) seeds -> (B, h, w) int32 rounded Gaussian base noise, zero
+    for inactive frames (grain_jax._gaussian_base)."""
+    idx = lfsr_outputs(seeds, h * w, 11)
+    g = gaussian_table(seeds.device).to(torch.int32)[idx.long()]
+    g = _round2(g, shift.to(torch.int32)[:, None]) * active.to(torch.int32)[:, None]
+    return g.reshape(-1, h, w)
+
+
+@functools.lru_cache(maxsize=8)
+def _wavefronts(h: int, w: int) -> np.ndarray:
+    """The AR region's positions grouped by t = 4y + x (grain_jax._wavefronts):
+    every AR neighbour of (y, x) has a smaller t, so the positions sharing
+    a t are independent. (T, P) flat positions, padded with h * w (a
+    scratch slot)."""
+    groups: dict = {}
+    for y in range(3, h):
+        for x in range(3, w - 3):
+            groups.setdefault(4 * y + x, []).append(y * w + x)
+    ts = sorted(groups)
+    out = np.full((len(ts), max(len(v) for v in groups.values())), h * w, dtype=np.int64)
+    for i, t in enumerate(ts):
+        out[i, : len(groups[t])] = groups[t]
+    return out
+
+
+def _ar_filter_reference(
+    pattern: torch.Tensor,  # (B, h, w) int32
+    coeffs: torch.Tensor,  # (B, 24) lag-3 slots
+    ar_shift: torch.Tensor,  # (B,)
+    gmin: torch.Tensor,  # (B,)
+    gmax: torch.Tensor,  # (B,)
+    luma_term: Optional[torch.Tensor] = None,  # (B, h, w) added to each sum
+) -> torch.Tensor:
+    """The spec's AR recurrence over the pattern, as a wavefront scan
+    batched across frames (grain_jax._ar_filter; with ``luma_term``, the
+    chroma filter's collocated-luma tap, _ar_filter_chroma)."""
+    b, h, w = pattern.shape
+    dev = pattern.device
+    flat = torch.cat(
+        [pattern.reshape(b, h * w), torch.zeros((b, 1), dtype=torch.int32, device=dev)], 1
+    )
+    extra = None
+    if luma_term is not None:
+        extra = torch.cat(
+            [luma_term.reshape(b, h * w), torch.zeros((b, 1), dtype=torch.int32, device=dev)], 1
+        )
+    rel = torch.tensor([dr * w + dc for dr, dc in LAG3_OFFSETS], device=dev)
+    coeffs = coeffs.to(torch.int32)[:, None, :]
+    shift = ar_shift.to(torch.int32)[:, None]
+    lo, hi = gmin[:, None], gmax[:, None]
+    for pos in torch.as_tensor(_wavefronts(h, w), device=dev):
+        window = flat[:, pos[:, None] + rel[None, :]]  # (B, P, 24)
+        s = (window * coeffs).sum(-1, dtype=torch.int32)
+        if extra is not None:
+            s = s + extra[:, pos]
+        flat[:, pos] = torch.clamp(flat[:, pos] + _round2(s, shift), lo, hi)
+    return flat[:, : h * w].reshape(b, h, w)
+
+
+def generate_patterns(
+    p: GrainParamsBatch,
+    bit_depth: int,
+    sub_x: int = 1,
+    sub_y: int = 1,
+    monochrome: bool = False,
+):
+    """Plain PyTorch grain patterns from a parameter batch
+    (grain_jax.generate_patterns, spec 7.18.3.3): (luma (B, 73, 82),
+    cb, cr) int32, cb/cr None when monochrome. The pattern kernel
+    (``grain_kernels.generate_patterns_packed``) is held against it."""
+    shift = 12 - bit_depth + p.grain_scale_shift
+    grain_center = 128 << (bit_depth - 8)
+    gmin = torch.full_like(p.seed, -grain_center)
+    gmax = torch.full_like(p.seed, grain_center - 1)
+    has_y = (p.num_y > 0).to(torch.int32)
+    luma = _gaussian_base(p.seed, GRAIN_H, GRAIN_W, shift, has_y)
+    luma = _ar_filter_reference(luma, p.coeffs_y, p.ar_shift, gmin, gmax)
+    if monochrome:
+        return luma, None, None
+    ch, cw = chroma_pattern_shape(sub_x, sub_y)
+    # collocated luma average of the filtered region: the anchor of chroma
+    # (y, x) is luma (((y - 3) << sub_y) + 3, ((x - 3) << sub_x) + 3)
+    n_rows, n_cols = ch - 3, cw - 6
+    acc = torch.zeros((p.batch, n_rows, n_cols), dtype=torch.int32, device=p.device)
+    for i in range(sub_y + 1):
+        for j in range(sub_x + 1):
+            acc += luma[:, 3 + i :: 1 << sub_y, 3 + j :: 1 << sub_x][:, :n_rows, :n_cols]
+    avg = torch.zeros((p.batch, ch, cw), dtype=torch.int32, device=p.device)
+    avg[:, 3:, 3 : cw - 3] = _round2(acc, torch.tensor(sub_x + sub_y, device=p.device))
+    out = [luma]
+    for seed_xor, num, coeffs in ((0xB524, p.num_cb, p.coeffs_cb), (0x49D8, p.num_cr, p.coeffs_cr)):
+        active = ((num > 0) | (p.csfl > 0)).to(torch.int32)
+        base = _gaussian_base(p.seed ^ seed_xor, ch, cw, shift, active)
+        # the luma tap counts only when the frame has luma points
+        luma_coeff = coeffs[:, 24] * active * has_y
+        out.append(
+            _ar_filter_reference(
+                base, coeffs[:, :24] * active[:, None], p.ar_shift, gmin, gmax,
+                luma_coeff[:, None, None] * avg,
+            )
+        )
+    return tuple(out)
+
+
+def pack_patterns(luma, cb, cr) -> torch.Tensor:
+    """(luma, cb, cr) patterns -> the packed (B, 73 * 82 [+ 2 ch cw])
+    int16 buffer of ``PreparedPatterns``."""
+    b = luma.shape[0]
+    parts = [luma.reshape(b, -1)] + ([] if cb is None else [cb.reshape(b, -1), cr.reshape(b, -1)])
+    return torch.cat(parts, 1).to(torch.int16)
+
+
+def prepare_patterns_device(
+    p: GrainParamsBatch,
+    bit_depth: int,
+    sub_x: int = 1,
+    sub_y: int = 1,
+    monochrome: bool = False,
+    n_seg: int = MAX_Y_POINTS - 1,
+    chroma_static: bool = True,
+) -> PreparedPatterns:
+    """Grain patterns made on ``p``'s device from the parameter batch: the
+    pattern kernel on a CUDA device, its plain version on the CPU. No host
+    pattern generation and no pattern upload. ``n_seg`` and
+    ``chroma_static`` are the dispatch facts ``prepare_patterns`` derives
+    from host params; without them, the JAX package's defaults (every
+    curve segment, the chroma kernel on)."""
+    from . import grain_kernels as gk
+
+    packed = gk.generate_patterns_packed(p, bit_depth, sub_x, sub_y, monochrome)
+    chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)
     return PreparedPatterns(packed, chroma_shape, n_seg, chroma_static)
 
 
@@ -580,20 +740,20 @@ def apply_grain(
     """Apply film grain to a batch of frames on ``y.device``.
 
     Frames go to the kernels as int16 (every AV1 bit depth fits) and come
-    back as int16. Patterns come from ``prepared`` or, failing that, are
-    generated on the host from ``host_params``. On a CUDA device the two
-    CUDA kernels run (luma, then Cb+Cr); on the CPU their plain
-    versions. A batch whose tables touch no chroma skips the chroma
-    kernel and returns ``cb``/``cr`` untouched."""
+    back as int16. Patterns come from ``prepared``; failing that, from the
+    host when ``host_params`` is given; failing that, from the pattern
+    kernel on the device (grain_jax.apply_grain_batch_pallas: every curve
+    segment, the chroma kernel on). On a CUDA device the CUDA kernels run
+    (luma, then Cb+Cr); on the CPU their plain versions. A batch whose
+    tables touch no chroma (known from ``host_params`` or ``prepared``)
+    skips the chroma kernel and returns ``cb``/``cr`` untouched."""
     if prepared is None:
         if host_params is None:
-            raise NotImplementedError(
-                "on-device pattern generation is not ported yet "
-                "(ROADMAP.md Queue 1 item 7): pass host_params or prepared"
+            prepared = prepare_patterns_device(p, bit_depth, sub_x, sub_y, monochrome)
+        else:
+            prepared = prepare_patterns(
+                host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
             )
-        prepared = prepare_patterns(
-            host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
-        )
     from . import grain_kernels as gk
 
     y16 = y.to(torch.int16)
@@ -621,6 +781,28 @@ def apply_grain(
         params2, bit_depth, sub_x, sub_y,
     )
     return y_out, cb_out, cr_out
+
+
+def apply_grain_device_patterns(
+    y: torch.Tensor,
+    cb: Optional[torch.Tensor],
+    cr: Optional[torch.Tensor],
+    p: GrainParamsBatch,
+    bit_depth: int,
+    sub_x: int = 1,
+    sub_y: int = 1,
+    monochrome: bool = False,
+    n_seg: int = MAX_Y_POINTS - 1,
+    chroma_static: bool = True,
+):
+    """Apply with patterns made on the device, given the dispatch facts
+    that host params would give (grain_jax.apply_grain_device_patterns):
+    ``chroma_static`` False runs the luma kernel alone and returns
+    ``cb``/``cr`` untouched."""
+    prepared = prepare_patterns_device(
+        p, bit_depth, sub_x, sub_y, monochrome, n_seg, chroma_static
+    )
+    return apply_grain(y, cb, cr, p, bit_depth, sub_x, sub_y, monochrome, prepared=prepared)
 
 
 def apply_grain_reference(

@@ -10,6 +10,11 @@ version.
 - ``apply_plane_chroma`` -> CUDA ``grain_chroma_kernel``
   (replaces ``grain_pallas._chroma_kernel``: one chroma plane, with the
   averaged luma of its scaling input given as an input)
+- ``generate_patterns_packed`` (``pattern_params``, then
+  ``pattern_kernel``) -> CUDA ``grain_pattern_kernel``
+  (replaces ``grain_jax.generate_patterns``, an XLA wavefront scan: the
+  Gaussian base and AR filter of every plane, written as the packed int16
+  buffer the kernels above read)
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
@@ -23,6 +28,7 @@ the kernels read the LUT directly (and interpolate between nodes above
 
 from __future__ import annotations
 
+from dataclasses import fields
 from typing import Dict, Tuple
 
 import torch
@@ -30,15 +36,17 @@ import torch
 from .. import _build
 from .grain import (
     BLOCK,
-    CHROMA_H_420,
-    CHROMA_W_420,
     GRAIN_H,
     GRAIN_W,
     GrainParamsBatch,
     _avg_luma,
     _noise_plane,
     _round_shift,
+    chroma_pattern_shape,
+    gaussian_table,
+    generate_patterns,
     lut_scale,
+    pack_patterns,
     scaling_lut,
 )
 
@@ -57,7 +65,23 @@ P_OFFSET = 10
 P_LUT = 16  # 256 scaling values at the 8-bit nodes
 P_LEN = P_LUT + 256
 
-LAUNCHES: Dict[str, int] = {"grain_luma": 0, "grain_chroma_pair": 0, "grain_chroma": 0}
+LAUNCHES: Dict[str, int] = {
+    "grain_luma": 0, "grain_chroma_pair": 0, "grain_chroma": 0, "grain_pattern": 0,
+}
+
+# packed per-frame pattern row (int32; csrc/pattern_kernels.cu)
+Q_SEED = 0
+Q_HAS_Y = 1  # the frame has luma points
+Q_CB_ACTIVE = 2  # Cb has points, or chroma scaling from luma
+Q_CR_ACTIVE = 3
+Q_AR_SHIFT = 4
+Q_GRAIN_SCALE_SHIFT = 5
+Q_CB_LUMA = 6  # Cb's collocated-luma coefficient (0 unless luma and Cb are on)
+Q_CR_LUMA = 7
+Q_COEFFS_Y = 8  # 24 lag-3 slots each, zeroed for an inactive chroma plane
+Q_COEFFS_CB = Q_COEFFS_Y + 24
+Q_COEFFS_CR = Q_COEFFS_CB + 24
+Q_LEN = Q_COEFFS_CR + 24
 
 
 def reset_launch_counts() -> None:
@@ -107,6 +131,31 @@ def pack_plane_params(
     out[:, P_OFFSET] = offset
     out[:, P_LUT:] = scaling_lut(pts, num, n_seg)
     return out
+
+
+def pattern_params(p: GrainParamsBatch) -> torch.Tensor:
+    """(B, Q_LEN) int32 rows for the pattern kernel, on p's device. The
+    spec's activity rules are folded in here: an inactive chroma plane
+    gets zero coefficients, and a chroma plane's luma tap counts only when
+    the frame has luma points."""
+    has_y = (p.num_y > 0).to(torch.int32)
+    cb_on = ((p.num_cb > 0) | (p.csfl > 0)).to(torch.int32)
+    cr_on = ((p.num_cr > 0) | (p.csfl > 0)).to(torch.int32)
+    head = torch.stack(
+        [
+            p.seed, has_y, cb_on, cr_on, p.ar_shift, p.grain_scale_shift,
+            p.coeffs_cb[:, 24] * cb_on * has_y, p.coeffs_cr[:, 24] * cr_on * has_y,
+        ],
+        1,
+    )
+    rows = torch.cat(
+        [
+            head, p.coeffs_y, p.coeffs_cb[:, :24] * cb_on[:, None],
+            p.coeffs_cr[:, :24] * cr_on[:, None],
+        ],
+        1,
+    )
+    return rows.to(torch.int32).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +238,15 @@ def apply_planes_pair_reference(
         apply_plane_chroma_reference(src, avg, pat, offsets, prm, bit_depth, sub_x, sub_y)
         for src, pat, prm in ((cb, cb_pat, params2[:b]), (cr, cr_pat, params2[b:]))
     )
+
+
+def generate_patterns_packed_reference(
+    p: GrainParamsBatch, bit_depth: int, sub_x: int = 1, sub_y: int = 1,
+    monochrome: bool = False,
+) -> torch.Tensor:
+    """(B, 73 * 82 [+ 2 ch cw]) int16 packed patterns from the plain
+    ``generate_patterns``."""
+    return pack_patterns(*generate_patterns(p, bit_depth, sub_x, sub_y, monochrome))
 
 
 # ---------------------------------------------------------------------------
@@ -280,10 +338,6 @@ def _check_depth_and_subsampling(bit_depth: int, sub_x: int, sub_y: int) -> None
         raise ValueError(f"bit depth {bit_depth} not in (8, 10, 12)")
 
 
-def _chroma_pattern_shape(sub_x: int, sub_y: int) -> Tuple[int, int]:
-    return (CHROMA_H_420 if sub_y else GRAIN_H, CHROMA_W_420 if sub_x else GRAIN_W)
-
-
 def apply_plane_chroma(
     src: torch.Tensor,  # (B, Hc, Wc) int16
     avg: torch.Tensor,  # (B, Hc, Wc) int16 averaged ungrained luma
@@ -316,7 +370,7 @@ def apply_plane_chroma(
     _check("avg", avg, torch.int16, (b, hc, wc))
     _check("offsets", offsets, torch.int32, (b, s, nb))
     _check("params", params, torch.int32, (b, P_LEN))
-    pat_stride = _check_pattern("pattern", pattern, b, *_chroma_pattern_shape(sub_x, sub_y))
+    pat_stride = _check_pattern("pattern", pattern, b, *chroma_pattern_shape(sub_x, sub_y))
     out = torch.empty_like(src)
     if b == 0 or hc == 0 or wc == 0:
         return out
@@ -353,7 +407,7 @@ def apply_planes_pair(
     b, h, w = y.shape
     hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
     s, nb = (h + BLOCK - 1) // BLOCK, (w + BLOCK - 1) // BLOCK
-    gh, gw = _chroma_pattern_shape(sub_x, sub_y)
+    gh, gw = chroma_pattern_shape(sub_x, sub_y)
     _check("y", y, torch.int16, (b, h, w))
     _check("cb", cb, torch.int16, (b, hc, wc))
     _check("cr", cr, torch.int16, (b, hc, wc))
@@ -378,3 +432,45 @@ def apply_planes_pair(
     LAUNCHES["grain_chroma_pair"] += 1
     return out_cb, out_cr
 
+
+def generate_patterns_packed(
+    p: GrainParamsBatch, bit_depth: int, sub_x: int = 1, sub_y: int = 1,
+    monochrome: bool = False,
+) -> torch.Tensor:
+    """Grain patterns of a parameter batch, made on its device: a new
+    (B, 73 * 82 [+ 2 ch cw]) int16 tensor in ``PreparedPatterns.packed``'s
+    layout (luma, then Cb and Cr unless monochrome)."""
+    if _on_cpu(*(getattr(p, f.name) for f in fields(p))):
+        return generate_patterns_packed_reference(p, bit_depth, sub_x, sub_y, monochrome)
+    return pattern_kernel(pattern_params(p), bit_depth, sub_x, sub_y, monochrome)
+
+
+def pattern_kernel(
+    rows: torch.Tensor,  # (B, Q_LEN) int32 from pattern_params, on a CUDA device
+    bit_depth: int,
+    sub_x: int = 1,
+    sub_y: int = 1,
+    monochrome: bool = False,
+) -> torch.Tensor:
+    """The pattern kernel's launch on ``pattern_params`` rows: the packed
+    patterns of ``generate_patterns_packed``. CUDA tensors only."""
+    if rows.device.type != "cuda":
+        raise ValueError(f"pattern_kernel takes rows on a CUDA device, got {rows.device}")
+    _check_depth_and_subsampling(bit_depth, sub_x, sub_y)
+    b = rows.shape[0]
+    _check("rows", rows, torch.int32, (b, Q_LEN))
+    gauss = gaussian_table(rows.device)
+    ch, cw = chroma_pattern_shape(sub_x, sub_y)
+    n = GRAIN_H * GRAIN_W + (0 if monochrome else 2 * ch * cw)
+    out = torch.empty((b, n), dtype=torch.int16, device=rows.device)
+    if b == 0:
+        return out
+    lib = _build.load()
+    with torch.cuda.device(rows.device):
+        err = lib.grain_pattern(
+            rows.data_ptr(), gauss.data_ptr(), out.data_ptr(), n, b,
+            sub_x, sub_y, bit_depth, int(monochrome), _stream(rows),
+        )
+    _raise_on(err, "grain_pattern launch")
+    LAUNCHES["grain_pattern"] += 1
+    return out

@@ -3,7 +3,8 @@
 
 Decode (dav1d) and header parsing run on the host through the JAX
 package's host classes, which contain no JAX. ``render`` sends each
-batch of frames through ``ops.grain.apply_grain`` on ``device``; its
+batch of frames through ``ops.grain.apply_grain`` on ``device`` (or, with
+``shards``, through ``parallel.sharded_apply`` over a device mesh); its
 output is byte-identical to ``grav1synth_tpu render`` and to dav1d's own
 grain synthesis. ``diff`` sends each batch of frame pairs through
 ``ops.diff_estimate.DiffEstimator`` on ``device``, and ``estimate`` each
@@ -26,6 +27,7 @@ from grav1synth_tpu.pipelines import GrainFrameState, VideoFile, _decodable, _gr
 from grav1synth_tpu.utils.progress import Progress
 
 from .ops import grain as grain_ops
+from .parallel.mesh import DeviceMesh, make_mesh, pad_batch, sharded_apply
 
 log = logging.getLogger("grav1synth")
 
@@ -42,11 +44,31 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def device_mesh(device: torch.device, shards: int) -> Optional[DeviceMesh]:
+    """The mesh ``--shards`` asks for, or None for one shard. On CUDA the
+    first ``shards`` cards, clamped to the card count with the JAX
+    package's warning; on the CPU, the CPU named ``shards`` times."""
+    if shards <= 1:
+        return None
+    if device.type != "cuda":
+        return DeviceMesh([device] * shards)
+    n_dev = torch.cuda.device_count()
+    if shards > n_dev:
+        log.warning(
+            "--shards %d exceeds %d available devices; using %d", shards, n_dev, n_dev
+        )
+        shards = n_dev
+    return make_mesh(shards) if shards > 1 else None
+
+
+def _pinned(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``host`` in pinned memory when it is bound for a CUDA device."""
+    return host.pin_memory() if device.type == "cuda" else host
+
+
 def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
     host = torch.from_numpy(np.stack(planes).astype(np.int16))
-    if device.type == "cuda":
-        return host.pin_memory().to(device, non_blocking=True)
-    return host.to(device)
+    return _pinned(host, device).to(device, non_blocking=True)
 
 
 def _start_download(t: torch.Tensor, bit_depth: int) -> torch.Tensor:
@@ -79,7 +101,10 @@ def render(
     device="cuda",
 ) -> int:
     """Decode an AV1 stream and write y4m with film grain synthesized on
-    ``device``. Returns the frame count.
+    ``device``. Returns the frame count. ``shards`` > 1 spreads each
+    batch's frames over a device mesh (``device_mesh``) through
+    ``sharded_apply``, with patterns made on each device; the output is
+    byte-identical to one shard's.
 
     Decode runs on a prefetch thread; each batch's kernels and its
     device-to-host copy are enqueued asynchronously, and the batch is
@@ -94,12 +119,8 @@ def render(
     from grav1synth_tpu.container.y4m import Y4mWriter
     from grav1synth_tpu.utils.prefetch import maybe_prefetch
 
-    if shards > 1:
-        raise NotImplementedError(
-            "render --shards > 1 is not ported yet (ROADMAP.md Queue 1 item 6, "
-            "multi-GPU sharding)"
-        )
     device = resolve_device(device)
+    mesh = device_mesh(device, shards)
 
     with VideoFile(input_path) as vf:
         parser = Av1Parser()
@@ -137,7 +158,21 @@ def render(
             outs = [list(f.planes) for f, _ in pend]
             grained = None
             done = None
-            if todo:
+            if todo and mesh is not None:
+                hp = [pend[i][1] for i in todo]
+                stacked = [
+                    np.stack([pend[i][0].planes[k] for i in todo]).astype(np.int16)
+                    for k in range(1 if mono else 3)
+                ]
+                stacked, hp_p, nreal = pad_batch(stacked, hp, len(mesh))
+                planes = [_pinned(torch.from_numpy(a), device) for a in stacked]
+                y, cb, cr = planes if not mono else (planes[0], None, None)
+                res = sharded_apply(
+                    mesh, y, cb, cr, grain_ops.pack_params(hp_p, "cpu"), bd,
+                    sub_x=sub[0], sub_y=sub[1], monochrome=mono,
+                )
+                res = [None if r is None else r[:nreal] for r in res]
+            elif todo:
                 hp = [pend[i][1] for i in todo]
                 planes = [
                     _upload([pend[i][0].planes[k] for i in todo], device)
@@ -148,6 +183,7 @@ def render(
                     y, cb, cr, grain_ops.pack_params(hp, device), bd, sub[0], sub[1],
                     mono, host_params=hp,
                 )
+            if todo:
                 # a luma-only batch returns cb/cr untouched: those planes
                 # stay the decoder's own
                 grained = [
@@ -258,8 +294,9 @@ def diff(
 
     Both decoders run on prefetch threads; ``batch`` frame pairs at a
     time go through ``DiffEstimator.diff_batch`` on ``device`` (one
-    upload per plane, one download of the batch's statistics). The table
-    does not depend on ``batch``.
+    upload per plane, one download of the batch's statistics). ``shards``
+    > 1 spreads each batch over a device mesh (``device_mesh``). The table
+    depends on neither ``batch`` nor ``shards``.
 
     ``stage_stats``: optional dict filled with the wall seconds the
     driving thread spent in "decode" (pulling both decoders) and
@@ -272,12 +309,8 @@ def diff(
 
     from .ops.diff_estimate import DiffEstimator
 
-    if shards > 1:
-        raise NotImplementedError(
-            "diff --shards > 1 is not ported yet (ROADMAP.md Queue 1 item 6, "
-            "multi-GPU sharding)"
-        )
     device = resolve_device(device)
+    mesh = device_mesh(device, shards)
     chain = FilterChain.parse(filters) if filters else None
 
     with VideoFile(source_path) as vs, VideoFile(denoised_path) as vd:
@@ -306,7 +339,7 @@ def diff(
         def flush():
             if pend_src:
                 t0 = time.time()
-                est.diff_batch(pend_src, pend_den)
+                est.diff_batch(pend_src, pend_den, mesh=mesh)
                 stats["device"] += time.time() - t0
                 pend_src.clear()
                 pend_den.clear()

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs an NVIDIA GPU and skips without one.
+card. Every test here needs an NVIDIA GPU and skips without one (the
+parameter batches of ``pattern_zoo`` also feed the CPU tests of
+tests/test_torch_patterns.py).
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -257,3 +259,113 @@ def test_estimate_on_cuda_matches_cpu(cuda):
         est.push_batch(frames)
         tables.append(est.finish())
     assert len(tables[0]) == 1 and tables[0][0].params == tables[1][0].params
+
+
+# --- grain patterns (K7) and the sharded apply ------------------------------
+
+# (sub_x, sub_y, monochrome): 4:2:0, 4:2:2, 4:4:4 and monochrome
+PATTERN_LAYOUTS = [(1, 1, False), (1, 0, False), (0, 0, False), (1, 1, True)]
+PATTERN_LAYOUT_IDS = ["420", "422", "444", "mono"]
+
+
+def pattern_zoo(seed: int, n: int = 8):
+    """A mixed batch of FilmGrainParams covering what pattern generation
+    branches on, made from a numpy seed: AR lag 0-3, ar_coeff_shift 6-9,
+    grain_scale_shift 0-3, chroma scaling from luma, inactive planes (no
+    luma points, no Cr points, no points at all) and random coefficients,
+    small on even frames and over the whole int8 range (saturating) on
+    odd ones. Also used by tests/test_torch_patterns.py."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        p = sample_grain_params(seed=int(rng.integers(0, 1 << 16)))
+        kind = i % 5
+        if kind == 0:
+            p.scaling_points_y = []
+        elif kind == 1:
+            p.chroma_scaling_from_luma = True
+            p.scaling_points_cb, p.scaling_points_cr = [], []
+        elif kind == 2:
+            p.scaling_points_cr = []
+        elif kind == 3:
+            p.scaling_points_y, p.scaling_points_cb, p.scaling_points_cr = [], [], []
+        lag = i % 4
+        p.ar_coeff_lag = lag
+        p.ar_coeff_shift = 6 + int(rng.integers(0, 4))
+        p.grain_scale_shift = int(rng.integers(0, 4))
+        bound = 128 if i % 2 else 12
+
+        def coeffs(k):
+            return [int(c) for c in rng.integers(-bound, bound, k)]
+
+        n_pos = 2 * lag * (lag + 1)
+        n_chroma = n_pos + (1 if p.scaling_points_y else 0)
+        csfl = p.chroma_scaling_from_luma
+        p.ar_coeffs_y = coeffs(n_pos) if p.scaling_points_y else []
+        p.ar_coeffs_cb = coeffs(n_chroma) if p.scaling_points_cb or csfl else []
+        p.ar_coeffs_cr = coeffs(n_chroma) if p.scaling_points_cr or csfl else []
+        out.append(p)
+    return out
+
+
+def _random_planes(rng, b, h, w, bd, sub_x, sub_y, device):
+    maxv = (1 << bd) - 1
+    hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
+    return [
+        torch.from_numpy(rng.integers(0, maxv + 1, shape).astype(np.int16)).to(device)
+        for shape in ((b, h, w), (b, hc, wc), (b, hc, wc))
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_pattern_kernel_matches_plain_on_cuda(cuda, sub_x, sub_y, mono, bd):
+    params = pattern_zoo(100 * bd + 10 * sub_x + 2 * sub_y + mono)
+    pb = tg.pack_params(params, cuda)
+    before = gk.LAUNCHES["grain_pattern"]
+    got = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
+    assert gk.LAUNCHES["grain_pattern"] == before + 1
+    want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
+    assert got.dtype == torch.int16 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want.cpu())
+    host = tg.prepare_patterns(
+        params, bd, sub_x, sub_y, mono, device="cpu", generate=tg.generate_patterns_ref
+    )
+    assert torch.equal(got.cpu(), host.packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (0, 0)])
+def test_device_pattern_apply_equals_host_pattern_apply_on_cuda(cuda, sub_x, sub_y):
+    params = pattern_zoo(31 + sub_x)
+    planes = _random_planes(np.random.default_rng(3), len(params), 70, 301, 10, sub_x, sub_y, cuda)
+    pb = tg.pack_params(params, cuda)
+    prep = tg.prepare_patterns(
+        params, 10, sub_x, sub_y, device=cuda, generate=tg.generate_patterns_ref
+    )
+    want = tg.apply_grain(*planes, pb, 10, sub_x, sub_y, prepared=prep)
+    gk.reset_launch_counts()
+    got = tg.apply_grain(*planes, pb, 10, sub_x, sub_y)
+    torch.cuda.synchronize()
+    assert {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")} == {
+        "grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1,
+    }
+    for pi in range(3):
+        assert torch.equal(got[pi], want[pi]), f"plane {pi}"
+
+
+@pytest.mark.cuda
+def test_sharded_apply_over_a_two_shard_mesh_on_one_card(cuda):
+    from grav1synth_tpu_torch.parallel import DeviceMesh, sharded_apply_with_stats
+
+    params = pattern_zoo(41)
+    y, cb, cr = _random_planes(np.random.default_rng(4), len(params), 64, 96, 10, 1, 1, cuda)
+    pb = tg.pack_params(params, cuda)
+    want = tg.apply_grain(y, cb, cr, pb, 10)
+    got = sharded_apply_with_stats(DeviceMesh([cuda, cuda]), y, cb, cr, pb, 10)
+    for pi in range(3):
+        assert torch.equal(got[pi], want[pi]), f"plane {pi}"
+    d = want[0].to(torch.int64) - y.to(torch.int64)
+    assert got[3].dtype == torch.float64 and got[3].item() == float((d * d).sum())
+    assert got[4].item() == len(params)

@@ -271,10 +271,20 @@ def test_diff_batch_chroma_mismatch_matches_jax():
 
 
 def test_diff_batch_refuses_a_mesh_and_mismatched_luma():
+    """A mesh is taken (three frames over two shards, padded to four: the
+    table of the unsharded batch); mismatched luma is refused."""
+    from grav1synth_tpu_torch.parallel import DeviceMesh
+
+    clean = film_like_clip(n=3)
+    grainy = inject_grain(clean, film_params())
+    tables = []
+    for mesh in (None, DeviceMesh(["cpu", "cpu"])):
+        est = td.DiffEstimator((24, 1), chunk_frames=1000, device="cpu")
+        est.diff_batch([list(f) for f in grainy], [list(f) for f in clean], mesh=mesh)
+        tables.append(_segments(est.finish()))
+    assert tables[0] and tables[1] == tables[0]
     est = td.DiffEstimator((24, 1), device="cpu")
     y = np.zeros((32, 32), np.uint8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        est.diff_batch([[y]], [[y]], mesh=object())
     with pytest.raises(ValueError, match="dimensions differ"):
         est.diff_batch([[y]], [[y[:16]]])
 
@@ -324,9 +334,13 @@ def test_pipeline_diff_matches_jax(tmp_path, w, h, bd, n):
 
 
 def test_pipeline_diff_refuses_what_is_not_ported(tmp_path):
+    """--shards runs (the table of one shard); a CUDA device that is
+    missing is refused, not replaced."""
     src, den = _write_pair(tmp_path, 64, 64, 8, 2, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pipelines.diff(src, den, str(tmp_path / "t.tbl"), shards=2, device="cpu")
+    one, two = tmp_path / "one.tbl", tmp_path / "two.tbl"
+    pipelines.diff(src, den, str(one), progress=False, device="cpu")
+    pipelines.diff(src, den, str(two), progress=False, shards=2, device="cpu")
+    assert two.read_bytes() == one.read_bytes()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pipelines.diff(src, den, str(tmp_path / "t.tbl"), device="cuda")

@@ -143,10 +143,16 @@ def test_luma_only_batch_returns_chroma_untouched():
 
 
 def test_apply_grain_needs_patterns():
+    """Without ``prepared`` or ``host_params`` the patterns are made on the
+    tensors' device (the pattern kernel's plain version here): the same
+    planes as with host patterns."""
     params = _params("mixed")
     y, cb, cr = _frames(len(params), 32, 32, 8, 1, 1, False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tg.apply_grain(_t(y), _t(cb), _t(cr), tg.pack_params(params, "cpu"), 8)
+    pb = tg.pack_params(params, "cpu")
+    got = tg.apply_grain(_t(y), _t(cb), _t(cr), pb, 8)
+    want = tg.apply_grain(_t(y), _t(cb), _t(cr), pb, 8, host_params=params)
+    for pi in range(3):
+        assert torch.equal(got[pi], want[pi]), f"plane {pi}"
 
 
 # ---------------------------------------------------------------------------

@@ -72,9 +72,13 @@ def test_render_stage_stats(tmp_path):
 
 
 def test_render_refuses_what_is_not_ported(tmp_path):
+    """--shards runs (tests/test_torch_parallel.py holds it to the JAX
+    package); a CUDA device that is missing is refused, not replaced."""
     path, _ = _grainy_ivf(tmp_path, 64, 64, 8, False, 2, "")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        pipelines.render(path, str(tmp_path / "o.y4m"), shards=2, device="cpu")
+    one, two = tmp_path / "one.y4m", tmp_path / "two.y4m"
+    assert pipelines.render(path, str(one), progress=False, device="cpu") == 2
+    assert pipelines.render(path, str(two), progress=False, shards=2, device="cpu") == 2
+    assert two.read_bytes() == one.read_bytes()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pipelines.render(path, str(tmp_path / "o.y4m"), device="cuda")
@@ -124,7 +128,8 @@ def test_cli(tmp_path, capsys):
 
 
 def test_port_never_imports_jax():
-    """Imports every module of the port and runs the plain apply in a
+    """Imports every module of the port and runs the plain apply, with
+    host and with device patterns, sharded over a two-entry CPU mesh, in a
     fresh interpreter (this test process has JAX loaded by conftest)."""
     code = textwrap.dedent(
         """
@@ -132,9 +137,11 @@ def test_port_never_imports_jax():
         import numpy as np, torch
         import grav1synth_tpu_torch, grav1synth_tpu_torch._build
         import grav1synth_tpu_torch.cli, grav1synth_tpu_torch.pipelines
+        import grav1synth_tpu_torch.parallel, grav1synth_tpu_torch.parallel.mesh
         from grav1synth_tpu_torch.ops import (
             diff_estimate, diff_kernels, estimate, grain, grain_kernels,
         )
+        from grav1synth_tpu_torch.parallel import DeviceMesh, sharded_apply_with_stats
         from grav1synth_tpu.obu.types import FilmGrainParams
         p = FilmGrainParams(grain_seed=7, scaling_points_y=[(0, 20), (255, 40)],
                             scaling_points_cb=[(0, 10), (255, 12)], cb_mult=128,
@@ -144,6 +151,10 @@ def test_port_never_imports_jax():
         out = grain.apply_grain(y, c, c.clone(), grain.pack_params([p], "cpu"), 8,
                                 host_params=[p])
         assert out[0].shape == y.shape and not torch.equal(out[0], y)
+        pb = grain.pack_params([p, p], "cpu")
+        y2, c2 = y.repeat(2, 1, 1), c.repeat(2, 1, 1)
+        sharded = sharded_apply_with_stats(DeviceMesh(["cpu", "cpu"]), y2, c2, c2.clone(), pb, 8)
+        assert torch.equal(sharded[0], grain.apply_grain(y2, c2, c2.clone(), pb, 8)[0])
         est = diff_estimate.DiffEstimator((24, 1), device="cpu")
         est.diff_batch([[np.full((40, 40), 9, np.uint8)]], [[np.full((40, 40), 8, np.uint8)]])
         assert est.finish() == []
