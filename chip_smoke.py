@@ -8,9 +8,13 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    required, there is no CPU fallback;
 2. build the CUDA kernels from grav1synth_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card, integer-
-   equal, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x small odd and even sizes
-   and at 3840x2160 10-bit 4:2:0 with 16 frames; two small frames also
-   against grain_ref on the host;
+   equal, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x small odd and even sizes,
+   the edge geometries of the vectorised luma and chroma-pair kernels
+   (widths 520-535, every residue mod 8, at odd and even heights, with
+   planes switched off in mixed batches; a batch slice whose frame bases
+   are not 16-byte aligned; more work units than resident CTAs) and at
+   3840x2160 10-bit 4:2:0 with 16 frames; two small frames also against
+   grain_ref on the host;
 4. the main path at full size: the frame parameters of
    .bench_cache/bench_4k10_grainy.ivf (3840x2160, 10-bit, 4:2:0), parsed
    on the host and reseeded to batches of 16 and 112, applied through
@@ -70,6 +74,14 @@ libav*/dav1d shim, and with it ``generate_patterns_native`` and the
 render pipeline's decoder, is not built on hosts without those
 libraries); phases 9 and 10 make them on the card.
 
+Every ``[time]`` line gives the kernel's time beside its plain version's
+and its bound: the larger of the bytes it must move (inputs read once,
+outputs written once) over the card's 3.35 TB/s and its integer
+operations over the int32 rate, computed from that run's inputs, and the
+share (bound / time). No PyTorch call computes any kernel's function, so
+``library_ms`` is null. The script ends by checking that neither jax nor
+any module of the JAX package ``grav1synth_tpu`` was imported.
+
 The last two lines are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 """
@@ -120,9 +132,115 @@ ENERGY_RTOL = 1e-6
 # (sub_x, sub_y, monochrome) of the pattern kernel's cases
 PATTERN_LAYOUTS = ((1, 1, False), (1, 0, False), (0, 0, False), (1, 1, True))
 
+# The card's peaks for a kernel's bound (H100 SXM at 700 W): HBM3 at
+# 3.35 TB/s. For int32 outside the tensor cores, an SM has 64 int32 lanes
+# against 128 float32 ones, so half of its 67 TFLOP/s float32 rate, a
+# multiply-add counted as two operations.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+# Integer operations of the grain arithmetic per sample (a multiply-add
+# counts two): scaling input clamp 2, scale x noise + rounding 2, shift 1,
+# add 1, clip 2. Chroma adds the pair average (3 per sample, shared by Cb
+# and Cr) and, where a plane combines luma and chroma, two multiply-adds,
+# a shift, the offset and a clamp (8).
+GRAIN_OPS, AVG_OPS, COMBINE_OPS = 8, 3, 8
+# flat-block activity: two differences, two absolute values, two adds
+ACTIVITY_OPS = 6
+# pattern generation: per Gaussian sample an LFSR step, the table read and
+# a Round2 (6); per AR position a Round2 and a clamp (4) beside one
+# multiply-add per tap
+GAUSS_OPS, AR_POS_OPS = 6, 4
+# No PyTorch call computes any kernel's function, so no library time.
+LIBRARY_NOTE = {
+    "grain_luma": "none: per-block pattern gather, LUT scaling and overlap blend",
+    "grain_chroma_pair": "none: the chroma grain of grain_luma with the luma pair average",
+    "grain_chroma": "none: one plane of grain_chroma_pair's function",
+    "grain_pattern": "none: an AR recurrence over LFSR Gaussian noise",
+    "flat_block_activity": "none: per-block sum of absolute gradients",
+    "plane_stats": "none: a masked lag-window Gram and binned moments",
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def timing(ms: float, plain_ms: float, moved: float, ops: float) -> dict:
+    """A kernel's time beside its plain version's and its bound: the
+    larger of the bytes it must move over the HBM rate and its integer
+    operations over the int32 rate."""
+    b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    bound_ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bytes": moved, "ops": ops}
+
+
+def time_line(name: str, label: str, t: dict, card: str) -> str:
+    plain = "not timed" if t["plain_ms"] is None else f"{t['plain_ms']:.3f} ms"
+    return (f"[time] {name} {label}: kernel {t['ms']:.4f} ms, plain PyTorch {plain}"
+            f"; bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes'] / 1e6:.1f} MB, "
+            f"{t['ops'] / 1e9:.3f} G int ops), share {t['bound_ms'] / t['ms']:.3f}; library "
+            f"call {LIBRARY_NOTE[name]} on {card}")
+
+
+def luma_work(luma_args):
+    """(bytes, operations) of the luma kernel on its arguments: each frame
+    read and written, its pattern, randoms and parameter row read once."""
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    y, pat, offs, prm, _ = luma_args
+    active = int((prm[:, gk.P_ACTIVE] > 0).sum())
+    return 2 * nbytes(y) + nbytes(pat, offs, prm), GRAIN_OPS * active * y.shape[1] * y.shape[2]
+
+
+def chroma_ops(prm, samples: int) -> float:
+    """Grain operations of one chroma plane's rows over ``samples`` per
+    frame: active frames only, the combination where it is used."""
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    active = prm[:, gk.P_ACTIVE] > 0
+    per = GRAIN_OPS + COMBINE_OPS * (prm[:, gk.P_USE_MULT] > 0).to(torch.int64)
+    return float((per * active).sum()) * samples
+
+
+def pair_work(pair_args):
+    """(bytes, operations) of the chroma-pair kernel: Cb and Cr read and
+    written, the luma rows the average reads (even rows when vertically
+    subsampled), patterns, randoms and parameter rows."""
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    y, cb, cr, cbp, crp, offs, p2, _, _, _ = pair_args
+    b, hc, wc = cb.shape
+    luma = b * hc * y.shape[2] * y.element_size()
+    samples = hc * wc
+    on = (p2[:b, gk.P_ACTIVE] > 0) | (p2[b:, gk.P_ACTIVE] > 0)
+    ops = AVG_OPS * float(on.sum()) * samples + chroma_ops(p2[:b], samples) + chroma_ops(p2[b:], samples)
+    return luma + 2 * nbytes(cb, cr) + nbytes(cbp, crp, offs, p2), ops
+
+
+def pattern_work(params, packed, rows, sub_x: int, sub_y: int):
+    """(bytes, operations) of the pattern kernel on one batch: rows and the
+    Gaussian table read, the packed patterns written; the Gaussian samples
+    and AR taps of each active plane at each frame's own lag."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    ch, cw = tg.chroma_pattern_shape(sub_x, sub_y)
+    ops = 0
+    for p in params:
+        has_y = bool(p.scaling_points_y)
+        taps = 2 * p.ar_coeff_lag * (p.ar_coeff_lag + 1)
+        if has_y:
+            ops += GAUSS_OPS * tg.GRAIN_H * tg.GRAIN_W + (tg.GRAIN_H - 3) * (tg.GRAIN_W - 6) * (
+                2 * taps + AR_POS_OPS)
+        for pts in (p.scaling_points_cb, p.scaling_points_cr):
+            if pts or p.chroma_scaling_from_luma:
+                ops += GAUSS_OPS * ch * cw + (ch - 3) * (cw - 6) * (
+                    2 * (taps + has_y) + AR_POS_OPS)
+    return nbytes(rows, packed) + 2048 * 2, ops
 
 
 def card_identity() -> str:
@@ -148,6 +266,18 @@ def small_params(base):
     dense = [(x, (x * 7 + 13 * (i % 5)) % 256) for i, x in enumerate(range(0, 256, 19))]
     p4 = dataclasses.replace(base, grain_seed=77, scaling_points_y=dense[:14])
     return [base, p1, p2, p3, p4]
+
+
+def mixed_params(base):
+    """small_params and frames whose planes are off: no luma points; no
+    chroma points (the chroma-pair kernel copies both planes); no Cr
+    points."""
+    return small_params(base) + [
+        dataclasses.replace(base, grain_seed=11, scaling_points_y=[]),
+        dataclasses.replace(base, grain_seed=12, scaling_points_cb=[], scaling_points_cr=[],
+                            chroma_scaling_from_luma=False),
+        dataclasses.replace(base, grain_seed=13, scaling_points_cr=[]),
+    ]
 
 
 def luma_only(params):
@@ -201,11 +331,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
 
 
-def compare_kernels(params, planes, bd, sub_x, sub_y, device, errs, what):
+def compare_kernels(params, planes, bd, sub_x, sub_y, device, errs, what, generate=None):
     """Each kernel against its plain version on the same device inputs."""
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
-    luma_args, pair_args = kernel_inputs(params, planes, bd, sub_x, sub_y, device)
+    luma_args, pair_args = kernel_inputs(params, planes, bd, sub_x, sub_y, device, generate)
     got = gk.apply_plane_luma(*luma_args)
     want = gk.apply_plane_luma_reference(*luma_args)
     e_l = max_abs_err(got, want)
@@ -219,7 +349,7 @@ def compare_kernels(params, planes, bd, sub_x, sub_y, device, errs, what):
 
 
 def check_against_grain_ref(out, planes, params, bd, sub_x, sub_y, frames, what):
-    from grav1synth_tpu.ops import grain_ref
+    from grav1synth_tpu_torch.ops import grain_ref
 
     nplanes = len([o for o in out if o is not None])
     for i in frames:
@@ -237,8 +367,8 @@ def check_against_grain_ref(out, planes, params, bd, sub_x, sub_y, frames, what)
 def stream_params(path):
     """Effective FilmGrainParams of each displayed frame, and the
     stream's geometry, by the pure-Python parse path."""
-    from grav1synth_tpu.obu import Av1Parser
-    from grav1synth_tpu.pipelines import GrainFrameState, VideoFile
+    from grav1synth_tpu_torch.obu import Av1Parser
+    from grav1synth_tpu_torch.pipelines import GrainFrameState, VideoFile
 
     eff = []
     with VideoFile(path) as vf:
@@ -356,7 +486,7 @@ class plain_diff_path:
 def sigma_curve(params, xs):
     """sigma(intensity) in 8-bit units that a table synthesizes (as
     tests/test_diff_quality.sigma_curve)."""
-    from grav1synth_tpu.ops import grain_ref
+    from grav1synth_tpu_torch.ops import grain_ref
 
     pat = grain_ref.generate_grain(params, 8, False, 1, 1)
     sg = float(pat.luma[3:, 3:-3].astype(np.float64).std())
@@ -479,19 +609,31 @@ def diff_phases(card, eff, dev, clean, grainy):
         def st(fn):
             return lambda: [fn(s, d, bl, a, 2, bd) for s, d, bl, a in trip]
 
+        # the bytes each must move (inputs once, outputs once) and the
+        # operations this run's flat blocks need: per sample the residual
+        # and the flat test, per flat sample the n(n+1)/2 multiply-adds of
+        # the Gram over its n design columns and 4 for the binned moments
+        act_bytes = sum(nbytes(d) for _, d, _, _ in trip) + nbytes(*act(dk.flat_block_activity)())
+        st_bytes = sum(nbytes(s, d, bl, a) for s, d, bl, a in trip) + sum(
+            nbytes(*out.values()) for out in st(dk.plane_stats)())
+        st_ops = 0.0
+        for s, _, bl, a in trip:
+            n_cols = len(dk.offsets(2)) + (a is not None)  # r at (0, 0), its lags, aux
+            st_ops += 2 * s.numel() + float(bl.sum()) * 256 * (n_cols * (n_cols + 1) + 4)
         t = {
-            "flat_block_activity": (
+            "flat_block_activity": timing(
                 cuda_ms(act(dk.flat_block_activity), 20),
                 cuda_ms(act(dk.flat_block_activity_reference), 3, 1),
+                act_bytes, ACTIVITY_OPS * sum(d.numel() for _, d, _, _ in trip),
             ),
-            "plane_stats": (
+            "plane_stats": timing(
                 cuda_ms(st(dk.plane_stats), 10),
                 cuda_ms(st(dk.plane_stats_reference), 2, 1),
+                st_bytes, st_ops,
             ),
         }
-        for k, (ms, plain) in t.items():
-            log(f"[time] {k} {label} (3 planes, lag 2): kernel {ms:.3f} ms, plain PyTorch "
-                f"{plain:.3f} ms per batch on {card}")
+        for k, tk in t.items():
+            log(time_line(k, f"{label} (3 planes, lag 2)", tk, card))
         if label.startswith("4K"):
             times = t
         sf, df = frames_of(src, 0, b), frames_of((cy, cu, cv), 0, b)
@@ -587,12 +729,14 @@ def chroma_phase(card, eff, dev):
     log(f"[chroma kernel] {n_cases + 1} cases x 2 planes integer-equal to the plain version "
         f"(max |err| {errs}); 2 small frames and 4K frame 0 equal to grain_ref; 4K10 B=16 "
         f"Cb and Cr equal to the chroma-pair kernel's")
-    ms = cuda_ms(lambda: gk.apply_plane_chroma(*cargs[0]), 20)
-    plain = cuda_ms(lambda: gk.apply_plane_chroma_reference(*cargs[0]), 3, 1)
-    ms_pair = cuda_ms(lambda: gk.apply_planes_pair(*pair_args), 20)
-    log(f"[time] grain_chroma 4K10 4:2:0 B=16, one plane (Cb): kernel {ms:.3f} ms, plain "
-        f"PyTorch {plain:.3f} ms (grain_chroma_pair, both planes, {ms_pair:.3f} ms) on {card}")
-    return {"grain_chroma": launches}, {"grain_chroma": (ms, plain)}, errs
+    src, avg, pat, offs, prm = cargs[0][:5]
+    t = timing(
+        cuda_ms(lambda: gk.apply_plane_chroma(*cargs[0]), 20),
+        cuda_ms(lambda: gk.apply_plane_chroma_reference(*cargs[0]), 3, 1),
+        2 * nbytes(src) + nbytes(avg, pat, offs, prm), chroma_ops(prm, src.shape[1] * src.shape[2]),
+    )
+    log(time_line("grain_chroma", "4K10 4:2:0 B=16, one plane (Cb)", t, card))
+    return {"grain_chroma": launches}, {"grain_chroma": t}, errs
 
 
 def stats_rel_err(got: dict, want: dict) -> float:
@@ -787,16 +931,19 @@ def pattern_phase(card, eff, dev, apply4):
 
     # times: the kernel alone on rows built once, and the wrapper with the
     # row pack (a dozen small device ops) in front of it
-    ms, wrapped, plain = {}, {}, {}
+    t = {}
     for b, pb in pbs.items():
         rows = gk.pattern_params(pb)
-        ms[b] = cuda_ms(lambda: gk.pattern_kernel(rows, BD, SX, SY), 50)
-        wrapped[b] = cuda_ms(lambda: gk.generate_patterns_packed(pb, BD, SX, SY), 50)
-        plain[b] = cuda_ms(lambda: gk.generate_patterns_packed_reference(pb, BD, SX, SY), 3, 1)
-        log(f"[time] grain_pattern 4K10 4:2:0 B={b}: kernel {ms[b]:.4f} ms, with the row pack "
-            f"{wrapped[b]:.4f} ms, plain PyTorch {plain[b]:.3f} ms per batch; grain_ref on the "
-            f"host {apply4['gen_ms']:.1f} ms/frame ({apply4['gen_ms'] * b:.1f} ms per batch) "
-            f"on {card}")
+        t[b] = timing(
+            cuda_ms(lambda: gk.pattern_kernel(rows, BD, SX, SY), 50),
+            cuda_ms(lambda: gk.generate_patterns_packed_reference(pb, BD, SX, SY), 3, 1),
+            *pattern_work(batches[b], gk.pattern_kernel(rows, BD, SX, SY), rows, SX, SY),
+        )
+        wrapped = cuda_ms(lambda: gk.generate_patterns_packed(pb, BD, SX, SY), 50)
+        log(time_line("grain_pattern", f"4K10 4:2:0 B={b}", t[b], card))
+        log(f"[time] grain_pattern 4K10 4:2:0 B={b}: with the row pack {wrapped:.4f} ms per "
+            f"batch; grain_ref on the host {apply4['gen_ms']:.1f} ms/frame "
+            f"({apply4['gen_ms'] * b:.1f} ms per batch) on {card}")
     for b, key in ((16, 16), (112, 112), (16, "luma16")):
         fps = frames_per_s(lambda: run(b, key), b, 10 if b == 16 else 3)
         kind = "luma-only" if key == "luma16" else "3-plane"
@@ -816,7 +963,7 @@ def pattern_phase(card, eff, dev, apply4):
         )
         log(f"[apply] 4K10 4:2:0 {kind} B={b}, patterns made on the card, host facts {facts} "
             f"(apply_grain_device_patterns): {fps_facts:.1f} frames/s on {card}")
-    return {"grain_pattern": launches["grain_pattern"]}, {"grain_pattern": (ms[16], plain[16])}, \
+    return {"grain_pattern": launches["grain_pattern"]}, {"grain_pattern": t[16]}, \
         {"grain_pattern": err}, dev_outs
 
 
@@ -906,6 +1053,33 @@ def main() -> int:
                 planes = random_planes(rng, len(params), h, w, bd, sub_x, sub_y)
                 compare_kernels(params, planes, bd, sub_x, sub_y, dev, errs, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
                 n_cases += 1
+    # the edge geometries of the vectorised luma and chroma-pair kernels:
+    # widths 520-535 (every residue mod 8, luma and chroma) at odd and even
+    # heights, with frames whose planes are off; planes whose base is not
+    # 16-byte aligned; more work units than CTAs on the card
+    mixed = mixed_params(base)
+    for bd in (8, 10, 12):
+        for sub_x, sub_y in ((1, 1), (1, 0), (0, 0)):
+            pats = tg.generate_patterns_ref(mixed, bd, sub_x, sub_y)
+            for w in range(520, 536):
+                h = (41, 33, 64, 71)[w % 4]
+                planes = random_planes(rng, len(mixed), h, w, bd, sub_x, sub_y)
+                compare_kernels(mixed, planes, bd, sub_x, sub_y, dev, errs,
+                                f"{bd}-bit {sub_x}{sub_y} {w}x{h}", lambda *a: pats)
+                n_cases += 1
+            if bd != 10:
+                continue
+            big = [torch.from_numpy(a).to(dev)
+                   for a in random_planes(rng, len(mixed) + 1, 41, 301, bd, sub_x, sub_y)]
+            planes = [t[1:] for t in big]  # frame bases 24682 bytes apart
+            if not all(t.data_ptr() % 16 for t in planes):
+                raise AssertionError("the batch slice's planes are 16-byte aligned")
+            compare_kernels(mixed, planes, bd, sub_x, sub_y, dev, errs,
+                            f"{bd}-bit {sub_x}{sub_y} batch slice [1:] of 301x41", lambda *a: pats)
+            wide = mixed + small_params(base)[:1]  # 9 frames x 17 stripes x 4 segments
+            compare_kernels(wide, random_planes(rng, len(wide), 520, 1000, bd, sub_x, sub_y),
+                            bd, sub_x, sub_y, dev, errs, f"{bd}-bit {sub_x}{sub_y} 9 x 1000x520")
+            n_cases += 2
     params = reseeded(eff, 16)
     planes = random_planes(rng, 16, H, W, BD, SX, SY)
     compare_kernels(params, planes, BD, SX, SY, dev, errs, f"{BD}-bit 4:2:0 {W}x{H} B=16")
@@ -967,25 +1141,28 @@ def main() -> int:
         batches[16], frames[16], BD, SX, SY, dev, lambda *a: pats[16]
     )
     times = {
-        "grain_luma": (
+        "grain_luma": timing(
             cuda_ms(lambda: gk.apply_plane_luma(*luma_args), 20),
             cuda_ms(lambda: gk.apply_plane_luma_reference(*luma_args), 3, 1),
+            *luma_work(luma_args),
         ),
-        "grain_chroma_pair": (
+        "grain_chroma_pair": timing(
             cuda_ms(lambda: gk.apply_planes_pair(*pair_args), 20),
             cuda_ms(lambda: gk.apply_planes_pair_reference(*pair_args), 3, 1),
+            *pair_work(pair_args),
         ),
     }
-    for k, (ms, plain) in times.items():
-        log(f"[time] {k} 4K10 4:2:0 B=16: kernel {ms:.3f} ms, plain PyTorch {plain:.3f} ms "
-            f"({ms / 16:.4f} ms/frame) on {card}")
+    for k, t in times.items():
+        log(time_line(k, "4K10 4:2:0 B=16", t, card))
+    # at B = 112 the plain versions' intermediates (a gathered window per
+    # block per frame) run to gigabytes: kernels only
     luma112, pair112 = kernel_inputs(
         batches[112], frames[112], BD, SX, SY, dev, lambda *a: pats[112]
     )
-    ms_l = cuda_ms(lambda: gk.apply_plane_luma(*luma112), 10)
-    ms_c = cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10)
-    log(f"[time] 4K10 4:2:0 B=112: grain_luma {ms_l:.3f} ms, grain_chroma_pair {ms_c:.3f} ms "
-        f"({(ms_l + ms_c) / 112:.4f} ms/frame) on {card}")
+    log(time_line("grain_luma", "4K10 4:2:0 B=112", timing(
+        cuda_ms(lambda: gk.apply_plane_luma(*luma112), 10), None, *luma_work(luma112)), card))
+    log(time_line("grain_chroma_pair", "4K10 4:2:0 B=112", timing(
+        cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10), None, *pair_work(pair112)), card))
     host_fps = {}
     for b, key in ((16, 16), (112, 112), (16, "luma16")):
         params = batches[b] if key != "luma16" else lum16
@@ -1038,14 +1215,24 @@ def main() -> int:
                 "replaces": REPLACES[k],
                 "launches": launches[k],
                 "max_abs_err": errs[k],
-                "ms": times[k][0],
-                "plain_ms": times[k][1],
+                "ms": times[k]["ms"],
+                "plain_ms": times[k]["plain_ms"],
+                "bound_ms": times[k]["bound_ms"],
+                "bound_by": times[k]["bound_by"],
+                "share": times[k]["bound_ms"] / times[k]["ms"],
+                "library_ms": None,
+                "library_note": LIBRARY_NOTE[k],
             }
             for k in KERNELS
         ]
     }
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    jax_package = sorted(
+        m for m in sys.modules if m == "grav1synth_tpu" or m.startswith("grav1synth_tpu.")
+    )
+    if jax_package:
+        raise AssertionError(f"modules of the JAX package were imported: {jax_package}")
     log(json.dumps(summary))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -11,18 +11,41 @@
 //
 // What bounds them on this card: bytes. A 3840x2160 4:2:0 frame moves
 // about 50 MB of int16 samples in and out; a frame's patterns, scaling
-// LUTs and block randoms are a few KB. The arithmetic per sample is a few
-// dozen integer operations, far below what the SMs can issue per byte of
+// LUTs and block randoms are a few KB. The arithmetic per sample is about
+// a dozen integer operations, below what the SMs can issue per byte of
 // HBM traffic.
 //
-// What the design does about it: every sample of a plane is read once and
-// written once, with neighbouring threads on neighbouring samples. One
-// CTA covers a 32-luma-row stripe across CTA_BLOCKS 32x32 luma blocks
-// and stages what it gathers from at data-dependent offsets in shared
-// memory: the frame's grain pattern(s), 256-entry scaling LUT(s) and the
-// block randoms of this stripe and the one above. The chroma-pair kernel
-// reads the collocated source luma for its scaling input (averaged in
-// registers) and grains Cb and Cr in one pass over their shared randoms.
+// The luma and chroma-pair kernels are persistent and vectorised:
+//
+// - Bytes in flight. Each thread owns 8 neighbouring samples of a row
+//   and moves them with one 16-byte load and one 16-byte streaming store.
+//   A thread issues the loads of all its rows of a work unit (4 luma rows;
+//   2 or 4 chroma rows with their Cb, Cr and collocated luma) before any
+//   arithmetic, so an SM with 1024 (luma) or 512 (chroma pair) threads
+//   keeps 32-64 KB of loads outstanding.
+// - Tables staged once per frame, not once per tile. The grid is a few
+//   CTAs per SM; CTA i walks the contiguous range [U*i/G, U*(i+1)/G) of
+//   the U = frames x stripes x 256-sample segments work units, so it meets
+//   one or two frames. Only when the frame changes does it copy the
+//   frame's pattern(s) into shared memory and expand the 256-node scaling
+//   LUT(s) to one entry per sample value (1 << bit_depth int32), which
+//   makes the scaling one shared-memory read per sample. The block
+//   randoms are read per unit through the read-only cache.
+// - A group of 8 samples at x = 0 mod 8 lies in one grain block (32 luma
+//   or 32 >> sub_x chroma samples wide), so a group reads one pattern
+//   window; only lanes 0-1 (lane 0 on a subsampled axis) of a block's
+//   first group blend with the left block, and only the first 2 (1) rows
+//   of a stripe with the stripe above. The pattern window starts at an
+//   odd x, so the 8 pattern values are 8 two-byte shared-memory reads.
+// - Edges. A row whose start is not 16-byte aligned (a width that is not
+//   a multiple of 8, or a frame base that is not aligned), and the last
+//   group of a row that ends inside it, load and store per sample; the
+//   last stripe's rows and the last segment's columns are bounded.
+//   Inactive planes are copied through.
+//
+// grain_chroma_kernel is tiled: one CTA per 32-luma-row stripe across
+// CTA_BLOCKS luma blocks, with the pattern, LUT and randoms of the tile
+// staged in shared memory.
 //
 // Arithmetic is int32 throughout. Round2 of a negative value, the
 // ">> 6" of the chroma combination and the overlap blends are arithmetic
@@ -38,7 +61,7 @@
 namespace {
 
 constexpr int BLOCK = 32;       // luma block edge
-constexpr int CTA_BLOCKS = 8;   // luma blocks per CTA along x
+constexpr int CTA_BLOCKS = 8;   // luma blocks per CTA along x (grain_chroma_kernel)
 constexpr int THREADS = 256;
 
 // per-plane parameter row (grain_kernels.pack_plane_params)
@@ -142,59 +165,296 @@ __device__ __forceinline__ int grained(int src, int noise, int scale, int ss,
   return clampi(src + ((scale * noise + (1 << (ss - 1))) >> ss), lo, hi);
 }
 
-// Grid (ceil(NB / CTA_BLOCKS), S, B); one thread per column of the
-// CTA's 32 x 256 tile, looping over the stripe's rows.
-__global__ void __launch_bounds__(THREADS)
-grain_luma_kernel(const int16_t* __restrict__ src, int16_t* __restrict__ out,
-                  const int16_t* __restrict__ pattern, int64_t pat_stride,
-                  const int* __restrict__ offsets, const int* __restrict__ params,
-                  int H, int W, int S, int NB, int bit_depth) {
-  constexpr int GH = 73, GW = 82;
-  constexpr int TW = CTA_BLOCKS * BLOCK;
-  static_assert(TW == THREADS, "one thread per tile column");
-  __shared__ int16_t spat[GH * GW];
-  __shared__ int lut[256];
-  __shared__ int rnd[2][CTA_BLOCKS + 1];
+// ---------------------------------------------------------------------------
+// Persistent, vectorised luma and chroma-pair kernels
 
-  const int bi = blockIdx.z, s = blockIdx.y, bx0 = blockIdx.x * CTA_BLOCKS;
-  const int* prm = params + (int64_t)bi * P_LEN;
-  const int active = prm[P_ACTIVE];
-  const int64_t frame = (int64_t)bi * H * W;
-  const int y0 = s * BLOCK, x0 = bx0 * BLOCK;
-  const int rows = min(BLOCK, H - y0), cols = min(TW, W - x0);
-  const int xl = threadIdx.x;
+constexpr int GROUP = 8;                // samples per thread and row: 16 bytes
+constexpr int TX = 32;                  // threads across a unit's row
+constexpr int RPW = THREADS / TX;       // row phases of a CTA
+constexpr int UNIT_W = TX * GROUP;      // samples across a unit
 
-  if (!active) {  // inactive plane: samples pass through
-    if (xl < cols)
-      for (int r = 0; r < rows; ++r) {
-        const int64_t idx = frame + (int64_t)(y0 + r) * W + x0 + xl;
-        out[idx] = src[idx];
-      }
-    return;
-  }
-  const int16_t* pat = pattern + bi * pat_stride;
-  for (int i = threadIdx.x; i < GH * GW; i += THREADS) spat[i] = pat[i];
-  lut[threadIdx.x] = prm[P_LUT + threadIdx.x];
-  load_randoms(rnd, offsets, bi, s, bx0, S, NB);
-  __syncthreads();
-  if (xl >= cols) return;
+// The geometry of a plane's grain at subsampling (SX, SY).
+template <int SX, int SY>
+struct Geo {
+  static constexpr int GW = SX ? 44 : 82, GH = SY ? 38 : 73;  // pattern
+  static constexpr int BW = BLOCK >> SX, BH = BLOCK >> SY;    // block
+  static constexpr int OVC = 2 >> SX, OVR = 2 >> SY;          // overlap
+  // pattern bytes in shared memory, rounded up to 16
+  static constexpr int PAT_BYTES = (GH * GW * 2 + 15) & ~15;
+};
 
-  const int ss = prm[P_SCALING_SHIFT], lo = prm[P_CLIP_LO], hi = prm[P_CLIP_HI];
-  const int gmin = prm[P_GMIN], gmax = prm[P_GMAX];
-  const bool overlap = prm[P_OVERLAP] != 0;
-  const int j = xl / BLOCK, c = xl % BLOCK, jg = bx0 + j;
-  for (int r = 0; r < rows; ++r) {
-    const int64_t idx = frame + (int64_t)(y0 + r) * W + x0 + xl;
-    const int v = src[idx];
-    const int n = grain_noise<0, 0>(spat, rnd, j, jg, c, r, s, overlap, gmin, gmax);
-    out[idx] = (int16_t)grained(v, n, scale_lookup(lut, v, bit_depth), ss, lo, hi);
+// Bytes of dynamic shared memory: `planes` patterns and expanded LUTs.
+template <int SX, int SY>
+size_t table_bytes(int planes, int bit_depth) {
+  return (size_t)planes * (Geo<SX, SY>::PAT_BYTES + (sizeof(int) << bit_depth));
+}
+
+__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+}
+
+__device__ __forceinline__ void unpack8(const int4 v, int (&s)[GROUP]) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s[2 * i] = (int)(int16_t)(w[i] & 0xFFFF);  // low half, sign-extended
+    s[2 * i + 1] = w[i] >> 16;                 // high half, arithmetic shift
   }
 }
 
-// Grid (ceil(NB / CTA_BLOCKS), S, B) over LUMA blocks; each CTA grains
-// the collocated (32>>SY) x (CTA_BLOCKS * 32>>SX) tile of Cb and of Cr.
+__device__ __forceinline__ int4 pack8(const int (&s)[GROUP]) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = ((unsigned)s[2 * i] & 0xFFFFu) | ((unsigned)s[2 * i + 1] << 16);
+  return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+}
+
+// The 8 samples row[x .. x+7] (zero from column n on): one 16-byte
+// streaming load when `vec` (the row start is 16-byte aligned and
+// x + 8 <= n), else one load per sample. x is a multiple of 8.
+__device__ __forceinline__ int4 load8(const int16_t* row, int x, int n, bool vec) {
+  if (vec) return __ldcs(reinterpret_cast<const int4*>(row + x));
+  int s[GROUP];
+#pragma unroll
+  for (int k = 0; k < GROUP; ++k) s[k] = x + k < n ? row[x + k] : 0;
+  return pack8(s);
+}
+
+__device__ __forceinline__ void store8(int16_t* row, int x, int n, bool vec, const int4 v) {
+  if (vec) {
+    __stcs(reinterpret_cast<int4*>(row + x), v);
+    return;
+  }
+  int s[GROUP];
+  unpack8(v, s);
+#pragma unroll
+  for (int k = 0; k < GROUP; ++k)
+    if (x + k < n) row[x + k] = (int16_t)s[k];
+}
+
+// The pattern windows a group of 8 reads, as indices into the (GH, GW)
+// pattern at the group's row 0: its block's (cur); the left block's
+// continuation past its right edge (lft, lanes < OVC of a block's first
+// group); the block above's continuation below its bottom edge (top,
+// rows < OVR), and the top-left block's (tl).
+struct Windows {
+  int cur, lft, top, tl;
+  bool left, above;
+};
+
+// orow: the stripe's NB block randoms; blk: the group's block index;
+// c0: the group's first column within its block; s: the stripe.
 template <int SX, int SY>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ Windows windows(const int* orow, int NB, int blk, int c0,
+                                           int s, bool overlap) {
+  using G = Geo<SX, SY>;
+  auto base = [](int rd) { return off_y<SY>(rd) * G::GW + off_x<SX>(rd); };
+  Windows w;
+  w.cur = base(__ldg(orow + blk)) + c0;
+  w.left = overlap && blk > 0 && c0 == 0;
+  w.above = overlap && s > 0;
+  w.lft = w.left ? base(__ldg(orow + blk - 1)) + G::BW : 0;
+  w.top = w.above ? base(__ldg(orow - NB + blk)) + G::BH * G::GW + c0 : 0;
+  w.tl = w.left && w.above ? base(__ldg(orow - NB + blk - 1)) + G::BH * G::GW + G::BW : 0;
+  return w;
+}
+
+// Grain of a group's 8 samples at row r of its stripe, before scaling,
+// with the overlap blends of grain_noise.
+template <int SX, int SY>
+__device__ __forceinline__ void noise8(const int16_t* pat, const Windows& w, int r,
+                                       int gmin, int gmax, int (&g)[GROUP]) {
+  using G = Geo<SX, SY>;
+  const int16_t* p = pat + w.cur + r * G::GW;
+#pragma unroll
+  for (int k = 0; k < GROUP; ++k) g[k] = p[k];
+  if (w.left) {
+    const int16_t* q = pat + w.lft + r * G::GW;
+#pragma unroll
+    for (int k = 0; k < G::OVC; ++k) g[k] = clampi(blend<SX>(q[k], g[k], k), gmin, gmax);
+  }
+  if (w.above && r < G::OVR) {
+    const int16_t* t = pat + w.top + r * G::GW;
+    int tg[GROUP];
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) tg[k] = t[k];
+    if (w.left) {
+      const int16_t* q = pat + w.tl + r * G::GW;
+#pragma unroll
+      for (int k = 0; k < G::OVC; ++k) tg[k] = clampi(blend<SX>(q[k], tg[k], k), gmin, gmax);
+    }
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) g[k] = clampi(blend<SY>(tg[k], g[k], r), gmin, gmax);
+  }
+}
+
+// Stage one plane's tables: its (GH, GW) pattern, and its scaling LUT
+// expanded to one entry per sample value (scale_lookup of every value).
+__device__ __forceinline__ void stage_tables(int16_t* spat, int* slut, const int16_t* pat,
+                                             int n, const int* prm, int bit_depth) {
+  for (int i = threadIdx.x; i < n; i += THREADS) spat[i] = pat[i];
+  for (int v = threadIdx.x; v < (1 << bit_depth); v += THREADS)
+    slut[v] = scale_lookup(prm + P_LUT, v, bit_depth);
+}
+
+// The scalars of a plane's parameter row that the kernels read.
+struct PlaneParams {
+  int active, ss, lo, hi, gmin, gmax, overlap, use_mult, mult, luma_mult, offset;
+};
+
+__device__ __forceinline__ PlaneParams plane_params(const int* prm, int bit_depth) {
+  PlaneParams q;
+  q.active = prm[P_ACTIVE];
+  q.ss = prm[P_SCALING_SHIFT];
+  q.lo = prm[P_CLIP_LO];
+  q.hi = prm[P_CLIP_HI];
+  q.gmin = prm[P_GMIN];
+  q.gmax = prm[P_GMAX];
+  q.overlap = prm[P_OVERLAP] != 0;
+  q.use_mult = prm[P_USE_MULT] != 0;
+  q.mult = prm[P_MULT] - 128;
+  q.luma_mult = prm[P_LUMA_MULT] - 128;
+  // (offset - 256) << (bd - 8), written as a product: a left shift of a
+  // negative int is undefined before C++20
+  q.offset = (prm[P_OFFSET] - 256) * (1 << (bit_depth - 8));
+  return q;
+}
+
+// A work unit as (frame, stripe, segment), stepped in that order.
+struct Unit {
+  int b, s, xs;
+  __device__ __forceinline__ void next(int S, int NX) {
+    if (++xs == NX) {
+      xs = 0;
+      if (++s == S) {
+        s = 0;
+        ++b;
+      }
+    }
+  }
+};
+
+// This CTA's contiguous range [u0, u1) of the units, and its first unit.
+__device__ __forceinline__ void unit_range(int units, int S, int NX, int& u0, int& u1,
+                                           Unit& u) {
+  u0 = (int)((int64_t)units * blockIdx.x / gridDim.x);
+  u1 = (int)((int64_t)units * (blockIdx.x + 1) / gridDim.x);
+  u.b = u0 / (S * NX);
+  const int rest = u0 - u.b * S * NX;
+  u.s = rest / NX;
+  u.xs = rest - u.s * NX;
+}
+
+// Grid: a few CTAs per SM, each walking a contiguous range of the
+// B x S x NX units (frame, 32-row stripe, 256-sample segment). Thread
+// (phase, lane) owns columns x .. x+7, x = 256 xs + 8 lane, on the
+// stripe's rows phase, phase + 8, phase + 16, phase + 24.
+__global__ void __launch_bounds__(THREADS, 4)
+grain_luma_kernel(const int16_t* __restrict__ src, int16_t* __restrict__ out,
+                  const int16_t* __restrict__ pattern, int64_t pat_stride,
+                  const int* __restrict__ offsets, const int* __restrict__ params,
+                  int H, int W, int S, int NB, int NX, int units, int bit_depth) {
+  using G = Geo<0, 0>;
+  constexpr int RT = BLOCK / RPW;  // rows of a unit per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* spat = reinterpret_cast<int16_t*>(smem);
+  int* slut = reinterpret_cast<int*>(smem + G::PAT_BYTES);
+
+  const int lane = threadIdx.x % TX, phase = threadIdx.x / TX;
+  const int maxv = (1 << bit_depth) - 1;
+  int u0, u1;
+  Unit u;
+  unit_range(units, S, NX, u0, u1, u);
+  int staged = -1;  // the frame whose tables are in shared memory
+  PlaneParams q{};
+  for (int i = u0; i < u1; ++i, u.next(S, NX)) {
+    if (u.b != staged) {  // uniform across the CTA
+      staged = u.b;
+      const int* prm = params + (int64_t)u.b * P_LEN;
+      q = plane_params(prm, bit_depth);
+      __syncthreads();  // the previous frame's tables are no longer read
+      if (q.active)
+        stage_tables(spat, slut, pattern + u.b * pat_stride, G::GH * G::GW, prm, bit_depth);
+      __syncthreads();
+    }
+    const int x = u.xs * UNIT_W + lane * GROUP;
+    if (x >= W) continue;
+    const int rows = min(BLOCK, H - u.s * BLOCK);
+    const int16_t* s0 = src + ((int64_t)u.b * H + u.s * BLOCK) * W;
+    int16_t* o0 = out + ((int64_t)u.b * H + u.s * BLOCK) * W;
+
+    int4 v[RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < rows) {
+        const int16_t* row = s0 + (int64_t)r * W;
+        v[t] = load8(row, x, W, x + GROUP <= W && aligned16(row, o0 + (int64_t)r * W));
+      }
+    }
+    if (!q.active) {  // inactive plane: samples pass through
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        const int r = phase + t * RPW;
+        if (r < rows) {
+          int16_t* row = o0 + (int64_t)r * W;
+          store8(row, x, W, x + GROUP <= W && aligned16(row, s0 + (int64_t)r * W), v[t]);
+        }
+      }
+      continue;
+    }
+    const Windows w = windows<0, 0>(offsets + ((int64_t)u.b * S + u.s) * NB, NB,
+                                    x / BLOCK, x % BLOCK, u.s, q.overlap);
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < rows) {
+        int sm[GROUP], g[GROUP];
+        unpack8(v[t], sm);
+        noise8<0, 0>(spat, w, r, q.gmin, q.gmax, g);
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          sm[k] = grained(sm[k], g[k], slut[clampi(sm[k], 0, maxv)], q.ss, q.lo, q.hi);
+        }
+        int16_t* row = o0 + (int64_t)r * W;
+        store8(row, x, W, x + GROUP <= W && aligned16(row, s0 + (int64_t)r * W), pack8(sm));
+      }
+    }
+  }
+}
+
+// The collocated source luma of a chroma group, as the 16 (SX) or 8
+// samples the pair average reads: row[2 xc + j] (row[xc + j]), the
+// column clamped to W - 1 (an odd width pairs the last sample with
+// itself), zero past the chroma row's end.
+template <int SX>
+__device__ __forceinline__ void load_luma(const int16_t* row, int xc, int W, int Wc,
+                                          bool vec, int4 (&l)[1 + SX]) {
+  if (vec) {
+#pragma unroll
+    for (int h = 0; h <= SX; ++h)
+      l[h] = __ldcs(reinterpret_cast<const int4*>(row + (xc << SX) + h * GROUP));
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h <= SX; ++h) {
+    int s[GROUP];
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) {
+      const int j = h * GROUP + k;
+      s[k] = xc + (j >> SX) < Wc ? row[min((xc << SX) + j, W - 1)] : 0;
+    }
+    l[h] = pack8(s);
+  }
+}
+
+// Grid as the luma kernel's, over units of (frame, luma stripe, 256
+// chroma samples). Thread (phase, lane) owns chroma columns xc .. xc+7 of
+// the stripe's chroma rows phase, phase + 8, ... (BH = 32 >> SY rows), and
+// reads their collocated luma (even rows when SY) for the scaling input.
+template <int SX, int SY>
+__global__ void __launch_bounds__(THREADS, 2)
 grain_chroma_pair_kernel(const int16_t* __restrict__ y,
                          const int16_t* __restrict__ cb,
                          const int16_t* __restrict__ cr,
@@ -203,72 +463,132 @@ grain_chroma_pair_kernel(const int16_t* __restrict__ y,
                          const int16_t* __restrict__ cr_pat, int64_t cr_stride,
                          const int* __restrict__ offsets,
                          const int* __restrict__ params2, int B, int H, int W,
-                         int S, int NB, int bit_depth) {
-  constexpr int GH = SY ? 38 : 73, GW = SX ? 44 : 82;
-  constexpr int BW = BLOCK >> SX, BH = BLOCK >> SY;
-  constexpr int TW = CTA_BLOCKS * BW;  // tile width in chroma samples
-  constexpr int RP = THREADS / TW;     // tile rows per pass
-  __shared__ int16_t spat[2][GH * GW];
-  __shared__ int lut[2][256];
-  __shared__ int rnd[2][CTA_BLOCKS + 1];
+                         int S, int NB, int NX, int units, int bit_depth) {
+  using G = Geo<SX, SY>;
+  constexpr int RT = G::BH / RPW;  // chroma rows of a unit per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* spat[2] = {reinterpret_cast<int16_t*>(smem),
+                      reinterpret_cast<int16_t*>(smem + G::PAT_BYTES)};
+  int* slut[2] = {reinterpret_cast<int*>(smem + 2 * G::PAT_BYTES),
+                  reinterpret_cast<int*>(smem + 2 * G::PAT_BYTES + (sizeof(int) << bit_depth))};
+  __shared__ PlaneParams sq[2];
 
-  const int bi = blockIdx.z, s = blockIdx.y, bx0 = blockIdx.x * CTA_BLOCKS;
   const int Hc = (H + SY) >> SY, Wc = (W + SX) >> SX;
-  const int* prm[2] = {params2 + (int64_t)bi * P_LEN,
-                       params2 + ((int64_t)B + bi) * P_LEN};
-  const int16_t* pats[2] = {cb_pat + bi * cb_stride, cr_pat + bi * cr_stride};
-  for (int p = 0; p < 2; ++p) {
-    for (int i = threadIdx.x; i < GH * GW; i += THREADS) spat[p][i] = pats[p][i];
-    lut[p][threadIdx.x] = prm[p][P_LUT + threadIdx.x];
-  }
-  load_randoms(rnd, offsets, bi, s, bx0, S, NB);
-  __syncthreads();
-
-  const int yc0 = s * BH, xc0 = bx0 * BW;
-  const int rows = min(BH, Hc - yc0), cols = min(TW, Wc - xc0);
-  const int xl = threadIdx.x % TW;
-  if (xl >= cols) return;
-  const int j = xl / BW, c = xl % BW, jg = bx0 + j;
-  const int xc = xc0 + xl;
-  const int maxval = (1 << bit_depth) - 1;
-  const int64_t lframe = (int64_t)bi * H * W;
-  const int64_t cframe = (int64_t)bi * Hc * Wc;
+  const int lane = threadIdx.x % TX, phase = threadIdx.x / TX;
+  const int maxv = (1 << bit_depth) - 1;
   const int16_t* srcs[2] = {cb, cr};
   int16_t* outs[2] = {out_cb, out_cr};
-
-  for (int r = threadIdx.x / TW; r < rows; r += RP) {
-    const int yc = yc0 + r;
-    // collocated source luma: even rows when vertically subsampled; the
-    // horizontal pair average clamps to the last column for odd widths
-    const int16_t* lrow = y + lframe + (int64_t)(yc << SY) * W;
-    int avg;
-    if (SX) {
-      const int lx = xc << 1;
-      avg = (lrow[lx] + lrow[min(lx + 1, W - 1)] + 1) >> 1;
-    } else {
-      avg = lrow[xc];
-    }
-    const int64_t idx = cframe + (int64_t)yc * Wc + xc;
+  int u0, u1;
+  Unit u;
+  unit_range(units, S, NX, u0, u1, u);
+  int staged = -1;
+  PlaneParams q[2] = {};
+  for (int i = u0; i < u1; ++i, u.next(S, NX)) {
+    if (u.b != staged) {  // uniform across the CTA
+      staged = u.b;
+      __syncthreads();  // the previous frame's tables are no longer read
+      const int16_t* pats[2] = {cb_pat + u.b * cb_stride, cr_pat + u.b * cr_stride};
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int* q = prm[p];
-      const int v = srcs[p][idx];
-      int res = v;
-      if (q[P_ACTIVE]) {
-        int val = avg;
-        if (q[P_USE_MULT]) {
-          const int combined = avg * (q[P_LUMA_MULT] - 128) + v * (q[P_MULT] - 128);
-          // (offset - 256) << (bd - 8), written as a product: a left
-          // shift of a negative int is undefined before C++20
-          val = clampi((combined >> 6) + (q[P_OFFSET] - 256) * (1 << (bit_depth - 8)),
-                       0, maxval);
-        }
-        const int n = grain_noise<SX, SY>(spat[p], rnd, j, jg, c, r, s,
-                                          q[P_OVERLAP] != 0, q[P_GMIN], q[P_GMAX]);
-        res = grained(v, n, scale_lookup(lut[p], val, bit_depth),
-                      q[P_SCALING_SHIFT], q[P_CLIP_LO], q[P_CLIP_HI]);
+      for (int p = 0; p < 2; ++p) {
+        const int* prm = params2 + ((int64_t)p * B + u.b) * P_LEN;
+        if (threadIdx.x == 0) sq[p] = plane_params(prm, bit_depth);
+        if (prm[P_ACTIVE])
+          stage_tables(spat[p], slut[p], pats[p], G::GH * G::GW, prm, bit_depth);
       }
-      outs[p][idx] = (int16_t)res;
+      __syncthreads();
+      q[0] = sq[0];
+      q[1] = sq[1];
+    }
+    const int xc = u.xs * UNIT_W + lane * GROUP;
+    if (xc >= Wc) continue;
+    const int yc0 = u.s * G::BH;
+    const int rows = min(G::BH, Hc - yc0);
+    const int64_t cbase = ((int64_t)u.b * Hc + yc0) * Wc;
+
+    int4 v[2][RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < rows) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int16_t* row = srcs[p] + cbase + (int64_t)r * Wc;
+          v[p][t] = load8(row, xc, Wc,
+                          xc + GROUP <= Wc && aligned16(row, outs[p] + cbase + (int64_t)r * Wc));
+        }
+      }
+    }
+    if (!q[0].active && !q[1].active) {  // both planes inactive: samples pass through
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        const int r = phase + t * RPW;
+        if (r < rows) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            int16_t* row = outs[p] + cbase + (int64_t)r * Wc;
+            store8(row, xc, Wc,
+                   xc + GROUP <= Wc && aligned16(row, srcs[p] + cbase + (int64_t)r * Wc),
+                   v[p][t]);
+          }
+        }
+      }
+      continue;
+    }
+    int4 l[RT][1 + SX];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < rows) {
+        const int16_t* lrow = y + ((int64_t)u.b * H + ((yc0 + r) << SY)) * W;
+        const bool vec = ((xc + GROUP) << SX) <= W &&
+                         (reinterpret_cast<uintptr_t>(lrow) & 15) == 0;
+        load_luma<SX>(lrow, xc, W, Wc, vec, l[t]);
+      }
+    }
+    const int* orow = offsets + ((int64_t)u.b * S + u.s) * NB;
+    Windows w[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      w[p] = windows<SX, SY>(orow, NB, xc / G::BW, xc % G::BW, u.s, q[p].overlap);
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r >= rows) continue;
+      int avg[GROUP];
+      if (SX) {
+        int a[GROUP], b2[GROUP];
+        unpack8(l[t][0], a);
+        unpack8(l[t][SX], b2);
+#pragma unroll
+        for (int k = 0; k < GROUP / 2; ++k) {
+          avg[k] = (a[2 * k] + a[2 * k + 1] + 1) >> 1;
+          avg[k + GROUP / 2] = (b2[2 * k] + b2[2 * k + 1] + 1) >> 1;
+        }
+      } else {
+        unpack8(l[t][0], avg);
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        int16_t* row = outs[p] + cbase + (int64_t)r * Wc;
+        const bool vec = xc + GROUP <= Wc && aligned16(row, srcs[p] + cbase + (int64_t)r * Wc);
+        if (!q[p].active) {
+          store8(row, xc, Wc, vec, v[p][t]);
+          continue;
+        }
+        int sm[GROUP], g[GROUP];
+        unpack8(v[p][t], sm);
+        noise8<SX, SY>(spat[p], w[p], r, q[p].gmin, q[p].gmax, g);
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const int val = q[p].use_mult
+              ? clampi(((avg[k] * q[p].luma_mult + sm[k] * q[p].mult) >> 6) + q[p].offset, 0,
+                       maxv)
+              : avg[k];
+          sm[k] = grained(sm[k], g[k], slut[p][clampi(val, 0, maxv)], q[p].ss, q[p].lo,
+                          q[p].hi);
+        }
+        store8(row, xc, Wc, vec, pack8(sm));
+      }
     }
   }
 }
@@ -319,7 +639,7 @@ grain_chroma_kernel(const int16_t* __restrict__ src, const int16_t* __restrict__
   const bool overlap = prm[P_OVERLAP] != 0;
   const bool use_mult = prm[P_USE_MULT] != 0;
   const int mult = prm[P_MULT] - 128, luma_mult = prm[P_LUMA_MULT] - 128;
-  // (offset - 256) << (bd - 8), written as a product (see the pair kernel)
+  // (offset - 256) << (bd - 8), written as a product (see plane_params)
   const int offset = (prm[P_OFFSET] - 256) * (1 << (bit_depth - 8));
   const int maxval = (1 << bit_depth) - 1;
   const int j = xl / BW, c = xl % BW, jg = bx0 + j;
@@ -335,6 +655,31 @@ grain_chroma_kernel(const int16_t* __restrict__ src, const int16_t* __restrict__
 
 int nblocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
+// Launch a persistent kernel over `units` work units with `smem` bytes of
+// dynamic shared memory: as many CTAs as fit on the card at once, at
+// most one per unit.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int64_t units, int bit_depth, size_t smem,
+                      cudaStream_t stream, Args... args) {
+  if (units == 0) return (int)cudaSuccess;
+  if (units > INT32_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  int dev, sms, per_sm;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem)) !=
+          cudaSuccess)
+    return (int)err;
+  const int64_t resident = (int64_t)sms * max(per_sm, 1);
+  const int64_t grid = units < resident ? units : resident;
+  kernel<<<(unsigned)grid, THREADS, smem, stream>>>(args..., (int)units, bit_depth);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -342,12 +687,13 @@ extern "C" {
 int grain_luma(const void* src, void* out, const void* pattern, int64_t pat_stride,
                const void* offsets, const void* params, int B, int H, int W,
                int bit_depth, void* stream) {
-  const int S = nblocks(H), NB = nblocks(W);
-  const dim3 grid((NB + CTA_BLOCKS - 1) / CTA_BLOCKS, S, B);
-  grain_luma_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)src, (int16_t*)out, (const int16_t*)pattern, pat_stride,
-      (const int*)offsets, (const int*)params, H, W, S, NB, bit_depth);
-  return (int)cudaGetLastError();
+  const int S = nblocks(H), NB = nblocks(W), NX = (W + UNIT_W - 1) / UNIT_W;
+  const int64_t units = (int64_t)B * S * NX;
+  return launch_persistent(grain_luma_kernel, units, bit_depth,
+                           table_bytes<0, 0>(1, bit_depth), (cudaStream_t)stream,
+                           (const int16_t*)src, (int16_t*)out,
+                           (const int16_t*)pattern, pat_stride, (const int*)offsets,
+                           (const int*)params, H, W, S, NB, NX);
 }
 
 int grain_chroma_pair(const void* y, const void* cb, const void* cr, void* out_cb,
@@ -356,24 +702,20 @@ int grain_chroma_pair(const void* y, const void* cb, const void* cr, void* out_c
                       const void* params2, int B, int H, int W, int sub_x,
                       int sub_y, int bit_depth, void* stream) {
   const int S = nblocks(H), NB = nblocks(W);
-  const dim3 grid((NB + CTA_BLOCKS - 1) / CTA_BLOCKS, S, B);
-#define LAUNCH(SX, SY)                                                          \
-  grain_chroma_pair_kernel<SX, SY><<<grid, THREADS, 0, (cudaStream_t)stream>>>( \
-      (const int16_t*)y, (const int16_t*)cb, (const int16_t*)cr,                \
-      (int16_t*)out_cb, (int16_t*)out_cr, (const int16_t*)cb_pat, cb_stride,    \
-      (const int16_t*)cr_pat, cr_stride, (const int*)offsets,                   \
-      (const int*)params2, B, H, W, S, NB, bit_depth)
-  if (sub_x == 1 && sub_y == 1) {
-    LAUNCH(1, 1);
-  } else if (sub_x == 1 && sub_y == 0) {
-    LAUNCH(1, 0);
-  } else if (sub_x == 0 && sub_y == 0) {
-    LAUNCH(0, 0);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int NX = (((W + sub_x) >> sub_x) + UNIT_W - 1) / UNIT_W;
+  const int64_t units = (int64_t)B * S * NX;
+#define LAUNCH(SX, SY)                                                              \
+  return launch_persistent(grain_chroma_pair_kernel<SX, SY>, units, bit_depth,      \
+                           table_bytes<SX, SY>(2, bit_depth), (cudaStream_t)stream, \
+                           (const int16_t*)y, (const int16_t*)cb, (const int16_t*)cr, \
+                           (int16_t*)out_cb, (int16_t*)out_cr, (const int16_t*)cb_pat, \
+                           cb_stride, (const int16_t*)cr_pat, cr_stride,              \
+                           (const int*)offsets, (const int*)params2, B, H, W, S, NB, NX)
+  if (sub_x == 1 && sub_y == 1) LAUNCH(1, 1);
+  if (sub_x == 1 && sub_y == 0) LAUNCH(1, 0);
+  if (sub_x == 0 && sub_y == 0) LAUNCH(0, 0);
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 int grain_chroma(const void* src, const void* avg, void* out, const void* pattern,

@@ -25,11 +25,10 @@ from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from grav1synth_tpu.obu.types import FilmGrainParams, GrainTableSegment
-from grav1synth_tpu.ops import grain_ref
-from grav1synth_tpu.tables.aggregate import packet_bounds
-
+from ..obu.types import FilmGrainParams, GrainTableSegment
 from ..parallel.mesh import shard_slices
+from ..tables.aggregate import packet_bounds
+from . import grain_ref
 from .diff_kernels import FLAT_BLOCK, NUM_BINS, flat_block_activity, offsets, plane_stats
 
 

@@ -37,10 +37,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from grav1synth_tpu.obu.types import FilmGrainParams, GrainTableSegment
-from grav1synth_tpu.ops import grain_ref
-from grav1synth_tpu.tables.aggregate import packet_bounds
-
+from ..obu.types import FilmGrainParams, GrainTableSegment
+from ..tables.aggregate import packet_bounds
+from . import grain_ref
 from .diff_estimate import (
     _ChunkStats,
     _curve_points,

@@ -25,9 +25,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from grav1synth_tpu.obu.types import FilmGrainParams
-from grav1synth_tpu.ops import grain_ref
-from grav1synth_tpu.ops.tables_data import GAUSSIAN_SEQUENCE
+from ..obu.types import FilmGrainParams
+from . import grain_ref
+from .tables_data import GAUSSIAN_SEQUENCE
 
 GRAIN_W = 82
 GRAIN_H = 73
@@ -545,7 +545,7 @@ def prepare_patterns(
     pinned and copied with ``non_blocking=True``, so the upload overlaps
     whatever the stream is running."""
     if generate is None:
-        from grav1synth_tpu.container.ffshim import generate_patterns_native
+        from ..container.ffshim import generate_patterns_native
 
         generate = generate_patterns_native
     n_seg, chroma_static = _host_metadata(host_params, monochrome)

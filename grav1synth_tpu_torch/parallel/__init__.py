@@ -1,24 +1,32 @@
-"""Frame sharding over several devices (counterpart of
-grav1synth_tpu/parallel/mesh.py).
+"""Sharding over several devices and processes.
 
-The multi-process host sharding of inspect/apply/remove stays the JAX
-package's ``grav1synth_tpu.parallel.host_shard`` (host code, no device
-work)."""
+- ``mesh`` (counterpart of grav1synth_tpu/parallel/mesh.py): frame
+  sharding of the apply and diff paths over a ``DeviceMesh``;
+- ``host_shard`` (a copy of grav1synth_tpu/parallel/host_shard.py): the
+  multi-process GOP sharding of ``inspect``, ``apply`` and ``remove``
+  (host code, no device work).
 
-from .mesh import (
-    DeviceMesh,
-    frame_shards,
-    make_mesh,
-    pad_batch,
-    sharded_apply,
-    sharded_apply_with_stats,
-)
+The mesh names are imported on first use, so the spawned ``host_shard``
+workers, which import this package, do not import torch.
+"""
 
-__all__ = [
+from .host_shard import sharded_inspect_ivf, sharded_rewrite_ivf
+
+_MESH_NAMES = (
     "DeviceMesh",
     "frame_shards",
     "make_mesh",
     "pad_batch",
     "sharded_apply",
     "sharded_apply_with_stats",
-]
+)
+
+__all__ = [*_MESH_NAMES, "sharded_inspect_ivf", "sharded_rewrite_ivf"]
+
+
+def __getattr__(name):
+    if name in _MESH_NAMES:
+        from . import mesh
+
+        return getattr(mesh, name)
+    raise AttributeError(name)

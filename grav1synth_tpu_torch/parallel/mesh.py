@@ -25,8 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from grav1synth_tpu.obu.types import FilmGrainParams
-
+from ..obu.types import FilmGrainParams
 from ..ops.grain import GrainParamsBatch, apply_grain
 
 

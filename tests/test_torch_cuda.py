@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test here needs an NVIDIA GPU and skips without one (the
 parameter batches of ``pattern_zoo`` also feed the CPU tests of
-tests/test_torch_patterns.py).
+tests/test_torch_patterns.py and tests/test_torch_host.py).
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -71,6 +71,106 @@ def test_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
     assert gk.LAUNCHES["grain_chroma_pair"] == before["grain_chroma_pair"] + 1
     for pi in range(3):
         assert torch.equal(outs["cuda"][pi], outs["cpu"][pi]), f"plane {pi}"
+
+
+def _mixed_params():
+    """_params() and frames whose planes are off: no luma points; no
+    chroma points at all (the chroma-pair kernel copies both planes); no
+    Cr points (one plane grained, one copied)."""
+    base = _params()
+    off_y, off_c, off_cr = (copy.deepcopy(base[0]) for _ in range(3))
+    off_y.grain_seed, off_y.scaling_points_y = 11, []
+    off_c.grain_seed, off_c.scaling_points_cb, off_c.scaling_points_cr = 12, [], []
+    off_cr.grain_seed, off_cr.scaling_points_cr = 13, []
+    return base + [off_y, off_c, off_cr]
+
+
+class _KernelCase:
+    """One parameter batch's tables at one bit depth and subsampling, on
+    the card: patterns once, then the luma and chroma-pair kernels against
+    their plain versions on any planes."""
+
+    def __init__(self, params, bd, sub_x, sub_y, device):
+        self.bd, self.sub_x, self.sub_y = bd, sub_x, sub_y
+        prep = tg.prepare_patterns(
+            params, bd, sub_x, sub_y, device=device, generate=tg.generate_patterns_ref
+        )
+        self.pats = prep.planes()
+        self.pb = tg.pack_params(params, device)
+        self.py = gk.pack_plane_params(self.pb, "y", bd)
+        self.p2 = torch.cat([gk.pack_plane_params(self.pb, pl, bd) for pl in ("cb", "cr")])
+
+    def check(self, y, cb, cr, what):
+        """y, cb, cr: the planes as the kernels get them (any views the
+        wrappers take); the plain versions get the same planes."""
+        _, h, w = y.shape
+        offs = tg.block_offsets(self.pb.seed, (h + 31) // 32, (w + 31) // 32)
+        luma_args = (y, self.pats[0], offs, self.py, self.bd)
+        pair_args = (y, cb, cr, self.pats[1], self.pats[2], offs, self.p2, self.bd,
+                     self.sub_x, self.sub_y)
+        before = dict(gk.LAUNCHES)
+        got = [gk.apply_plane_luma(*luma_args), *gk.apply_planes_pair(*pair_args)]
+        assert gk.LAUNCHES["grain_luma"] == before["grain_luma"] + 1
+        assert gk.LAUNCHES["grain_chroma_pair"] == before["grain_chroma_pair"] + 1
+        want = [gk.apply_plane_luma_reference(*luma_args),
+                *gk.apply_planes_pair_reference(*pair_args)]
+        for pi, (g, wnt) in enumerate(zip(got, want)):
+            assert torch.equal(g, wnt), f"{what}: plane {pi}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_kernels_match_plain_at_edge_geometries_on_cuda(cuda, sub_x, sub_y, bd):
+    """Luma widths 520-535 (every residue mod 8, luma and chroma), odd and
+    even heights, overlap on and off, mixed active and inactive planes."""
+    params = _mixed_params()
+    case = _KernelCase(params, bd, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(200 + bd)
+    for w in range(520, 536):
+        h = (41, 33, 64, 71)[w % 4]
+        planes = _random_planes(rng, len(params), h, w, bd, sub_x, sub_y, cuda)
+        case.check(*planes, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+def test_kernels_match_plain_on_unaligned_bases_on_cuda(cuda, sub_x, sub_y):
+    """Planes whose base pointer is not 16-byte aligned: a batch slice
+    ``[1:]`` of 41x301 frames (each frame starts 24682 bytes after the
+    last), and 64x256 planes viewed 3 samples into their storage (every
+    row 6 bytes off)."""
+    params = _mixed_params()
+    case = _KernelCase(params, 10, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(7)
+    b = len(params)
+    big = _random_planes(rng, b + 1, 41, 301, 10, sub_x, sub_y, cuda)
+    sliced = [t[1:] for t in big]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in sliced)
+    case.check(*sliced, "batch slice [1:] of 41x301")
+    flat = []
+    for t in _random_planes(rng, b, 64, 256, 10, sub_x, sub_y, cuda):
+        store = torch.empty(t.numel() + 3, dtype=torch.int16, device=cuda)
+        view = store[3:].view(t.shape)
+        view.copy_(t)
+        flat.append(view)
+    assert all(t.data_ptr() % 16 == 6 for t in flat)
+    case.check(*flat, "64x256 planes 3 samples into their storage")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (0, 0)])
+def test_kernels_match_plain_beyond_one_wave_on_cuda(cuda, sub_x, sub_y):
+    """More work units than CTAs resident on the card (9 frames of
+    520x1000 are 612 luma units and 306 or 612 chroma ones), with a batch
+    size that divides no grid, so CTAs' unit ranges cross frames."""
+    params = _mixed_params() + _params()[:1]
+    case = _KernelCase(params, 10, sub_x, sub_y, cuda)
+    planes = _random_planes(np.random.default_rng(8), len(params), 520, 1000, 10, sub_x, sub_y, cuda)
+    case.check(*planes, f"{sub_x}{sub_y} 9 x 1000x520")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -35,6 +35,7 @@ from test_estimate_quality import (
     true_params,
     true_params_chroma,
 )
+from test_torch_diff import _segments
 
 
 def _planes(rng, b, h, w, bd, sub_x, sub_y):
@@ -131,7 +132,7 @@ def test_fallback_lag0_equal_to_original():
             est._ingest({k: v[i] for k, v in stats.items()})
         tables.append(est._fallback_lag0())
     assert tables[0] and tables[0][0].params.ar_coeff_lag == 0
-    assert tables[0] == tables[1]
+    assert _segments(tables[0]) == _segments(tables[1])
 
 
 def _run(est, frames):
@@ -152,9 +153,7 @@ def test_noise_estimator_tables_match_jax(chroma):
     assert len(mine) == 1 and mine[0].params.ar_coeff_lag == 2
     if chroma:
         assert mine[0].params.scaling_points_cb and mine[0].params.scaling_points_cr
-    assert [(s.start_time, s.end_time, s.params) for s in mine] == [
-        (s.start_time, s.end_time, s.params) for s in theirs
-    ]
+    assert _segments(mine) == _segments(theirs)
     np.testing.assert_allclose(mine_est.per_frame_sigma, theirs_est.per_frame_sigma, rtol=1e-5)
 
 

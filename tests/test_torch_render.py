@@ -21,6 +21,7 @@ from grav1synth_tpu_torch import pipelines
 from test_render import _dav1d_frames, _grainy_ivf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH_IVF = os.path.join(REPO, ".bench_cache", "bench_4k10_grainy.ivf")
 
 CASES = [
     # (name, w, h, bd, mono, n, opts)
@@ -91,7 +92,8 @@ def test_cli(tmp_path, capsys):
         ["render", path, "-o", str(out), "--batch", "2", "--device", "cpu", "-y"]
     ) == 0
     assert len(read_y4m(str(out))[0]) == 3
-    # host-only subcommands are the JAX package's own
+    # host subcommands run in the port (tests/test_torch_host.py holds
+    # them to the JAX package byte for byte)
     table = tmp_path / "t.txt"
     assert torch_cli.main(["inspect", path, "-o", str(table), "-y"]) == 0
     assert table.read_text().startswith("filmgrn1")
@@ -127,22 +129,29 @@ def test_cli(tmp_path, capsys):
             torch_cli.main(argv)
 
 
-def test_port_never_imports_jax():
-    """Imports every module of the port and runs the plain apply, with
-    host and with device patterns, sharded over a two-entry CPU mesh, in a
-    fresh interpreter (this test process has JAX loaded by conftest)."""
+def test_port_never_imports_jax(tmp_path):
+    """Imports every module of the port, runs the plain apply, with host
+    and with device patterns, sharded over a two-entry CPU mesh, the diff
+    and estimate statistics, and the host subcommand ``inspect`` through
+    the port's CLI, in a fresh interpreter (this test process has JAX
+    loaded by conftest): neither jax nor any module of the JAX package
+    ``grav1synth_tpu`` is loaded."""
     code = textwrap.dedent(
         """
-        import sys
+        import importlib, pkgutil, sys
         import numpy as np, torch
-        import grav1synth_tpu_torch, grav1synth_tpu_torch._build
-        import grav1synth_tpu_torch.cli, grav1synth_tpu_torch.pipelines
-        import grav1synth_tpu_torch.parallel, grav1synth_tpu_torch.parallel.mesh
-        from grav1synth_tpu_torch.ops import (
-            diff_estimate, diff_kernels, estimate, grain, grain_kernels,
-        )
+        import grav1synth_tpu_torch
+        modules = [m.name for m in pkgutil.walk_packages(
+            grav1synth_tpu_torch.__path__, "grav1synth_tpu_torch.")
+            if not m.name.endswith(".__main__")]  # importing __main__ runs the CLI
+        for name in modules:
+            importlib.import_module(name)
+        assert "grav1synth_tpu_torch.container.ffshim" in modules, modules
+        assert "grav1synth_tpu_torch.parallel.host_shard" in modules, modules
+        from grav1synth_tpu_torch import cli
+        from grav1synth_tpu_torch.ops import diff_estimate, estimate, grain
         from grav1synth_tpu_torch.parallel import DeviceMesh, sharded_apply_with_stats
-        from grav1synth_tpu.obu.types import FilmGrainParams
+        from grav1synth_tpu_torch.obu.types import FilmGrainParams
         p = FilmGrainParams(grain_seed=7, scaling_points_y=[(0, 20), (255, 40)],
                             scaling_points_cb=[(0, 10), (255, 12)], cb_mult=128,
                             cb_luma_mult=192, cb_offset=256, overlap_flag=True)
@@ -161,15 +170,22 @@ def test_port_never_imports_jax():
         ne = estimate.NoiseEstimator((24, 1), device="cpu")
         ne.push_batch([np.full((40, 40), 9, np.uint8)])
         assert ne.per_frame_sigma == [0.0] and ne.finish() == []
+        table = sys.argv[2]
+        assert cli.main(["inspect", sys.argv[1], "-o", table, "-y"]) == 0
+        assert open(table).read().startswith("filmgrn1")
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        jax_package = sorted(
+            m for m in sys.modules if m == "grav1synth_tpu" or m.startswith("grav1synth_tpu.")
+        )
+        assert not jax_package, jax_package
         print("ok")
         """
     )
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     res = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
-        env=env, timeout=120,
+        [sys.executable, "-c", code, BENCH_IVF, str(tmp_path / "t.txt")],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
     )
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"
