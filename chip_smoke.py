@@ -129,6 +129,9 @@ KERNELS = (
 # energy of the sharded apply (an exact int64 sum per shard, added in
 # float64) against an int64 recount
 ENERGY_RTOL = 1e-6
+# what a kernel's entry of the summary line may carry beside the common keys
+EXTRA_KEYS = ("label", "chain_bound_ms", "chain_steps", "chain_step_cycles", "sm_clock_mhz",
+              "other_cases")
 # (sub_x, sub_y, monochrome) of the pattern kernel's cases
 PATTERN_LAYOUTS = ((1, 1, False), (1, 0, False), (0, 0, False), (1, 1, True))
 
@@ -150,6 +153,13 @@ ACTIVITY_OPS = 6
 # a Round2 (6); per AR position a Round2 and a clamp (4) beside one
 # multiply-add per tap
 GAUSS_OPS, AR_POS_OPS = 6, 4
+# The least cycles one wavefront step of the pattern kernel can take: the
+# result of step t - 1 crosses to the lane below by one warp shuffle, then
+# a multiply-add, the Round2 shift, the add to the base sample and the two
+# halves of the clamp, each waiting for the one before. Measured on an H100
+# as a loop of exactly these instructions by scripts/kernel_ab.py (its
+# "[chain]" line): 45.5 cycles.
+CHAIN_STEP_CYCLES = 45.5
 # No PyTorch call computes any kernel's function, so no library time.
 LIBRARY_NOTE = {
     "grain_luma": "none: per-block pattern gather, LUT scaling and overlap blend",
@@ -536,6 +546,41 @@ def sigma_curve_error(injected, got) -> str:
             f"(points {got.scaling_points_y}, shift {got.scaling_shift})")
 
 
+def stats_trip(h, w, bd, b, dev):
+    """The diff kernels' timing inputs: ``b`` film-like clean 4:2:0 frames
+    as the denoised planes, the same plus uniform noise in [-8, 8] as the
+    source. Returns the source and clean numpy planes and, on ``dev``, one
+    (s, d, flat blocks, aux) per plane as ``plane_stats`` takes them."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+
+    clean = film_frames(np.random.default_rng(3), b, h, w, bd)
+    noise = np.random.default_rng(4)
+    src = [np.clip(p + noise.integers(-8, 9, p.shape, dtype=np.int16), 0, (1 << bd) - 1)
+           for p in clean]
+    sy, sc, sr = (torch.from_numpy(a).to(dev) for a in src)
+    dy, dc, dr = (torch.from_numpy(a).to(dev) for a in clean)
+    lavg4 = de.chroma_lavg4(sy, dy, sc.shape[1], sc.shape[2], 1, 1)
+    blk = [de.flat_blocks(d) for d in (dy, dc, dr)]
+    return src, clean, ((sy, dy, blk[0], None), (sc, dc, blk[1], lavg4), (sr, dr, blk[2], lavg4))
+
+
+def stats_work(trip, lag: int, outs):
+    """(bytes, operations) of ``plane_stats`` on the planes of ``trip``:
+    the bytes it must move (inputs once, ``outs`` once) and the operations
+    this run's flat blocks need: per sample the residual and the flat
+    test, per flat sample the n(n+1)/2 multiply-adds of the Gram over its
+    n design columns and 4 for the binned moments."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    moved = sum(nbytes(s, d, bl, a) for s, d, bl, a in trip) + sum(
+        nbytes(*out.values()) for out in outs)
+    ops = 0.0
+    for s, _, bl, a in trip:
+        n_cols = len(dk.offsets(lag)) + (a is not None)  # r at (0, 0), its lags, aux
+        ops += 2 * s.numel() + float(bl.sum()) * 256 * (n_cols * (n_cols + 1) + 4)
+    return moved, ops
+
+
 def diff_phases(card, eff, dev, clean, grainy):
     """Phases 5 and 6; returns the diff kernels' launches, times and
     errors for the summary."""
@@ -593,33 +638,15 @@ def diff_phases(card, eff, dev, clean, grainy):
     # times
     times = {}
     for label, (h, w, bd, b) in (("4K10 B=16", (H, W, BD, 16)), ("1080p8 B=32", (1080, 1920, 8, 32))):
-        cy, cu, cv = film_frames(np.random.default_rng(3), b, h, w, bd)
-        noise = np.random.default_rng(4)
-        src = [np.clip(p + noise.integers(-8, 9, p.shape, dtype=np.int16), 0, (1 << bd) - 1)
-               for p in (cy, cu, cv)]
-        planes = [torch.from_numpy(a).to(dev) for a in (src[0], cy, src[1], cu, src[2], cv)]
-        sy, dy, sc, dc, sr, dr = planes
-        lavg4 = de.chroma_lavg4(sy, dy, sc.shape[1], sc.shape[2], 1, 1)
-        blk = [de.flat_blocks(d) for d in (dy, dc, dr)]
-        trip = ((sy, dy, blk[0], None), (sc, dc, blk[1], lavg4), (sr, dr, blk[2], lavg4))
+        src, (cy, cu, cv), trip = stats_trip(h, w, bd, b, dev)
 
         def act(fn):
             return lambda: [fn(d) for _, d, _, _ in trip]
 
-        def st(fn):
-            return lambda: [fn(s, d, bl, a, 2, bd) for s, d, bl, a in trip]
+        def st(fn, lag=2):
+            return lambda: [fn(s, d, bl, a, lag, bd) for s, d, bl, a in trip]
 
-        # the bytes each must move (inputs once, outputs once) and the
-        # operations this run's flat blocks need: per sample the residual
-        # and the flat test, per flat sample the n(n+1)/2 multiply-adds of
-        # the Gram over its n design columns and 4 for the binned moments
         act_bytes = sum(nbytes(d) for _, d, _, _ in trip) + nbytes(*act(dk.flat_block_activity)())
-        st_bytes = sum(nbytes(s, d, bl, a) for s, d, bl, a in trip) + sum(
-            nbytes(*out.values()) for out in st(dk.plane_stats)())
-        st_ops = 0.0
-        for s, _, bl, a in trip:
-            n_cols = len(dk.offsets(2)) + (a is not None)  # r at (0, 0), its lags, aux
-            st_ops += 2 * s.numel() + float(bl.sum()) * 256 * (n_cols * (n_cols + 1) + 4)
         t = {
             "flat_block_activity": timing(
                 cuda_ms(act(dk.flat_block_activity), 20),
@@ -629,13 +656,21 @@ def diff_phases(card, eff, dev, clean, grainy):
             "plane_stats": timing(
                 cuda_ms(st(dk.plane_stats), 10),
                 cuda_ms(st(dk.plane_stats_reference), 2, 1),
-                st_bytes, st_ops,
+                *stats_work(trip, 2, st(dk.plane_stats)()),
             ),
         }
         for k, tk in t.items():
-            log(time_line(k, f"{label} (3 planes, lag 2)", tk, card))
+            tk["label"] = f"{label} (3 planes, lag 2)"
+            log(time_line(k, tk["label"], tk, card))
         if label.startswith("4K"):
             times = t
+            lag3 = timing(cuda_ms(st(dk.plane_stats, 3), 5), None,
+                          *stats_work(trip, 3, st(dk.plane_stats, 3)()))
+            lag3["label"] = f"{label} (3 planes, lag 3)"
+            log(time_line("plane_stats", lag3["label"], lag3, card))
+            times["plane_stats"]["other_cases"] = [lag3]
+        else:
+            times["plane_stats"]["other_cases"].append(t["plane_stats"])
         sf, df = frames_of(src, 0, b), frames_of((cy, cu, cv), 0, b)
         est = de.DiffEstimator((30, 1), bd, bd, chunk_frames=10**6, device=dev)
         est.diff_batch(sf, df)
@@ -646,7 +681,7 @@ def diff_phases(card, eff, dev, clean, grainy):
         dt = time.perf_counter() - t0
         log(f"[diff] diff_batch {label} 4:2:0: {b * reps / dt:.1f} frames/s (stack, pinned "
             f"upload, kernels, one stats download, host chunking) on {card}")
-        del planes, sy, dy, sc, dc, sr, dr, lavg4, blk, trip
+        del trip
         torch.cuda.empty_cache()
     return launches, times, errs
 
@@ -866,6 +901,70 @@ def pattern_grid(base, seed: int, n: int = 8):
     return out
 
 
+def lagged(params, lag: int, seed: int):
+    """``params`` with AR lag ``lag`` and small random coefficients (the
+    luma tap included where the frame has luma points), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    n_pos = 2 * lag * (lag + 1)
+    out = []
+    for p in params:
+        def coeffs(k):
+            return [int(c) for c in rng.integers(-12, 13, k)]
+
+        n_chroma = n_pos + (1 if p.scaling_points_y else 0)
+        csfl = p.chroma_scaling_from_luma
+        out.append(dataclasses.replace(
+            p, ar_coeff_lag=lag,
+            ar_coeffs_y=coeffs(n_pos) if p.scaling_points_y else [],
+            ar_coeffs_cb=coeffs(n_chroma) if p.scaling_points_cb or csfl else [],
+            ar_coeffs_cr=coeffs(n_chroma) if p.scaling_points_cr or csfl else [],
+        ))
+    return out
+
+
+def stray_slot_batch(base, dev):
+    """Lag-2 frames whose rows carry one non-zero lag-3 slot each (luma
+    slot (-3, -3), Cb slot (-3, +3), Cr slot (0, -3)), and one clean lag-2
+    frame: the kernel must filter the first three at lag 3."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    pb = tg.pack_params(lagged(reseeded([base], 4), 2, 5), dev)
+    pb.coeffs_y[0, 0] = 70
+    pb.coeffs_cb[1, 6] = -90
+    pb.coeffs_cr[2, 21] = 50
+    return pb
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def pattern_chain(params, sub_x: int, sub_y: int, clock_hz: float) -> dict:
+    """The pattern kernel's bound as a dependent chain: the wavefront steps
+    of the batch's slowest frame (frames run side by side, one CTA each;
+    luma and chroma side by side within one) times the least cycles a step
+    can take, at the card's highest SM clock."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    ch, cw = tg.chroma_pattern_shape(sub_x, sub_y)
+    steps = 0
+    for p in params:
+        if p.ar_coeff_lag == 0:
+            continue
+        slope = max(p.ar_coeff_lag + 1, 3)
+        if p.scaling_points_y:
+            steps = max(steps, slope * (tg.GRAIN_H - 4) + tg.GRAIN_W - 5)
+        if p.scaling_points_cb or p.scaling_points_cr or p.chroma_scaling_from_luma:
+            steps = max(steps, slope * (ch - 4) + cw - 5)
+    return {"chain_steps": steps, "chain_step_cycles": CHAIN_STEP_CYCLES,
+            "sm_clock_mhz": clock_hz / 1e6,
+            "chain_bound_ms": steps * CHAIN_STEP_CYCLES / clock_hz * 1e3}
+
+
 def pattern_phase(card, eff, dev, apply4):
     """Phase 9; returns the pattern kernel's launches, time and error for
     the summary, and the device-pattern outputs of the main path."""
@@ -875,19 +974,31 @@ def pattern_phase(card, eff, dev, apply4):
     BD, SX, SY = 10, 1, 1
     err = 0
     n_cases = 0
+
+    def hold(pb, bd, sub_x, sub_y, mono, what):
+        nonlocal err
+        got = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
+        want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
+        if got.shape != want.shape or got.dtype != torch.int16:
+            raise AssertionError(f"pattern kernel output {tuple(got.shape)} {got.dtype}")
+        e = max_abs_err(got, want)
+        err = max(err, e)
+        if e > TOLERANCE:
+            raise AssertionError(
+                f"{bd}-bit {sub_x}{sub_y} mono={mono} {what}: pattern kernel vs plain max |err| {e}"
+            )
+
     for bd in (8, 10, 12):
         for sub_x, sub_y, mono in PATTERN_LAYOUTS:
-            pb = tg.pack_params(pattern_grid(eff[0], 100 * bd + n_cases), dev)
-            got = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
-            want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
-            if got.shape != want.shape or got.dtype != torch.int16:
-                raise AssertionError(f"pattern kernel output {tuple(got.shape)} {got.dtype}")
-            e = max_abs_err(got, want)
-            err = max(err, e)
-            if e > TOLERANCE:
-                raise AssertionError(
-                    f"{bd}-bit {sub_x}{sub_y} mono={mono}: pattern kernel vs plain max |err| {e}"
-                )
+            hold(tg.pack_params(pattern_grid(eff[0], 100 * bd + n_cases), dev),
+                 bd, sub_x, sub_y, mono, "mixed batch")
+            n_cases += 1
+            # every lag on its own: the kernel's filter is a template on it
+            for lag in range(4):
+                hold(tg.pack_params(lagged(pattern_grid(eff[0], 7 * bd + lag), lag, lag), dev),
+                     bd, sub_x, sub_y, mono, f"lag {lag}")
+                n_cases += 1
+            hold(stray_slot_batch(eff[0], dev), bd, sub_x, sub_y, mono, "stray lag-3 slots")
             n_cases += 1
     batches, frames, pats, outs = (apply4[k] for k in ("batches", "frames", "pats", "outs"))
     pbs = {b: tg.pack_params(ps, dev) for b, ps in batches.items()}
@@ -899,9 +1010,10 @@ def pattern_phase(card, eff, dev, apply4):
         if not torch.equal(got, want):
             raise AssertionError(f"4K stream B={b}: pattern kernel differs from grain_ref")
     torch.cuda.synchronize()
-    log(f"[pattern kernel] {n_cases} cases (8/10/12-bit x 4:2:0/4:2:2/4:4:4/mono, mixed "
-        f"batches) equal to the plain version (max |err| {err}); the 4K stream's 16 and 112 "
-        f"reseeded frames equal to grain_ref")
+    log(f"[pattern kernel] {n_cases} cases (8/10/12-bit x 4:2:0/4:2:2/4:4:4/mono x a mixed "
+        f"batch, lags 0-3 each on its own, stray lag-3 slots in lag-2 frames) equal to the "
+        f"plain version (max |err| {err}); the 4K stream's 16 and 112 reseeded frames equal "
+        f"to grain_ref")
 
     # the main path with patterns made on the card
     pbl = tg.pack_params(apply4["lum16"], dev)
@@ -932,18 +1044,30 @@ def pattern_phase(card, eff, dev, apply4):
     # times: the kernel alone on rows built once, and the wrapper with the
     # row pack (a dozen small device ops) in front of it
     t = {}
-    for b, pb in pbs.items():
+    clock_hz = sm_clock_hz()
+    lag = batches[16][0].ar_coeff_lag
+    cases = [(f"B={b} lag {lag}", batches[b], pb) for b, pb in pbs.items()]
+    lag3 = lagged(batches[16], 3, 3)
+    cases.append(("B=16 lag 3", lag3, tg.pack_params(lag3, dev)))
+    for label, params, pb in cases:
         rows = gk.pattern_params(pb)
-        t[b] = timing(
+        t[label] = timing(
             cuda_ms(lambda: gk.pattern_kernel(rows, BD, SX, SY), 50),
             cuda_ms(lambda: gk.generate_patterns_packed_reference(pb, BD, SX, SY), 3, 1),
-            *pattern_work(batches[b], gk.pattern_kernel(rows, BD, SX, SY), rows, SX, SY),
+            *pattern_work(params, gk.pattern_kernel(rows, BD, SX, SY), rows, SX, SY),
         )
+        t[label].update(pattern_chain(params, SX, SY, clock_hz), label=f"4K10 4:2:0 {label}")
+        chain = t[label]
         wrapped = cuda_ms(lambda: gk.generate_patterns_packed(pb, BD, SX, SY), 50)
-        log(time_line("grain_pattern", f"4K10 4:2:0 B={b}", t[b], card))
-        log(f"[time] grain_pattern 4K10 4:2:0 B={b}: with the row pack {wrapped:.4f} ms per "
+        log(time_line("grain_pattern", f"4K10 4:2:0 {label}", chain, card))
+        log(f"[time] grain_pattern 4K10 4:2:0 {label}: chain bound {chain['chain_bound_ms']:.4f} "
+            f"ms ({chain['chain_steps']} dependent steps x {chain['chain_step_cycles']} cycles "
+            f"at {chain['sm_clock_mhz']:.0f} MHz), share of it "
+            f"{chain['chain_bound_ms'] / chain['ms']:.3f}; with the row pack {wrapped:.4f} ms per "
             f"batch; grain_ref on the host {apply4['gen_ms']:.1f} ms/frame "
-            f"({apply4['gen_ms'] * b:.1f} ms per batch) on {card}")
+            f"({apply4['gen_ms'] * len(params):.1f} ms per batch) on {card}")
+    main_case = t.pop(f"B=16 lag {lag}")
+    main_case["other_cases"] = list(t.values())
     for b, key in ((16, 16), (112, 112), (16, "luma16")):
         fps = frames_per_s(lambda: run(b, key), b, 10 if b == 16 else 3)
         kind = "luma-only" if key == "luma16" else "3-plane"
@@ -963,7 +1087,7 @@ def pattern_phase(card, eff, dev, apply4):
         )
         log(f"[apply] 4K10 4:2:0 {kind} B={b}, patterns made on the card, host facts {facts} "
             f"(apply_grain_device_patterns): {fps_facts:.1f} frames/s on {card}")
-    return {"grain_pattern": launches["grain_pattern"]}, {"grain_pattern": t[16]}, \
+    return {"grain_pattern": launches["grain_pattern"]}, {"grain_pattern": main_case}, \
         {"grain_pattern": err}, dev_outs
 
 
@@ -1222,6 +1346,9 @@ def main() -> int:
                 "share": times[k]["bound_ms"] / times[k]["ms"],
                 "library_ms": None,
                 "library_note": LIBRARY_NOTE[k],
+                # the pattern kernel's chain bound, and a kernel's times at
+                # its other sizes and lags
+                **{x: times[k][x] for x in EXTRA_KEYS if x in times[k]},
             }
             for k in KERNELS
         ]

@@ -408,6 +408,48 @@ def pattern_zoo(seed: int, n: int = 8):
     return out
 
 
+def set_lag(params, lag: int, seed: int):
+    """Gives every frame of ``params`` AR lag ``lag`` and random
+    coefficients, over the whole int8 range on odd frames."""
+    rng = np.random.default_rng(1000 * lag + seed)
+    n_pos = 2 * lag * (lag + 1)
+    for i, p in enumerate(params):
+        bound = 128 if i % 2 else 12
+
+        def coeffs(k):
+            return [int(c) for c in rng.integers(-bound, bound, k)]
+
+        n_chroma = n_pos + (1 if p.scaling_points_y else 0)
+        csfl = p.chroma_scaling_from_luma
+        p.ar_coeff_lag = lag
+        p.ar_coeffs_y = coeffs(n_pos) if p.scaling_points_y else []
+        p.ar_coeffs_cb = coeffs(n_chroma) if p.scaling_points_cb or csfl else []
+        p.ar_coeffs_cr = coeffs(n_chroma) if p.scaling_points_cr or csfl else []
+    return params
+
+
+def uniform_lag_zoo(lag: int, seed: int, n: int = 6):
+    """``pattern_zoo`` with every frame at AR lag ``lag``: the pattern
+    kernel's filter is a template on the frame's lag. Also used by
+    tests/test_torch_patterns.py."""
+    return set_lag(pattern_zoo(seed, n), lag, seed)
+
+
+def stray_slot_frames():
+    """Four lag-2 frames with every plane on, for ``stray_slots``."""
+    return set_lag([sample_grain_params(seed=50 + i) for i in range(4)], 2, 9)
+
+
+def stray_slots(pb):
+    """``pb`` (a packed batch of lag-2 frames) with one non-zero lag-3 slot
+    in frames 0-2: luma slot (-3, -3), Cb slot (-3, +3), Cr slot (0, -3).
+    Such a frame is filtered at lag 3, whatever its lag says."""
+    pb.coeffs_y[0, 0] = 70
+    pb.coeffs_cb[1, 6] = -90
+    pb.coeffs_cr[2, 21] = 50
+    return pb
+
+
 def _random_planes(rng, b, h, w, bd, sub_x, sub_y, device):
     maxv = (1 << bd) - 1
     hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
@@ -433,6 +475,30 @@ def test_pattern_kernel_matches_plain_on_cuda(cuda, sub_x, sub_y, mono, bd):
         params, bd, sub_x, sub_y, mono, device="cpu", generate=tg.generate_patterns_ref
     )
     assert torch.equal(got.cpu(), host.packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("lag", [0, 1, 2, 3])
+def test_pattern_kernel_matches_plain_at_each_lag_on_cuda(cuda, lag, bd, sub_x, sub_y, mono):
+    pb = tg.pack_params(uniform_lag_zoo(lag, bd + sub_x + sub_y + mono), cuda)
+    got = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
+    want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
+    assert got.dtype == torch.int16 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+def test_pattern_kernel_takes_lag3_for_a_stray_lag3_slot_on_cuda(cuda, sub_x, sub_y, mono):
+    """Lag-2 frames with one non-zero lag-3 slot each, beside a clean one."""
+    pb = stray_slots(tg.pack_params(stray_slot_frames(), cuda))
+    clean = tg.pack_params(stray_slot_frames(), cuda)
+    got = gk.generate_patterns_packed(pb, 10, sub_x, sub_y, mono)
+    want = gk.generate_patterns_packed_reference(pb, 10, sub_x, sub_y, mono)
+    assert torch.equal(got, want)
+    moved = (want != gk.generate_patterns_packed_reference(clean, 10, sub_x, sub_y, mono)).any(1)
+    assert moved.tolist() == [True, not mono, not mono, False]
 
 
 @pytest.mark.cuda

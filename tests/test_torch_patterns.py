@@ -20,7 +20,14 @@ from grav1synth_tpu.ops import grain_jax, grain_ref
 from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
 
-from test_torch_cuda import PATTERN_LAYOUT_IDS, PATTERN_LAYOUTS, pattern_zoo
+from test_torch_cuda import (
+    PATTERN_LAYOUT_IDS,
+    PATTERN_LAYOUTS,
+    pattern_zoo,
+    stray_slot_frames,
+    stray_slots,
+    uniform_lag_zoo,
+)
 
 
 def _equal(got, want, what):
@@ -57,6 +64,52 @@ def test_generate_patterns_matches_jax_ref_and_native(bd, sub_x, sub_y, mono):
     assert packed.dtype == torch.int16 and torch.equal(packed, host.packed)
     dev = tg.prepare_patterns_device(pb, bd, sub_x, sub_y, mono)
     assert dev.chroma_shape == host.chroma_shape and torch.equal(dev.packed, host.packed)
+
+
+@pytest.mark.parametrize("lag", [0, 1, 2, 3])
+def test_packed_reference_at_each_lag_matches_jax_and_ref(lag):
+    """``generate_patterns_packed_reference`` is what the card holds the
+    pattern kernel to, and the kernel's filter is a template on the frame's
+    lag: batches of one lag each, every layout, against ``grain_jax`` and
+    ``grain_ref``."""
+    for bd, (sub_x, sub_y, mono) in zip((8, 10, 12, 10), PATTERN_LAYOUTS):
+        params = uniform_lag_zoo(lag, bd + sub_x + sub_y + mono)
+        jb = grain_jax.pack_params(params)
+        pb = tg.from_jax_params(jb, "cpu")
+        got = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
+        theirs = grain_jax.generate_patterns(jb, bd, sub_x, sub_y, mono)
+        nplanes = 1 if mono else 3
+        want = np.concatenate(
+            [np.asarray(t).reshape(len(params), -1) for t in theirs[:nplanes]], 1
+        )
+        assert got.dtype == torch.int16
+        _equal(got, want, f"grain_jax lag {lag} {bd}-bit {sub_x}{sub_y} mono={mono}")
+        for i, p in enumerate(params):
+            ref = grain_ref.generate_grain(p, bd, mono, sub_x, sub_y)
+            flat = np.concatenate([a.reshape(-1) for a in (ref.luma, ref.cb, ref.cr)[:nplanes]])
+            _equal(got[i], flat, f"grain_ref lag {lag} frame {i}")
+
+
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+def test_packed_reference_reads_stray_lag3_slots_as_jax_does(sub_x, sub_y, mono):
+    """Lag-2 frames with one non-zero lag-3 slot each (the rows carry all
+    24 slots): the plain version filters them as ``grain_jax`` does, and
+    not as the clean lag-2 frames."""
+    import dataclasses
+
+    jb = grain_jax.pack_params(stray_slot_frames())
+    pb = stray_slots(tg.from_jax_params(jb, "cpu"))
+    jb = dataclasses.replace(
+        jb, coeffs_y=np.array(pb.coeffs_y), coeffs_cb=np.array(pb.coeffs_cb),
+        coeffs_cr=np.array(pb.coeffs_cr),
+    )
+    got = gk.generate_patterns_packed_reference(pb, 10, sub_x, sub_y, mono)
+    theirs = grain_jax.generate_patterns(jb, 10, sub_x, sub_y, mono)
+    want = np.concatenate([np.asarray(t).reshape(4, -1) for t in theirs[: 1 if mono else 3]], 1)
+    _equal(got, want, "grain_jax")
+    clean = tg.pack_params(stray_slot_frames(), "cpu")
+    moved = (got != gk.generate_patterns_packed_reference(clean, 10, sub_x, sub_y, mono)).any(1)
+    assert moved.tolist() == [True, not mono, not mono, False]
 
 
 def _frames(b, h, w, bd, sub_x, sub_y, mono, seed):
