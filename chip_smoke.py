@@ -25,7 +25,10 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 5. the two diff kernels against their plain versions on the card, equal
    to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
    small odd and even sizes (a plane under 16 px included) and at
-   3840x2160 10-bit 4:2:0 with 16 frames;
+   3840x2160 10-bit 4:2:0 with 16 frames; the statistics kernel also at
+   the ends of the ranges its 32-bit sums rest on (12-bit r = +-4095, aux
+   = +-16380, every block flat), on a plane 10000 rows tall and on rows
+   off the 16-byte boundary;
 6. the diff main path at full size: film-like clean frames at 3840x2160
    10-bit 4:2:0 made from a numpy seed, grained on the card by
    ``apply_grain`` with the stream's tables reseeded per frame, then two
@@ -34,8 +37,9 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    the one fitted from the plain versions' statistics, and the recovered
    luma sigma curve is scored against the injected one; then each diff
    kernel's time (CUDA events) beside its plain version's at 4K10 B = 16
-   and 1080p8 B = 32, and diff_batch frames/s with the upload and the
-   statistics download included;
+   and 1080p8 B = 32 (lag 2; the statistics kernel also at lag 3), and
+   diff_batch frames/s with the upload and the statistics download
+   included;
 7. the single-chroma-plane kernel against its plain version on the card,
    integer-equal, over the sizes of phase 3 and, as its main path, the
    entry point ``apply_plane_chroma`` on Cb and Cr at 3840x2160 10-bit
@@ -55,14 +59,16 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 9. the grain-pattern kernel against its plain version on the card, equal
    (tolerance 0), over 8/10/12-bit x 4:2:0/4:2:2/4:4:4/monochrome with
    mixed batches (AR lag 0-3, grain_scale_shift 0-3, chroma scaling from
-   luma, inactive planes), and on the 16 and 112 reseeded frames of
+   luma, inactive planes), batches of one lag each (0-3) and lag-2 frames
+   with a stray lag-3 slot, and on the 16 and 112 reseeded frames of
    phase 4 against grain_ref's patterns; then the main path with patterns
    made on the card: ``apply_grain`` with no host patterns at 3840x2160
    10-bit 4:2:0, B = 16 and 112, 3-plane and luma-only, equal on every
    frame to phase 4's host-pattern output and on frame 0 to grain_ref,
    with the pattern, luma and chroma-pair kernels' launches counted; then
-   the pattern kernel's time (CUDA events) beside its plain version's and
-   grain_ref's host ms/frame, and apply+generate frames/s;
+   the pattern kernel's time (CUDA events) at lag 2 and lag 3 beside its
+   plain version's, its chain bound and grain_ref's host ms/frame, and
+   apply+generate frames/s;
 10. the sharded paths: ``sharded_apply_with_stats`` over ``make_mesh()``
    (every card) and over a two-shard mesh that names the card twice, at
    4K10 B = 16, equal to the unsharded output, frames exact, energy
@@ -78,7 +84,10 @@ Every ``[time]`` line gives the kernel's time beside its plain version's
 and its bound: the larger of the bytes it must move (inputs read once,
 outputs written once) over the card's 3.35 TB/s and its integer
 operations over the int32 rate, computed from that run's inputs, and the
-share (bound / time). No PyTorch call computes any kernel's function, so
+share (bound / time). The pattern kernel is a dependent chain, which that
+bound does not see: its lines add the chain bound, the wavefront steps of
+the slowest frame times the least cycles a step can take at the card's
+highest SM clock. No PyTorch call computes any kernel's function, so
 ``library_ms`` is null. The script ends by checking that neither jax nor
 any module of the JAX package ``grav1synth_tpu`` was imported.
 
@@ -474,6 +483,57 @@ def compare_diff_kernels(planes, bd, sub_x, sub_y, lags, device, errs, what):
                 )
 
 
+def hold_stats(s, d, blocks, aux, lags, bd, errs, what):
+    """``plane_stats`` against its plain version, with and without aux."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    for lag in lags:
+        for a in (None, aux):
+            e = stats_err(dk.plane_stats(s, d, blocks, a, lag, bd),
+                          dk.plane_stats_reference(s, d, blocks, a, lag, bd))
+            errs["plane_stats"] = max(errs["plane_stats"], e)
+            if e > TOLERANCE:
+                raise AssertionError(
+                    f"{what} lag {lag} aux {a is not None}: plane_stats vs plain max |err| {e}")
+
+
+def extreme_stats_cases(rng, dev, errs) -> int:
+    """``plane_stats`` where its 32-bit sums are largest and where its
+    staging changes path (as tests/test_torch_cuda.py): constant 12-bit
+    planes with r = +-4095 and aux = +-16380 and every block flat, 200 x 160
+    (three tiles and twelve 16-row segments tall) and 10000 x 32 (a column's
+    int64 sum passes 2^32); a random plane 3 samples into its storage and
+    one whose width is no multiple of 8. Returns the number of cases."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+
+    def constant(s_val, d_val, aux_val, b, h, w):
+        planes = [torch.full((b, h, w), v, dtype=torch.int16, device=dev)
+                  for v in (s_val, d_val, aux_val)]
+        blocks = torch.ones((b, h // 16, w // 16), dtype=torch.uint8, device=dev)
+        return planes[0], planes[1], blocks, planes[2]
+
+    n = 0
+    for s_val, d_val, aux_val in ((4095, 0, 16380), (0, 4095, 16380), (4095, 0, -16380),
+                                  (0, 4095, -16380)):
+        hold_stats(*constant(s_val, d_val, aux_val, 2, 200, 160), (1, 2, 3), 12, errs,
+                   f"12-bit constant s {s_val} d {d_val} aux {aux_val} 160x200")
+        n += 1
+    hold_stats(*constant(4095, 0, 16380, 1, 10000, 32), (1, 2, 3), 12, errs, "12-bit 32x10000")
+    n += 1
+    for h, w in ((150, 264), (150, 260)):
+        sy, dy = (torch.from_numpy(a).to(dev) for a in diff_planes(rng, 2, h, w, 10, 0, 0)[:2])
+        aux = torch.from_numpy(rng.integers(-400, 401, (2, h, w)).astype(np.int16)).to(dev)
+        views = []
+        for t in (sy, dy, aux):  # 3 samples into the storage: every row off by 6 bytes
+            store = torch.empty(t.numel() + 3, dtype=torch.int16, device=dev)
+            views.append(store[3:].view(t.shape))
+            views[-1].copy_(t)
+        hold_stats(views[0], views[1], de.flat_blocks(dy), views[2], (1, 2, 3), 10, errs,
+                   f"10-bit {w}x{h} off the 16-byte boundary")
+        n += 1
+    return n
+
+
 class plain_diff_path:
     """Within the block, ops.diff_estimate runs the diff kernels' plain
     PyTorch versions instead of the kernels (the reference the fitted
@@ -603,9 +663,12 @@ def diff_phases(card, eff, dev, clean, grainy):
     big = diff_planes(rng, 16, H, W, BD, 1, 1)
     compare_diff_kernels(big, BD, 1, 1, (2,), dev, errs, f"{BD}-bit 4:2:0 {W}x{H} B=16")
     del big
+    n_extreme = extreme_stats_cases(rng, dev, errs)
     torch.cuda.synchronize()
     log(f"[diff kernels] {n_cases + 1} cases (x lags, x 3 planes) equal to the plain "
-        f"versions (max |err| {errs})")
+        f"versions; plane_stats also on {n_extreme} cases (x lag 1-3, with and without aux) at "
+        f"the ends of its ranges (12-bit r = +-4095, aux = +-16380, every block flat), on a "
+        f"10000 x 32 plane and on rows off the 16-byte boundary (max |err| {errs})")
 
     # 6. the diff main path at full size: inject known grain, estimate it back
     def estimate(device):

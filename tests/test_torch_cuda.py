@@ -280,6 +280,95 @@ def test_diff_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
     torch.cuda.synchronize()
 
 
+# (name, s, d, aux): a 12-bit plane at the ends of its range. r = s - d is
+# +4095 or -4095 on every pixel and the x4 luma-residual column +-16380, so
+# every pair sum of the statistics kernel reaches its bound.
+EXTREME_CASES = [
+    ("r+4095 aux+16380", 4095, 0, 16380),
+    ("r-4095 aux+16380", 0, 4095, 16380),
+    ("r+4095 aux-16380", 4095, 0, -16380),
+    ("r-4095 aux-16380", 0, 4095, -16380),
+]
+
+
+def extreme_stats_inputs(s_val, d_val, aux_val, h=200, w=160, b=2):
+    """(s, d, blocks, aux) int16/uint8 numpy planes of constant value with
+    every full block flat: 200 rows are three tiles of the statistics
+    kernel and twelve of its 16-row segments, 160 columns one tile and a
+    quarter. Also used by tests/test_torch_diff.py."""
+    s = np.full((b, h, w), s_val, np.int16)
+    d = np.full((b, h, w), d_val, np.int16)
+    blocks = np.ones((b, h // 16, w // 16), np.uint8)
+    aux = np.full((b, h, w), aux_val, np.int16)
+    return s, d, blocks, aux
+
+
+def tall_stats_inputs():
+    """A 12-bit plane 10,000 rows tall and 32 wide at r = 4095, every block
+    flat: one column's sum of r * r is 1.7e11, past 2^32."""
+    return extreme_stats_inputs(4095, 0, 16380, h=10000, w=32, b=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,s_val,d_val,aux_val", EXTREME_CASES, ids=[c[0] for c in EXTREME_CASES])
+@pytest.mark.parametrize("lag", [1, 2, 3])
+def test_plane_stats_matches_plain_at_the_ends_of_its_ranges_on_cuda(
+    cuda, lag, name, s_val, d_val, aux_val
+):
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    s, d, blocks, aux = (
+        torch.from_numpy(a).to(cuda) for a in extreme_stats_inputs(s_val, d_val, aux_val)
+    )
+    for a in (None, aux):
+        got = dk.plane_stats(s, d, blocks, a, lag, 12)
+        want = dk.plane_stats_reference(s, d, blocks, a, lag, 12)
+        _stats_equal(got, want, f"{name} lag {lag} aux {a is not None}")
+    assert float(want["ata"].abs().max()) > 2.0**32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lag", [1, 2, 3])
+def test_plane_stats_matches_plain_on_a_tall_plane_on_cuda(cuda, lag):
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    s, d, blocks, aux = (torch.from_numpy(a).to(cuda) for a in tall_stats_inputs())
+    for a in (None, aux):
+        got = dk.plane_stats(s, d, blocks, a, lag, 12)
+        want = dk.plane_stats_reference(s, d, blocks, a, lag, 12)
+        _stats_equal(got, want, f"tall lag {lag} aux {a is not None}")
+    # one column alone: (10000 - 2 lag) rows of 4095^2
+    assert float(want["ata"][0, 0, 0]) / (32 - 2 * lag) > 2.0**32
+
+
+@pytest.mark.cuda
+def test_plane_stats_matches_plain_on_unaligned_rows_on_cuda(cuda):
+    """The kernel stages 16 bytes a load where every row starts on a
+    16-byte boundary, and sample by sample elsewhere: the same plane at an
+    aligned base, 3 samples into its storage, and at a width that is no
+    multiple of 8."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    rng = np.random.default_rng(77)
+    for h, w in ((150, 264), (150, 260)):
+        (sy, dy), _ = _diff_planes(rng, 2, h, w, 10, 1, 1)
+        sy, dy = torch.from_numpy(sy).to(cuda), torch.from_numpy(dy).to(cuda)
+        aux = torch.from_numpy(rng.integers(-400, 401, (2, h, w)).astype(np.int16)).to(cuda)
+        blocks = de.flat_blocks(dy)
+        want = dk.plane_stats_reference(sy, dy, blocks, aux, 2, 10)
+        _stats_equal(dk.plane_stats(sy, dy, blocks, aux, 2, 10), want, f"{w}x{h} aligned base")
+        shifted = []
+        for t in (sy, dy, aux):
+            store = torch.empty(t.numel() + 3, dtype=torch.int16, device=cuda)
+            view = store[3:].view(t.shape)
+            view.copy_(t)
+            shifted.append(view)
+        assert all(t.data_ptr() % 16 == 6 for t in shifted)
+        got = dk.plane_stats(shifted[0], shifted[1], blocks, shifted[2], 2, 10)
+        _stats_equal(got, want, f"{w}x{h} 3 samples into the storage")
+
+
 @pytest.mark.cuda
 def test_diff_batch_on_cuda_matches_cpu(cuda):
     """DiffEstimator on the card and on the CPU: the same statistics to the

@@ -33,6 +33,7 @@ from grav1synth_tpu_torch.ops import diff_estimate as td
 from grav1synth_tpu_torch.ops import diff_kernels as dk
 
 from test_diff_quality import film_like_clip, film_params, inject_grain
+from test_torch_cuda import EXTREME_CASES, extreme_stats_inputs, tall_stats_inputs
 
 
 def _denoised(rng, b, h, w, bd):
@@ -135,6 +136,97 @@ def test_batch_stats_match_jax(lag, sub_x, sub_y, bd, dtype, h, w):
             _close(g, wnt, f"{backend} {name}")
     if min(h, w) < 16:
         assert float(got[0]["n_ar"].sum()) == 0 and float(got[0]["ata"].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("name,s_val,d_val,aux_val", EXTREME_CASES, ids=[c[0] for c in EXTREME_CASES])
+@pytest.mark.parametrize("lag", [1, 2, 3])
+def test_plane_stats_plain_matches_jax_at_the_ends_of_its_ranges(lag, name, s_val, d_val, aux_val):
+    """The plain version is what the card holds the statistics kernel to:
+    12-bit planes at r = +-4095 with the aux column at +-16380, every block
+    flat, against the Pallas kernel in interpret mode (its block-mask
+    mode, as ``batch_pair_stats_per_frame`` calls it)."""
+    s, d, blocks, aux = extreme_stats_inputs(s_val, d_val, aux_val, h=80, w=144)
+    for a in (None, aux):
+        got = dk.plane_stats(*(torch.from_numpy(x) for x in (s, d, blocks)),
+                             None if a is None else torch.from_numpy(a), lag, 12)
+        want = diff_pallas.pallas_plane_stats(
+            jnp.asarray(s), jnp.asarray(d), jnp.asarray(blocks),
+            None if a is None else jnp.asarray(a), lag, 12, has_aux=a is not None,
+            mask_blocks=16,
+        )
+        _close(got, want, f"{name} lag {lag} aux {a is not None}")
+    assert float(got["ata"].abs().max()) > 2.0**32
+
+
+def test_plane_stats_plain_on_a_tall_plane_is_the_closed_form():
+    """10,000 rows of r = 4095 and aux = 16380: every sum of the plain
+    version is a count times a product, exactly, and one column's r * r sum
+    is past 2^32."""
+    s, d, blocks, aux = (torch.from_numpy(a) for a in tall_stats_inputs())
+    lag = 2
+    got = dk.plane_stats(s, d, blocks, aux, lag, 12)
+    n = (10000 - 2 * lag) * (32 - 2 * lag)
+    assert float(got["n_ar"][0]) == n and 4095.0**2 * (10000 - 2 * lag) > 2.0**32
+    k = len(dk.offsets(lag)) - 1
+    want_ata = torch.full((k + 1, k + 1), 4095.0**2 * n, dtype=torch.float64)
+    want_ata[k, :] = want_ata[:, k] = 4095.0 * 16380 / 4 * n
+    want_ata[k, k] = 16380.0**2 / 16 * n
+    assert torch.equal(got["ata"][0], want_ata)
+    assert torch.equal(got["atb"][0], want_ata[0])
+    assert float(got["bin_cnt"][0, 0]) == 10000 * 32
+    assert float(got["bin_sumsq"][0, 0]) == 4095.0**2 * 10000 * 32
+
+
+def test_stats_kernel_32bit_sums_cannot_overflow():
+    """The statistics kernel adds products in 32 bits over bounded runs of
+    rows. Its source states the ranges and the rows per run as constants
+    and static_asserts; this redoes the arithmetic from the constants as
+    they stand in the source, so a change of tile height, flush interval
+    or bit depth that breaks a bound fails here, where no nvcc runs."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(td.__file__), "..", "csrc", "diff_kernels.cu")
+    with open(path) as fh:
+        src = fh.read()
+
+    def const(name):
+        m = re.search(rf"constexpr (?:int|long long) {name} = ([^;]+);", src)
+        assert m, name
+        return m.group(1).strip()
+
+    fb, tile_rows = int(const("FB")), int(const("ST_TR"))
+    max_bits = int(const("MAX_BIT_DEPTH"))
+    assert const("MAX_RES") == "(1LL << MAX_BIT_DEPTH) - 1" and const("MAX_AUX") == "4 * MAX_RES"
+    assert const("ROWS_PER_FLUSH_RES") == "ST_TR" and const("ROWS_PER_FLUSH_AUX") == "FB"
+    assert const("ST_SEGS") == "ST_TR / FB" and tile_rows % fb == 0
+    max_res = (1 << max_bits) - 1
+    max_aux = 4 * max_res
+    # the wrapper admits exactly the depths the bounds cover, and the aux
+    # column is the x4 luma residual: a sum of four residuals at most
+    assert max_bits == 12 and "bit_depth > MAX_BIT_DEPTH" in src
+    assert tile_rows * max_res * max_res <= 2**31 - 1  # r * r over a thread's column
+    assert fb * max_res * max_aux <= 2**31 - 1  # r * aux over a segment
+    assert fb * max_aux * max_aux <= 2**32 - 1  # aux * aux over a segment, unsigned
+    assert fb * max_aux * max_aux > 2**31 - 1  # ... which is why it is unsigned
+    assert tile_rows * max_res * max_res <= 2**32 - 1  # the bin moments of a column
+    # a CTA's sums in shared memory: 16-bit halves of its threads' pair sums,
+    # and per bin the sum of r and the halves of the sum of r * r
+    tile_cols = int(const("ST_TW"))
+    assert const("ST_THREADS") == "ST_TW"
+    assert tile_cols * 65535 <= 2**31 - 1
+    assert tile_rows * tile_cols * max_res <= 2**31 - 1
+    assert tile_rows * tile_cols * 65535 <= 2**32 - 1
+    for text in (
+        "ROWS_PER_FLUSH_RES * MAX_RES * MAX_RES <= INT32_LIMIT",
+        "ROWS_PER_FLUSH_AUX * MAX_RES * MAX_AUX <= INT32_LIMIT",
+        "ROWS_PER_FLUSH_AUX * MAX_AUX * MAX_AUX <= UINT32_LIMIT",
+        "ST_THREADS * 65535LL <= INT32_LIMIT",
+        "ST_TR * ST_TW * MAX_RES <= INT32_LIMIT",
+        "ST_TR * ST_TW * 65535LL <= UINT32_LIMIT",
+    ):
+        assert f"static_assert({text}" in src, text
+    assert const("INT32_LIMIT") == "2147483647LL" and const("UINT32_LIMIT") == "4294967295LL"
 
 
 def test_luma_only_stats_match_jax():
