@@ -1119,14 +1119,14 @@ def pattern_phase(card, eff, dev, apply4):
             cuda_ms(lambda: gk.generate_patterns_packed_reference(pb, BD, SX, SY), 3, 1),
             *pattern_work(params, gk.pattern_kernel(rows, BD, SX, SY), rows, SX, SY),
         )
-        t[label].update(pattern_chain(params, SX, SY, clock_hz), label=f"4K10 4:2:0 {label}")
-        chain = t[label]
+        rec = t[label]
+        rec.update(pattern_chain(params, SX, SY, clock_hz), label=f"4K10 4:2:0 {label}")
         wrapped = cuda_ms(lambda: gk.generate_patterns_packed(pb, BD, SX, SY), 50)
-        log(time_line("grain_pattern", f"4K10 4:2:0 {label}", chain, card))
-        log(f"[time] grain_pattern 4K10 4:2:0 {label}: chain bound {chain['chain_bound_ms']:.4f} "
-            f"ms ({chain['chain_steps']} dependent steps x {chain['chain_step_cycles']} cycles "
-            f"at {chain['sm_clock_mhz']:.0f} MHz), share of it "
-            f"{chain['chain_bound_ms'] / chain['ms']:.3f}; with the row pack {wrapped:.4f} ms per "
+        log(time_line("grain_pattern", rec["label"], rec, card))
+        log(f"[time] grain_pattern {rec['label']}: chain bound {rec['chain_bound_ms']:.4f} "
+            f"ms ({rec['chain_steps']} dependent steps x {rec['chain_step_cycles']} cycles "
+            f"at {rec['sm_clock_mhz']:.0f} MHz), share of it "
+            f"{rec['chain_bound_ms'] / rec['ms']:.3f}; with the row pack {wrapped:.4f} ms per "
             f"batch; grain_ref on the host {apply4['gen_ms']:.1f} ms/frame "
             f"({apply4['gen_ms'] * len(params):.1f} ms per batch) on {card}")
     main_case = t.pop(f"B=16 lag {lag}")

@@ -289,14 +289,14 @@ __device__ __forceinline__ int staged_bin(int d, int bin_shift) {
 // Grid (max(1, ceil(WB*16 / 128)), max(1, ceil(HB*16 / 64)), B). Only
 // pixels inside the full blocks can be flat, so the grid covers that
 // area; it is never empty, so a plane with no full block still launches
-// and adds nothing to its zeroed outputs. WIDE: every row of s, d and aux
+// and adds nothing to its zeroed outputs. wide: every row of s, d and aux
 // starts on a 16-byte boundary (W % 8 == 0 and aligned bases).
-template <int LAG, bool AUX, bool WIDE>
+template <int LAG, bool AUX>
 __global__ void __launch_bounds__(ST_THREADS, ST_CTAS_PER_SM)
 plane_stats_kernel(const int16_t* __restrict__ s, const int16_t* __restrict__ d,
                    const uint8_t* __restrict__ blocks, const int16_t* __restrict__ aux,
                    unsigned long long* __restrict__ out, int H, int W, int HB,
-                   int WB, int bin_shift) {
+                   int WB, int bin_shift, bool wide) {
   using S = StatsShape<LAG, AUX>;
   constexpr int NP = S::NP, NPAIR = S::NPAIR, OUT_LEN = S::OUT_LEN;
   // r at rows y0-LAG.., columns x0-ST_HALO..
@@ -326,7 +326,7 @@ plane_stats_kernel(const int16_t* __restrict__ s, const int16_t* __restrict__ d,
   if (t <= NP) swide[t] = 0ull;
   if (!__syncthreads_or(f)) return;  // no flat block: nothing to add
 
-  if constexpr (WIDE) {
+  if (wide) {
     // eight samples a load: chunk ch of a staged row covers columns
     // x0 - ST_HALO + 8 ch .., inside the plane whole or not at all
     constexpr int CHUNKS = ST_SW / 8;
@@ -474,16 +474,9 @@ int launch_stats(const void* s, const void* d, const void* blocks, const void* a
   const dim3 grid(max(1, (WB * FB + ST_TW - 1) / ST_TW),
                   max(1, (HB * FB + ST_TR - 1) / ST_TR), B);
   const bool wide = W % 8 == 0 && ((uintptr_t)s | (uintptr_t)d | (uintptr_t)aux) % 16 == 0;
-#define LAUNCH(WIDE)                                                           \
-  plane_stats_kernel<LAG, AUX, WIDE><<<grid, ST_THREADS, 0, stream>>>(         \
-      (const int16_t*)s, (const int16_t*)d, (const uint8_t*)blocks,            \
-      (const int16_t*)aux, (unsigned long long*)out, H, W, HB, WB, bit_depth - 6)
-  if (wide) {
-    LAUNCH(true);
-  } else {
-    LAUNCH(false);
-  }
-#undef LAUNCH
+  plane_stats_kernel<LAG, AUX><<<grid, ST_THREADS, 0, stream>>>(
+      (const int16_t*)s, (const int16_t*)d, (const uint8_t*)blocks, (const int16_t*)aux,
+      (unsigned long long*)out, H, W, HB, WB, bit_depth - 6, wide);
   return (int)cudaGetLastError();
 }
 
