@@ -86,8 +86,9 @@ outputs written once) over the card's 3.35 TB/s and its integer
 operations over the int32 rate, computed from that run's inputs, and the
 share (bound / time). The pattern kernel is a dependent chain, which that
 bound does not see: its lines add the chain bound, the wavefront steps of
-the slowest frame times the least cycles a step can take at the card's
-highest SM clock. No PyTorch call computes any kernel's function, so
+the slowest frame times the least cycles a step can take, which a loop of
+the step's dependent instructions measures in the same run (the "[chain]"
+line) with the SM clock it ran at. No PyTorch call computes any kernel's function, so
 ``library_ms`` is null. The script ends by checking that neither jax nor
 any module of the JAX package ``grav1synth_tpu`` was imported.
 
@@ -97,8 +98,11 @@ The last two lines are the kernels' JSON summary and
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -162,13 +166,36 @@ ACTIVITY_OPS = 6
 # a Round2 (6); per AR position a Round2 and a clamp (4) beside one
 # multiply-add per tap
 GAUSS_OPS, AR_POS_OPS = 6, 4
-# The least cycles one wavefront step of the pattern kernel can take: the
-# result of step t - 1 crosses to the lane below by one warp shuffle, then
-# a multiply-add, the Round2 shift, the add to the base sample and the two
-# halves of the clamp, each waiting for the one before. Measured on an H100
-# as a loop of exactly these instructions by scripts/kernel_ab.py (its
-# "[chain]" line): 45.5 cycles.
-CHAIN_STEP_CYCLES = 45.5
+# The least cycles one wavefront step of the pattern kernel can take is
+# measured in the run that states it (``chain_step_cycles``): one warp loops
+# over exactly the instructions that wait for one another in a step. With
+# the wavefront slope at lag + 1 (lag 2 and 3) the result of step t - 1
+# crosses to the lane below by one warp shuffle, then a multiply-add, the
+# Round2 shift, the add to the base sample and the two halves of the clamp.
+# At lag 1 the slope is 3, the sample from the row above is two steps old,
+# and the chain is the same without the shuffle. out[0] = cycles by
+# clock64, out[1] = the value (so that the loop is kept).
+CHAIN_SRC = r"""
+#include <cuda_runtime.h>
+template <bool SHUFFLE>
+__global__ void chain(long long* out, int iters, int c, int e, int shift, int base) {
+  const int up = (threadIdx.x + 31) & 31;
+  int v = threadIdx.x;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    int u = v;
+    if constexpr (SHUFFLE) u = __shfl_sync(0xffffffffu, v, up);
+    v = min(max(base + ((e + c * u) >> shift), -512), 511);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) { out[0] = t1 - t0; out[1] = v; }
+}
+extern "C" int chain_cycles(void* out, int iters, int shuffle, void* stream) {
+  if (shuffle) chain<true><<<1, 32, 0, (cudaStream_t)stream>>>((long long*)out, iters, 7, 300, 7, 5);
+  else chain<false><<<1, 32, 0, (cudaStream_t)stream>>>((long long*)out, iters, 7, 300, 7, 5);
+  return (int)cudaGetLastError();
+}
+"""
 # No PyTorch call computes any kernel's function, so no library time.
 LIBRARY_NOTE = {
     "grain_luma": "none: per-block pattern gather, LUT scaling and overlap blend",
@@ -998,34 +1025,82 @@ def stray_slot_batch(base, dev):
     return pb
 
 
-def sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return float(out[0]) * 1e6
+def nvcc_shared(src: str, stem: str) -> str:
+    """``src`` compiled into a shared library under the build directory,
+    named by ``stem`` and the source's hash; returns its path."""
+    from grav1synth_tpu_torch import _build
+
+    with open(src, "rb") as fh:
+        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
+    out_dir = os.path.join(_build.build_dir(), "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, f"lib{stem}_{tag}.so")
+    if not os.path.exists(so):
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return so
 
 
-def pattern_chain(params, sub_x: int, sub_y: int, clock_hz: float) -> dict:
+def chain_step_cycles(iters: int = 100000) -> dict:
+    """The cycles of one step of the pattern kernel's dependent chain, with
+    and without the shuffle: ``{shuffle: (cycles a step, SM clock in MHz
+    while the loop ran)}``, by clock64 around ``iters`` steps on one warp,
+    the clock as those cycles over the launch's time by CUDA events (the
+    launch itself is some microseconds of 2 ms)."""
+    from grav1synth_tpu_torch import _build
+
+    src = os.path.join(_build.build_dir(), "ab", "chain.cu")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    with open(src, "w") as fh:
+        fh.write(CHAIN_SRC)
+    lib = ctypes.CDLL(nvcc_shared(src, "chain"))
+    lib.chain_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.chain_cycles.restype = ctypes.c_int
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    got = {}
+    for shuffle in (True, False):
+        def launch():
+            err = lib.chain_cycles(out.data_ptr(), iters, int(shuffle), stream)
+            if err != 0:
+                raise RuntimeError(f"chain probe: CUDA error {err}")
+
+        ms = cuda_ms(launch, 5)
+        cycles = float(out[0])
+        got[shuffle] = (cycles / iters, cycles / ms / 1e3)
+    return got
+
+
+def pattern_chain(params, sub_x: int, sub_y: int, probe: dict) -> dict:
     """The pattern kernel's bound as a dependent chain: the wavefront steps
     of the batch's slowest frame (frames run side by side, one CTA each;
     luma and chroma side by side within one) times the least cycles a step
-    can take, at the card's highest SM clock."""
+    of that frame's lag can take, as ``probe`` (``chain_step_cycles``)
+    measured them, at the clock the probe ran at."""
     from grav1synth_tpu_torch.ops import grain as tg
 
     ch, cw = tg.chroma_pattern_shape(sub_x, sub_y)
-    steps = 0
+    worst = {"chain_steps": 0, "chain_step_cycles": 0.0, "sm_clock_mhz": probe[True][1],
+             "chain_bound_ms": 0.0}
     for p in params:
         if p.ar_coeff_lag == 0:
             continue
         slope = max(p.ar_coeff_lag + 1, 3)
+        # the sample from the row above is one step old, and comes by
+        # shuffle, only where the slope is lag + 1
+        cycles, mhz = probe[slope == p.ar_coeff_lag + 1]
+        steps = 0
         if p.scaling_points_y:
-            steps = max(steps, slope * (tg.GRAIN_H - 4) + tg.GRAIN_W - 5)
+            steps = slope * (tg.GRAIN_H - 4) + tg.GRAIN_W - 5
         if p.scaling_points_cb or p.scaling_points_cr or p.chroma_scaling_from_luma:
             steps = max(steps, slope * (ch - 4) + cw - 5)
-    return {"chain_steps": steps, "chain_step_cycles": CHAIN_STEP_CYCLES,
-            "sm_clock_mhz": clock_hz / 1e6,
-            "chain_bound_ms": steps * CHAIN_STEP_CYCLES / clock_hz * 1e3}
+        bound = steps * cycles / (mhz * 1e3)
+        if bound > worst["chain_bound_ms"]:
+            worst = {"chain_steps": steps, "chain_step_cycles": cycles, "sm_clock_mhz": mhz,
+                     "chain_bound_ms": bound}
+    return worst
 
 
 def pattern_phase(card, eff, dev, apply4):
@@ -1107,7 +1182,10 @@ def pattern_phase(card, eff, dev, apply4):
     # times: the kernel alone on rows built once, and the wrapper with the
     # row pack (a dozen small device ops) in front of it
     t = {}
-    clock_hz = sm_clock_hz()
+    probe = chain_step_cycles()
+    log("[chain] one wavefront step's dependent chain (multiply-add, shift, add, min, max) on "
+        f"one warp: {probe[True][0]:.2f} cycles a step behind a shuffle at {probe[True][1]:.0f} "
+        f"MHz, {probe[False][0]:.2f} without one at {probe[False][1]:.0f} MHz on {card}")
     lag = batches[16][0].ar_coeff_lag
     cases = [(f"B={b} lag {lag}", batches[b], pb) for b, pb in pbs.items()]
     lag3 = lagged(batches[16], 3, 3)
@@ -1120,11 +1198,11 @@ def pattern_phase(card, eff, dev, apply4):
             *pattern_work(params, gk.pattern_kernel(rows, BD, SX, SY), rows, SX, SY),
         )
         rec = t[label]
-        rec.update(pattern_chain(params, SX, SY, clock_hz), label=f"4K10 4:2:0 {label}")
+        rec.update(pattern_chain(params, SX, SY, probe), label=f"4K10 4:2:0 {label}")
         wrapped = cuda_ms(lambda: gk.generate_patterns_packed(pb, BD, SX, SY), 50)
         log(time_line("grain_pattern", rec["label"], rec, card))
         log(f"[time] grain_pattern {rec['label']}: chain bound {rec['chain_bound_ms']:.4f} "
-            f"ms ({rec['chain_steps']} dependent steps x {rec['chain_step_cycles']} cycles "
+            f"ms ({rec['chain_steps']} dependent steps x {rec['chain_step_cycles']:.2f} cycles "
             f"at {rec['sm_clock_mhz']:.0f} MHz), share of it "
             f"{rec['chain_bound_ms'] / rec['ms']:.3f}; with the row pack {wrapped:.4f} ms per "
             f"batch; grain_ref on the host {apply4['gen_ms']:.1f} ms/frame "

@@ -15,13 +15,16 @@
 // shifted by each causal lag offset ((0,0) first) and, for chroma, the x4
 // luma-residual aux column. It also sums the 64-bin moments (count, r,
 // r^2) of flat pixels binned on d >> (bit_depth - 6), with no interior
-// test. Bins outside 0..63 (values above the bit depth) are dropped, as
-// the Pallas kernel's 8x8 one-hot drops them.
+// test. Bins outside 0..63 are dropped, as the Pallas kernel's 8x8 one-hot
+// drops them.
 //
-// Both kernels are exact. Samples are at most 12 bits wide, so |r| <= 4095
-// and |aux| <= 16380: every product fits an int32, and so does a bounded
-// run of them (the static_asserts under "Lag-window statistics" hold the
-// bounds). A thread adds its products in 32 bits over such a run; a CTA adds
+// Both kernels are exact. The statistics kernel is exact on the inputs it
+// is made for, which the caller must keep to and which nothing here checks:
+// samples of s and d in [0, 2^bit_depth) with bit_depth <= 12, as a decoder
+// gives them, so |r| <= 4095, and aux a sum of four such residuals, |aux|
+// <= 16380. Then every product fits an int32, and so does a bounded run of
+// them (the static_asserts under "Lag-window statistics" hold the bounds).
+// Samples outside that range can overflow the 32-bit sums unseen. A thread adds its products in 32 bits over such a run; a CTA adds
 // its threads' sums in shared memory, as 16-bit halves in int32 where that
 // keeps the atomics native; and the sums leave the kernel as int64, by one
 // global int64 atomic (two's complement in unsigned long long) per sum and

@@ -182,7 +182,14 @@ def plane_stats(
     """Masked lag-window Gram and 64-bin residual moments of r = s - d,
     per frame (the production block-mask mode of
     ``diff_pallas.pallas_plane_stats``). A plane without a full block
-    has an empty block map and gives all-zero statistics."""
+    has an empty block map and gives all-zero statistics.
+
+    On the card the sums are exact for samples in range, which the caller
+    keeps to and nothing checks: ``s`` and ``d`` in [0, 2**bit_depth), as
+    a decoder gives them, and ``aux4`` a sum of four residuals of such
+    planes (|aux4| <= 4 * (2**bit_depth - 1)). The kernel adds runs of
+    products in 32 bits on those bounds; samples outside them can overflow
+    unseen, where ``plane_stats_reference`` stays exact."""
     tensors = (s, d, blocks) + (() if aux4 is None else (aux4,))
     if _on_cpu(*tensors):
         return plane_stats_reference(s, d, blocks, aux4, lag, bit_depth)

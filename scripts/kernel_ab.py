@@ -31,9 +31,9 @@ name and power limit.
   parameters at 4:2:0 10-bit, B = 16 and B = 112, with AR lag 0, 1, 2 and
   3 (``chip_smoke.lagged``), each time beside the operations bound and the
   chain bound (``chip_smoke.pattern_chain``); before them a "[chain]" line:
-  the cycles of one wavefront step's dependent instructions (a shuffle, a
-  multiply-add, a shift, an add, a min and a max in a loop), measured with
-  clock64 on one warp, which is ``chip_smoke.CHAIN_STEP_CYCLES``.
+  the cycles of one wavefront step's dependent instructions (a multiply-add,
+  a shift, an add, a min and a max in a loop, behind a shuffle and without
+  one), measured with clock64 on one warp (``chip_smoke.chain_step_cycles``).
 - ``diff_kernels.cu``: the lag-window statistics kernel on the three planes
   of film-like 4:2:0 frames (``chip_smoke.stats_trip``) at 4K10 B = 16 and
   1080p8 B = 32 with lag 2, and 4K10 B = 16 with lag 3, every int64 sum of
@@ -47,7 +47,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import hashlib
 import os
 import subprocess
 import sys
@@ -67,46 +66,6 @@ ENTRY_POINTS = {
     "pattern_kernels.cu": ("grain_pattern",),
     "diff_kernels.cu": ("diff_flat_block_activity", "diff_plane_stats"),
 }
-
-CHAIN_SRC = r"""
-#include <cuda_runtime.h>
-// One warp runs `iters` wavefront steps of the pattern kernel's dependent
-// chain: the last result crosses one lane, then a multiply-add, the Round2
-// shift, the add to the base, min and max. out[0] = cycles, out[1] = value.
-__global__ void chain(long long* out, int iters, int c, int e, int shift, int base) {
-  const int up = (threadIdx.x + 31) & 31;
-  int v = threadIdx.x;
-  const long long t0 = clock64();
-  for (int i = 0; i < iters; ++i) {
-    const int u = __shfl_sync(0xffffffffu, v, up);
-    v = min(max(base + ((e + c * u) >> shift), -512), 511);
-  }
-  const long long t1 = clock64();
-  if (threadIdx.x == 0) { out[0] = t1 - t0; out[1] = v; }
-}
-extern "C" int chain_cycles(void* out, int iters, void* stream) {
-  chain<<<1, 32, 0, (cudaStream_t)stream>>>((long long*)out, iters, 7, 300, 7, 5);
-  return (int)cudaGetLastError();
-}
-"""
-
-
-def nvcc_shared(src: str, stem: str) -> str:
-    """``src`` compiled into a shared library under the build directory,
-    named by ``stem`` and the source's hash; returns its path."""
-    from grav1synth_tpu_torch import _build
-
-    with open(src, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:16]
-    out_dir = os.path.join(_build.build_dir(), "ab")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, f"lib{stem}_{tag}.so")
-    if not os.path.exists(so):
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    return so
 
 
 def old_source(source: str, old: str) -> str:
@@ -131,7 +90,7 @@ def old_source(source: str, old: str) -> str:
 def build_old(source: str, src: str) -> ctypes.CDLL:
     from grav1synth_tpu_torch import _build
 
-    lib = ctypes.CDLL(nvcc_shared(src, "old_" + source.split(".")[0]))
+    lib = ctypes.CDLL(cs.nvcc_shared(src, "old_" + source.split(".")[0]))
     for name in ENTRY_POINTS[source]:
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
@@ -215,7 +174,7 @@ def launchers(lib, luma_args, pair_args):
     return luma, pair
 
 
-def grain_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
+def grain_ab(libs, card: str, iters: int) -> None:
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
@@ -232,9 +191,9 @@ def grain_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
         want_y = gk.apply_plane_luma(*luma_args)
         want_c = gk.apply_planes_pair(*pair_args)
         for k, (luma, pair) in runs.items():
-            if check_equal and (not torch.equal(luma(), want_y) or not all(
+            if not torch.equal(luma(), want_y) or not all(
                 torch.equal(g, wc) for g, wc in zip(pair(), want_c)
-            )):
+            ):
                 raise AssertionError(f"B={b}: the {k} build differs from the package's wrappers")
         del want_y, want_c
         work = {"grain_luma": cs.luma_work(luma_args), "grain_chroma_pair": cs.pair_work(pair_args)}
@@ -276,37 +235,16 @@ def grain_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
         torch.cuda.empty_cache()
 
 
-def chain_step_cycles(iters: int = 100000) -> float:
-    """Cycles of one step of the pattern kernel's dependent chain, by
-    clock64 around ``iters`` steps on one warp, and the SM clock in MHz
-    while it ran (those cycles over the launch's time by CUDA events)."""
-    from grav1synth_tpu_torch import _build
-
-    src = os.path.join(_build.build_dir(), "ab", "chain.cu")
-    os.makedirs(os.path.dirname(src), exist_ok=True)
-    with open(src, "w") as fh:
-        fh.write(CHAIN_SRC)
-    lib = ctypes.CDLL(nvcc_shared(src, "chain"))
-    lib.chain_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.chain_cycles.restype = ctypes.c_int
-    out = torch.zeros(2, dtype=torch.int64, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    ms = cs.cuda_ms(lambda: check(lib.chain_cycles(out.data_ptr(), iters, stream)), 5)
-    cycles = float(out[0])
-    return cycles / iters, cycles / ms / 1e3
-
-
-def pattern_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
+def pattern_ab(libs, card: str, iters: int) -> None:
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
     dev = torch.device("cuda")
-    clock_hz = cs.sm_clock_hz()
-    cycles, mhz = chain_step_cycles()
-    print(f"[chain] one wavefront step's dependent chain (shuffle, multiply-add, shift, add, "
-          f"min, max): {cycles:.2f} cycles a step on one warp, at {mhz:.0f} MHz while it ran; "
-          f"chip_smoke.CHAIN_STEP_CYCLES = {cs.CHAIN_STEP_CYCLES}; highest SM clock "
-          f"{clock_hz / 1e6:.0f} MHz on {card}", flush=True)
+    probe = cs.chain_step_cycles()
+    print("[chain] one wavefront step's dependent chain (multiply-add, shift, add, min, max) on "
+          f"one warp: {probe[True][0]:.2f} cycles a step behind a shuffle at {probe[True][1]:.0f} "
+          f"MHz, {probe[False][0]:.2f} without one at {probe[False][1]:.0f} MHz on {card}",
+          flush=True)
     eff, (_, _, bd, (sx, sy)) = cs.stream_params(os.path.join(REPO, cs.IVF))
     gauss = tg.gaussian_table(dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -328,19 +266,20 @@ def pattern_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
             runs = {k: launch(k) for k in libs}
             for k, run in runs.items():
                 run()
-                if check_equal and not torch.equal(outs[k], want):
+                if not torch.equal(outs[k], want):
                     raise AssertionError(f"B={b} lag {lag}: the {k} build differs from the plain version")
             work = cs.pattern_work(params, want, rows, sx, sy)
-            chain = cs.pattern_chain(params, sx, sy, clock_hz)
+            chain = cs.pattern_chain(params, sx, sy, probe)
             report(
                 "grain_pattern", f"4K10 4:2:0 B={b} lag {lag}", turns(runs, iters), card, work,
                 lambda t: (f", chain bound {chain['chain_bound_ms']:.4f} ms "
-                           f"({chain['chain_steps']} steps), share of it "
+                           f"({chain['chain_steps']} steps x "
+                           f"{chain['chain_step_cycles']:.2f} cycles), share of it "
                            f"{chain['chain_bound_ms'] / t:.3f}"),
             )
 
 
-def diff_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
+def diff_ab(libs, card: str, iters: int) -> None:
     from grav1synth_tpu_torch.ops import diff_kernels as dk
 
     dev = torch.device("cuda")
@@ -374,8 +313,7 @@ def diff_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
             runs = {k: launch(k) for k in libs}
             for run in runs.values():
                 run()
-            if check_equal and not all(
-                    torch.equal(o, n) for o, n in zip(outs["old"], outs["new"])):
+            if not all(torch.equal(o, n) for o, n in zip(outs["old"], outs["new"])):
                 raise AssertionError(f"{label} lag {lag}: the builds' int64 sums differ")
             report("plane_stats", f"{label} (3 planes, lag {lag}; the buffers' zeroing included)",
                    turns(runs, iters), card, work)
@@ -392,7 +330,7 @@ def diff_ab(libs, card: str, iters: int, check_equal: bool = True) -> None:
         runs = {k: launch_act(k) for k in libs}
         for run in runs.values():
             run()
-        if check_equal and not all(torch.equal(o, n) for o, n in zip(acts["old"], acts["new"])):
+        if not all(torch.equal(o, n) for o, n in zip(acts["old"], acts["new"])):
             raise AssertionError(f"{label}: the builds' block activities differ")
         act_work = (sum(cs.nbytes(d) for _, d, _, _ in trip) + cs.nbytes(*acts["new"]),
                     cs.ACTIVITY_OPS * sum(d.numel() for _, d, _, _ in trip))
@@ -407,9 +345,6 @@ def main() -> int:
                     help="the file of grav1synth_tpu_torch/csrc to compare")
     ap.add_argument("old", help="an old version of it: a file, or a git revision")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--no-check", action="store_true",
-                    help="time OLD even where its output differs (a cut-down variant that "
-                         "shows what a part of the kernel costs)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -420,7 +355,7 @@ def main() -> int:
     print(card, flush=True)
     libs = {"old": build_old(args.source, old_source(args.source, args.old)), "new": _build.load()}
     {"grain_kernels.cu": grain_ab, "pattern_kernels.cu": pattern_ab,
-     "diff_kernels.cu": diff_ab}[args.source](libs, card, args.iters, not args.no_check)
+     "diff_kernels.cu": diff_ab}[args.source](libs, card, args.iters)
     return 0
 
 
