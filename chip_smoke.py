@@ -28,7 +28,10 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    3840x2160 10-bit 4:2:0 with 16 frames; the statistics kernel also at
    the ends of the ranges its 32-bit sums rest on (12-bit r = +-4095, aux
    = +-16380, every block flat), on a plane 10000 rows tall and on rows
-   off the 16-byte boundary;
+   off the 16-byte boundary; the flat-block activity kernel also at widths
+   512-543 (every residue mod 16) x heights 64, 65, 79, 129 over the whole
+   int16 range, on bases off the 16-byte boundary, on samples alternating
+   -32768 / 32767 and on more CTAs than the card holds at once;
 6. the diff main path at full size: film-like clean frames at 3840x2160
    10-bit 4:2:0 made from a numpy seed, grained on the card by
    ``apply_grain`` with the stream's tables reseeded per frame, then two
@@ -41,8 +44,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    diff_batch frames/s with the upload and the statistics download
    included;
 7. the single-chroma-plane kernel against its plain version on the card,
-   integer-equal, over the sizes of phase 3 and, as its main path, the
-   entry point ``apply_plane_chroma`` on Cb and Cr at 3840x2160 10-bit
+   integer-equal, over the sizes of phase 3, at its edges (luma widths
+   520-535 with planes switched off, bases off the 16-byte boundary, more
+   units than resident CTAs, offsets larger than the plane) and, as its
+   main path, the entry point ``apply_plane_chroma`` on Cb and Cr at
+   3840x2160 10-bit
    4:2:0 with 16 frames (averaged luma from ``_avg_luma``): equal to the
    plain version, to the chroma-pair kernel and, on frame 0, to
    grain_ref; two small frames also against grain_ref; then its time
@@ -524,6 +530,15 @@ def hold_stats(s, d, blocks, aux, lags, bd, errs, what):
                     f"{what} lag {lag} aux {a is not None}: plane_stats vs plain max |err| {e}")
 
 
+def shifted(t, by: int = 3):
+    """``t`` copied into a view ``by`` samples into a larger storage: every
+    row off the 16-byte boundary by 2 * by bytes."""
+    store = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = store[by:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def extreme_stats_cases(rng, dev, errs) -> int:
     """``plane_stats`` where its 32-bit sums are largest and where its
     staging changes path (as tests/test_torch_cuda.py): constant 12-bit
@@ -550,15 +565,51 @@ def extreme_stats_cases(rng, dev, errs) -> int:
     for h, w in ((150, 264), (150, 260)):
         sy, dy = (torch.from_numpy(a).to(dev) for a in diff_planes(rng, 2, h, w, 10, 0, 0)[:2])
         aux = torch.from_numpy(rng.integers(-400, 401, (2, h, w)).astype(np.int16)).to(dev)
-        views = []
-        for t in (sy, dy, aux):  # 3 samples into the storage: every row off by 6 bytes
-            store = torch.empty(t.numel() + 3, dtype=torch.int16, device=dev)
-            views.append(store[3:].view(t.shape))
-            views[-1].copy_(t)
+        views = [shifted(t) for t in (sy, dy, aux)]  # every row off by 6 bytes
         hold_stats(views[0], views[1], de.flat_blocks(dy), views[2], (1, 2, 3), 10, errs,
                    f"10-bit {w}x{h} off the 16-byte boundary")
         n += 1
     return n
+
+
+def hold_activity(d, errs, what):
+    """``flat_block_activity`` against its plain version."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    e = max_abs_err(dk.flat_block_activity(d), dk.flat_block_activity_reference(d))
+    errs["flat_block_activity"] = max(errs["flat_block_activity"], e)
+    if e > TOLERANCE:
+        raise AssertionError(f"{what}: flat_block_activity vs plain max |err| {e}")
+
+
+def activity_edge_cases(rng, dev, errs) -> int:
+    """The flat-block activity kernel at its edges (as
+    tests/test_torch_cuda.py): widths 512-543 (every residue mod 16) at
+    heights 64, 65, 79 and 129 over the whole int16 range; a batch slice
+    ``[1:]`` and a plane 3 samples into its storage (bases off the 16-byte
+    boundary); samples alternating -32768 and 32767 (every block sum 512 x
+    65535); 4 frames of 2600x16000 (1375 CTAs of 64-row strips, more than
+    the card holds at once) and 32 of 960x540 (a 1080p chroma batch: strips
+    of 32 rows; the small planes take 16). Returns the number of cases."""
+    n = 0
+    for h in (64, 65, 79, 129):
+        for w in range(512, 544):
+            d = rng.integers(-32768, 32768, (2, h, w), dtype=np.int16)
+            hold_activity(torch.from_numpy(d).to(dev), errs, f"{w}x{h}")
+            n += 1
+    big = torch.from_numpy(rng.integers(0, 1024, (4, 67, 301), dtype=np.int16)).to(dev)
+    hold_activity(big[1:], errs, "batch slice [1:] of 301x67")
+    d = torch.from_numpy(rng.integers(-32768, 32768, (2, 80, 512), dtype=np.int16)).to(dev)
+    hold_activity(shifted(d), errs, "512x80 3 samples into its storage")
+    i, j = np.mgrid[0:81, 0:520]
+    alt = np.where((i + j) % 2, -32768, 32767).astype(np.int16)
+    hold_activity(torch.from_numpy(np.stack([alt, -1 - alt])).to(dev), errs,
+                  "alternating -32768 / 32767")
+    tall = rng.integers(0, 1024, (4, 16000, 2600), dtype=np.int16)
+    hold_activity(torch.from_numpy(tall).to(dev), errs, "4 x 2600x16000")
+    mid = rng.integers(0, 256, (32, 540, 960), dtype=np.int16)
+    hold_activity(torch.from_numpy(mid).to(dev), errs, "32 x 960x540")
+    return n + 5
 
 
 class plain_diff_path:
@@ -691,11 +742,15 @@ def diff_phases(card, eff, dev, clean, grainy):
     compare_diff_kernels(big, BD, 1, 1, (2,), dev, errs, f"{BD}-bit 4:2:0 {W}x{H} B=16")
     del big
     n_extreme = extreme_stats_cases(rng, dev, errs)
+    n_act = activity_edge_cases(rng, dev, errs)
     torch.cuda.synchronize()
     log(f"[diff kernels] {n_cases + 1} cases (x lags, x 3 planes) equal to the plain "
         f"versions; plane_stats also on {n_extreme} cases (x lag 1-3, with and without aux) at "
         f"the ends of its ranges (12-bit r = +-4095, aux = +-16380, every block flat), on a "
-        f"10000 x 32 plane and on rows off the 16-byte boundary (max |err| {errs})")
+        f"10000 x 32 plane and on rows off the 16-byte boundary; flat_block_activity also on "
+        f"{n_act} edge cases (widths 512-543 x 4 heights, bases off the 16-byte boundary, "
+        f"alternating -32768 / 32767, 1375 CTAs, strips of 16, 32 and 64 rows) (max |err| "
+        f"{errs})")
 
     # 6. the diff main path at full size: inject known grain, estimate it back
     def estimate(device):
@@ -802,6 +857,63 @@ def hold_chroma_to_plain(outs, cargs, errs, what):
             raise AssertionError(f"{what} {plane}: chroma kernel vs plain max |err| {e}")
 
 
+def hold_chroma(cargs, errs, what):
+    """``apply_plane_chroma`` on each of ``cargs`` against its plain version."""
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    hold_chroma_to_plain([gk.apply_plane_chroma(*a) for a in cargs], cargs, errs, what)
+
+
+def chroma_edge_cases(base, rng, dev, errs) -> int:
+    """The single-chroma-plane kernel at its edges (as
+    tests/test_torch_cuda.py), on Cb and Cr of mixed batches (overlap on
+    and off, planes switched off): luma widths 520-535 at odd and even
+    heights, 8/10/12-bit x 4:2:0/4:2:2/4:4:4; at 10-bit a batch slice
+    ``[1:]`` and src, avg or both 3 samples into their storage (bases off
+    the 16-byte boundary), 9 frames of 1000x520 (more units than resident
+    CTAs) and offsets that cover more stripes and blocks than the plane.
+    Returns the number of cases."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    mixed = mixed_params(base)
+    n = 0
+    for bd in (8, 10, 12):
+        for sub_x, sub_y in ((1, 1), (1, 0), (0, 0)):
+            pats = tg.generate_patterns_ref(mixed, bd, sub_x, sub_y)
+
+            def cargs_of(planes, params=mixed, gen=lambda *a: pats):
+                return chroma_args(kernel_inputs(params, planes, bd, sub_x, sub_y, dev, gen)[1])
+
+            what = f"{bd}-bit {sub_x}{sub_y}"
+            for w in range(520, 536):
+                h = (41, 33, 64, 71)[w % 4]
+                planes = random_planes(rng, len(mixed), h, w, bd, sub_x, sub_y)
+                hold_chroma(cargs_of(planes), errs, f"{what} {w}x{h}")
+                n += 1
+            if bd != 10:
+                continue
+            big = [torch.from_numpy(a).to(dev)
+                   for a in random_planes(rng, len(mixed) + 1, 41, 301, bd, sub_x, sub_y)]
+            hold_chroma(cargs_of([t[1:] for t in big]), errs, f"{what} batch slice [1:] of 301x41")
+            cargs = cargs_of(random_planes(rng, len(mixed), 64, 256, bd, sub_x, sub_y))
+            for src_off, avg_off in ((True, False), (False, True), (True, True)):
+                moved = [(shifted(a[0]) if src_off else a[0], shifted(a[1]) if avg_off else a[1])
+                         + a[2:] for a in cargs]
+                hold_chroma(moved, errs, f"{what} 256x64 src/avg off the boundary "
+                                         f"{src_off}/{avg_off}")
+            wide = mixed + small_params(base)[:1]
+            hold_chroma(cargs_of(random_planes(rng, len(wide), 520, 1000, bd, sub_x, sub_y), wide,
+                                 None), errs, f"{what} 9 x 1000x520")
+            for h, w, (ds, dn) in ((70, 301, (2, 3)), (64, 256, (1, 0)), (41, 527, (0, 5))):
+                cargs = cargs_of(random_planes(rng, len(mixed), h, w, bd, sub_x, sub_y))
+                seed = tg.pack_params(mixed, dev).seed
+                offs = tg.block_offsets(seed, (h + 31) // 32 + ds, (w + 31) // 32 + dn)
+                hold_chroma([a[:3] + (offs,) + a[4:] for a in cargs], errs,
+                            f"{what} {w}x{h} offsets {ds} stripes, {dn} blocks larger")
+            n += 8
+    return n
+
+
 def chroma_phase(card, eff, dev):
     """Phase 7; returns the single-chroma-plane kernel's launches, time
     and error for the summary."""
@@ -820,6 +932,7 @@ def chroma_phase(card, eff, dev):
                 outs = [gk.apply_plane_chroma(*a) for a in cargs]
                 hold_chroma_to_plain(outs, cargs, errs, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
                 n_cases += 1
+    n_edge = chroma_edge_cases(eff[0], rng, dev, errs)
     small = small_params(eff[0])[:2]
     sp = random_planes(rng, 2, 70, 301, 10, 1, 1)
     luma_args, pair_args = kernel_inputs(small, sp, 10, 1, 1, dev)
@@ -851,9 +964,11 @@ def chroma_phase(card, eff, dev):
         [gk.apply_plane_luma(*luma_args)] + outs, planes, params, BD, 1, 1, [0], "4K B=16 chroma kernel"
     )
     torch.cuda.synchronize()
-    log(f"[chroma kernel] {n_cases + 1} cases x 2 planes integer-equal to the plain version "
-        f"(max |err| {errs}); 2 small frames and 4K frame 0 equal to grain_ref; 4K10 B=16 "
-        f"Cb and Cr equal to the chroma-pair kernel's")
+    log(f"[chroma kernel] {n_cases + 1} cases and {n_edge} edge cases (widths 520-535 with "
+        f"planes off, bases off the 16-byte boundary, more units than resident CTAs, offsets "
+        f"larger than the plane) x 2 planes integer-equal to the plain version (max |err| "
+        f"{errs}); 2 small frames and 4K frame 0 equal to grain_ref; 4K10 B=16 Cb and Cr "
+        f"equal to the chroma-pair kernel's")
     src, avg, pat, offs, prm = cargs[0][:5]
     t = timing(
         cuda_ms(lambda: gk.apply_plane_chroma(*cargs[0]), 20),

@@ -31,7 +31,40 @@
 // CTA. The host unpacks the int64 sums to float64.
 //
 // What bounds them on this card. The activity kernel moves bytes: one
-// read of the int16 plane. The stats kernel is bound by issue: at lag 2
+// read of the int16 plane. Beside it, a sample's two absolute steps are two
+// instructions (VABSDIFF takes the difference, its absolute value and the
+// add), and unpacking about one more. It streams, as the grain kernels do
+// (grain_kernels.cu):
+//
+// - A lane owns 8 neighbouring columns, x = 0 mod 8, and moves a row of
+//   them with one 16-byte streaming load. It walks down a strip of 64 rows
+//   (four block rows), keeping the last row in registers, so a vertical
+//   step needs no second read; the only halo is the row below the strip
+//   (1.6% more bytes). Where 64-row strips would fill less than half of
+//   what the card holds at once (1080p8 chroma), strips are 32 or 16 rows.
+// - Each lane issues the loads of its next 8 rows before their arithmetic.
+// - The horizontal step at column x + 7 takes sample x + 8 from the next
+//   lane by one shuffle; the warp's last lane, and the last lane before the
+//   right edge of the full blocks, load that sample themselves.
+// - Columns x .. x + 7 lie in one 16-wide block, so a block is two
+//   neighbouring lanes: after each 16 rows one shuffle adds the pair and
+//   the even lane stores the block's int32 sum. No shared memory, no
+//   atomics.
+// - The grid is plain: one warp per (frame, strip, 256 columns), eight
+//   warps a CTA, neighbouring warps on neighbouring columns. (A persistent
+//   grid, each warp striding over the units, came within 3% of it either
+//   way on the card.)
+// - Edges need no branch in the arithmetic. The horizontal step of a full
+//   block's last column reads column W - 1 again where it is the plane's
+//   last (a zero step); the vertical step of the last full row reads its own
+//   row again where it is the plane's last. Rows and columns past the full
+//   blocks are read only for those steps. Rows that do not start on a
+//   16-byte boundary (W % 8 != 0, or a base off the boundary) load sample
+//   by sample.
+// - Exact over all of int16: a step is at most 65535 and a block adds 512
+//   of them, which an int32 holds.
+//
+// The stats kernel is bound by issue: at lag 2
 // a luma pixel has 13 design values and 91 pair products, at lag 3 with
 // aux 26 values and 351 products, while it reads 4-6 bytes: an int32
 // multiply-add per pair and flat pixel is the least it can do. What the
@@ -73,43 +106,104 @@ constexpr unsigned FULL = 0xffffffffu;
 // ---------------------------------------------------------------------------
 // Flat-block activity
 
-constexpr int ACT_BLOCKS = 16;                 // blocks per CTA along x
-constexpr int ACT_THREADS = ACT_BLOCKS * FB;   // one thread per column
+constexpr int ACT_WARPS = 8;                  // warps of a CTA
+constexpr int ACT_THREADS = ACT_WARPS * 32;
+constexpr int ACT_GROUP = 8;                  // columns of a lane: 16 bytes
+constexpr int ACT_SEG = 32 * ACT_GROUP;       // columns of a warp: 16 blocks
+constexpr int ACT_STRIP = 4 * FB;             // rows of a warp: at most 4 block rows
+constexpr int ACT_BATCH = 8;                  // rows loaded before their arithmetic
+static_assert(FB % ACT_BATCH == 0, "a batch lies in one block row");
+static_assert(2 * ACT_GROUP == FB, "a block is two lanes");
+// a block's sum: 2 * FB * FB steps of at most 65535
+static_assert(2LL * FB * FB * 65535 <= 2147483647LL, "a block's sum overflows int32");
 
-// Grid (ceil(WB / ACT_BLOCKS), HB, B): one CTA per block row and 256
-// columns. The CTA stages its 16 rows and the row below (the halo), plus
-// one column to the right, then each thread sums its column and the 16
-// columns of a block are summed over their half-warp.
-__global__ void __launch_bounds__(ACT_THREADS)
-flat_block_activity_kernel(const int16_t* __restrict__ d, int* __restrict__ out,
-                           int H, int W, int HB, int WB) {
-  constexpr int TW = ACT_THREADS + 1;
-  __shared__ int16_t tile[FB + 1][TW];
-  const int b = blockIdx.z, by = blockIdx.y, bx0 = blockIdx.x * ACT_BLOCKS;
-  const int y0 = by * FB, x0 = bx0 * FB;
-  const int16_t* frame = d + (int64_t)b * H * W;
-  for (int i = threadIdx.x; i < (FB + 1) * TW; i += ACT_THREADS) {
-    const int r = i / TW, c = i - r * TW;
-    const int y = y0 + r, x = x0 + c;
-    tile[r][c] = (y < H && x < W) ? frame[(int64_t)y * W + x] : (int16_t)0;
-  }
-  __syncthreads();
-  const int c = threadIdx.x, x = x0 + c;
-  int sum = 0;
-  if (x < WB * FB) {  // rows y0..y0+15 are inside the HB full block rows
-    const bool right = x + 1 < W;
+// row[0 .. 7], one 16-byte streaming load where `wide`, else sample by
+// sample, packed two to a word
+__device__ __forceinline__ int4 act_load8(const int16_t* row, bool wide) {
+  if (wide) return __ldcs(reinterpret_cast<const int4*>(row));
+  unsigned w[ACT_GROUP / 2];
 #pragma unroll
-    for (int r = 0; r < FB; ++r) {
-      const int v = tile[r][c];
-      if (right) sum += abs(tile[r][c + 1] - v);
-      if (y0 + r + 1 < H) sum += abs(tile[r + 1][c] - v);
+  for (int i = 0; i < ACT_GROUP / 2; ++i)
+    w[i] = (unsigned)(uint16_t)__ldg(row + 2 * i) |
+           ((unsigned)(uint16_t)__ldg(row + 2 * i + 1) << 16);
+  return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+}
+
+__device__ __forceinline__ void act_unpack(const int4 v, int (&s)[ACT_GROUP]) {
+  const int w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s[2 * i] = (int)(int16_t)(w[i] & 0xFFFF);  // low half, sign-extended
+    s[2 * i + 1] = w[i] >> 16;                 // high half, arithmetic shift
+  }
+}
+
+// Grid ceil(warps / ACT_WARPS) x 1: warp g is strip-column unit g of the
+// B x NSTRIP x NSEG units (frame, strip of strip_rows = 16, 32 or 64 rows,
+// 256 columns), columns fastest. wide: every row starts on a 16-byte
+// boundary.
+__global__ void __launch_bounds__(ACT_THREADS)
+flat_block_activity_kernel(const int16_t* __restrict__ d, int* __restrict__ out, int H,
+                           int W, int HB, int WB, int strip_rows, int NSTRIP, int NSEG,
+                           int64_t warps, bool wide) {
+  const int lane = threadIdx.x & 31;
+  const int64_t g = (int64_t)blockIdx.x * ACT_WARPS + threadIdx.x / 32;
+  if (g >= warps) return;  // a whole warp
+  const int per_frame = NSTRIP * NSEG;
+  const int b = (int)(g / per_frame), q = (int)(g - (int64_t)b * per_frame);
+  const int strip = q / NSEG, seg = q - strip * NSEG;
+  const int y0 = strip * strip_rows, rows = min(strip_rows, HB * FB - y0);
+  const int x = seg * ACT_SEG + lane * ACT_GROUP;
+  // `on`: this lane's columns lie in full blocks. `own`: the lane reads
+  // sample x + 8 itself, as column xe (x + 8, or x + 7 again where x + 8
+  // is past the plane: a zero step). Lanes that are not on take part in
+  // the shuffles with zeros.
+  const bool on = x < WB * FB;
+  const bool own = on && (lane == 31 || x + ACT_GROUP == WB * FB);
+  const int xe = min(x + ACT_GROUP, W - 1);
+  const int16_t* frame = d + (int64_t)b * H * W;
+  const int4 zero = make_int4(0, 0, 0, 0);
+
+  int cur[ACT_GROUP], cur_e;  // row y0 + r0 + k: its 8 samples, sample xe
+  {
+    const int16_t* row = frame + (int64_t)y0 * W;
+    act_unpack(on ? act_load8(row + x, wide) : zero, cur);
+    cur_e = own ? __ldg(row + xe) : 0;
+  }
+  unsigned acc = 0;
+  for (int r0 = 0; r0 < rows; r0 += ACT_BATCH) {
+    // the next ACT_BATCH rows; the strip's last is the row below it, or
+    // its own last row again at the plane's bottom (a zero vertical step)
+    int4 nx[ACT_BATCH];
+    int ne[ACT_BATCH];
+#pragma unroll
+    for (int k = 0; k < ACT_BATCH; ++k) {
+      const int16_t* row = frame + (int64_t)min(y0 + r0 + k + 1, H - 1) * W;
+      nx[k] = on ? act_load8(row + x, wide) : zero;
+      ne[k] = own ? __ldg(row + xe) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < ACT_BATCH; ++k) {
+      int nv[ACT_GROUP];
+      act_unpack(nx[k], nv);
+      const int up = __shfl_down_sync(FULL, cur[0], 1);
+      acc = __sad(own ? cur_e : up, cur[ACT_GROUP - 1], acc);
+#pragma unroll
+      for (int j = 0; j + 1 < ACT_GROUP; ++j) acc = __sad(cur[j + 1], cur[j], acc);
+#pragma unroll
+      for (int j = 0; j < ACT_GROUP; ++j) {
+        acc = __sad(nv[j], cur[j], acc);
+        cur[j] = nv[j];
+      }
+      cur_e = ne[k];
+    }
+    if ((r0 + ACT_BATCH) % FB == 0) {  // a block row is done
+      const unsigned blk = acc + __shfl_xor_sync(FULL, acc, 1);
+      if (on && !(lane & 1))
+        __stcs(out + ((int64_t)b * HB + (y0 + r0) / FB) * WB + x / FB, (int)blk);
+      acc = 0;
     }
   }
-  // lanes 0-15 and 16-31 of a warp are one block each
-#pragma unroll
-  for (int o = FB / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-  const int bx = bx0 + c / FB;
-  if (c % FB == 0 && bx < WB) out[((int64_t)b * HB + by) * WB + bx] = sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -492,9 +586,27 @@ int diff_flat_block_activity(const void* d, void* out, int B, int H, int W,
                              void* stream) {
   const int HB = H / FB, WB = W / FB;
   if (B < 1 || HB < 1 || WB < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((WB + ACT_BLOCKS - 1) / ACT_BLOCKS, HB, B);
-  flat_block_activity_kernel<<<grid, ACT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)d, (int*)out, H, W, HB, WB);
+  // Strips of 64 rows (a halo of 1.6%) where they make at least half a
+  // wave of the warps the card holds at once; shorter ones, down to one
+  // block row, on small planes, so that enough warps keep loads in flight.
+  cudaError_t err;
+  int dev, sms, per_sm;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flat_block_activity_kernel,
+                                                           ACT_THREADS, 0)) != cudaSuccess)
+    return (int)err;
+  const int64_t resident = (int64_t)sms * per_sm * ACT_WARPS;
+  const int NSEG = (WB * FB + ACT_SEG - 1) / ACT_SEG;
+  int strip = ACT_STRIP;
+  auto strips = [&](int rows) { return (HB * FB + rows - 1) / rows; };
+  while (strip > FB && 2 * (int64_t)B * strips(strip) * NSEG < resident) strip /= 2;
+  const int64_t warps = (int64_t)B * strips(strip) * NSEG;
+  const int64_t ctas = (warps + ACT_WARPS - 1) / ACT_WARPS;
+  if (ctas > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const bool wide = W % ACT_GROUP == 0 && (uintptr_t)d % 16 == 0;
+  flat_block_activity_kernel<<<(unsigned)ctas, ACT_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)d, (int*)out, H, W, HB, WB, strip, strips(strip), NSEG, warps, wide);
   return (int)cudaGetLastError();
 }
 

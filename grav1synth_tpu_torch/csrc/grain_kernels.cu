@@ -43,9 +43,13 @@
 //   last stripe's rows and the last segment's columns are bounded.
 //   Inactive planes are copied through.
 //
-// grain_chroma_kernel is tiled: one CTA per 32-luma-row stripe across
-// CTA_BLOCKS luma blocks, with the pattern, LUT and randoms of the tile
-// staged in shared memory.
+// grain_chroma_kernel is the chroma-pair kernel's form for one plane: the
+// same units, staging, loads and edges, with its averaged luma read as an
+// input (16-byte loads where src, avg and out rows all start on a 16-byte
+// boundary) and its stripes and blocks counted from the plane's size, while
+// the randoms come from the caller's offsets, which may cover more. One
+// plane's tables are half of the pair's, so four CTAs share an SM at 4:2:0
+// (three where a unit has 4 rows a thread, which need the registers).
 //
 // Arithmetic is int32 throughout. Round2 of a negative value, the
 // ">> 6" of the chroma combination and the overlap blends are arithmetic
@@ -61,7 +65,6 @@
 namespace {
 
 constexpr int BLOCK = 32;       // luma block edge
-constexpr int CTA_BLOCKS = 8;   // luma blocks per CTA along x (grain_chroma_kernel)
 constexpr int THREADS = 256;
 
 // per-plane parameter row (grain_kernels.pack_plane_params)
@@ -105,60 +108,11 @@ __device__ __forceinline__ int blend(int old_v, int new_v, int idx) {
                   : (old_v * 17 + new_v * 27 + 16) >> 5;
 }
 
-// Randoms of this CTA's blocks: rnd[0][k] for stripe s, rnd[1][k] for
-// stripe s-1, at luma block bx0 + k - 1 (k = 0 is the left neighbour of
-// the CTA's first block), clamped into the frame.
-__device__ __forceinline__ void load_randoms(int (*rnd)[CTA_BLOCKS + 1],
-                                             const int* offsets, int bi, int s,
-                                             int bx0, int S, int NB) {
-  const int t = threadIdx.x;
-  if (t < 2 * (CTA_BLOCKS + 1)) {
-    const int row = t / (CTA_BLOCKS + 1);
-    const int k = t - row * (CTA_BLOCKS + 1);
-    const int ss = row == 0 ? s : max(s - 1, 0);
-    const int blk = clampi(bx0 + k - 1, 0, NB - 1);
-    rnd[row][k] = offsets[((int64_t)bi * S + ss) * NB + blk];
-  }
-}
-
 // Pattern offset of a block from its 8-bit random (high nibble x, low y).
 template <int SX>
 __device__ __forceinline__ int off_x(int rd) { return 3 + (2 >> SX) * (3 + (rd >> 4)); }
 template <int SY>
 __device__ __forceinline__ int off_y(int rd) { return 3 + (2 >> SY) * (3 + (rd & 15)); }
-
-// Per-pixel grain before scaling, with overlap blending. pat is the
-// plane's (GH, GW) pattern in shared memory; j is the CTA-local block,
-// jg the block's index in the stripe, (c, r) the pixel within its block.
-template <int SX, int SY>
-__device__ __forceinline__ int grain_noise(const int16_t* pat,
-                                           const int (*rnd)[CTA_BLOCKS + 1],
-                                           int j, int jg, int c, int r, int s,
-                                           bool overlap, int gmin, int gmax) {
-  constexpr int GW = SX ? 44 : 82;
-  constexpr int BW = BLOCK >> SX, BH = BLOCK >> SY;
-  constexpr int OVC = 2 >> SX, OVR = 2 >> SY;
-  const int rd = rnd[0][j + 1];
-  int g = pat[(off_y<SY>(rd) + r) * GW + off_x<SX>(rd) + c];
-  if (!overlap) return g;
-  const bool left = jg > 0 && c < OVC;
-  if (left) {
-    const int rl = rnd[0][j];
-    const int lg = pat[(off_y<SY>(rl) + r) * GW + off_x<SX>(rl) + BW + c];
-    g = clampi(blend<SX>(lg, g, c), gmin, gmax);
-  }
-  if (s > 0 && r < OVR) {
-    const int rt = rnd[1][j + 1];
-    int tg = pat[(off_y<SY>(rt) + BH + r) * GW + off_x<SX>(rt) + c];
-    if (left) {
-      const int rtl = rnd[1][j];
-      const int tlg = pat[(off_y<SY>(rtl) + BH + r) * GW + off_x<SX>(rtl) + BW + c];
-      tg = clampi(blend<SX>(tlg, tg, c), gmin, gmax);
-    }
-    g = clampi(blend<SY>(tg, g, r), gmin, gmax);
-  }
-  return g;
-}
 
 __device__ __forceinline__ int grained(int src, int noise, int scale, int ss,
                                        int lo, int hi) {
@@ -261,7 +215,7 @@ __device__ __forceinline__ Windows windows(const int* orow, int NB, int blk, int
 }
 
 // Grain of a group's 8 samples at row r of its stripe, before scaling,
-// with the overlap blends of grain_noise.
+// with the overlap blends (spec 7.18.3.5).
 template <int SX, int SY>
 __device__ __forceinline__ void noise8(const int16_t* pat, const Windows& w, int r,
                                        int gmin, int gmax, int (&g)[GROUP]) {
@@ -593,66 +547,98 @@ grain_chroma_pair_kernel(const int16_t* __restrict__ y,
   }
 }
 
-// One chroma plane with its scaling input's averaged luma given as an
-// input. Grid (ceil(NB / CTA_BLOCKS), S, B) over the LUMA blocks of the
-// offsets (S, NB come from the caller's offsets, not from Hc and Wc);
-// each CTA grains the collocated (32>>SY) x (CTA_BLOCKS * 32>>SX) tile.
+// One chroma plane, its scaling input's averaged luma given as an input:
+// the chroma-pair kernel's form for one plane. Grid as the luma kernel's,
+// over units of (frame, chroma stripe of BH rows, 256 chroma samples): SC
+// x NX units a frame, from the plane's size. The offsets are the caller's,
+// (B, S, NB) luma-block indexed and possibly larger than the plane, so the
+// stripe's row of randoms is at (b S + s) NB. Thread (phase, lane) owns
+// columns xc .. xc+7 of the stripe's rows phase, phase + 8, ...; it loads
+// src and avg of all its rows before any arithmetic.
 template <int SX, int SY>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, SY ? 4 : 3)
 grain_chroma_kernel(const int16_t* __restrict__ src, const int16_t* __restrict__ avg,
                     int16_t* __restrict__ out, const int16_t* __restrict__ pattern,
                     int64_t pat_stride, const int* __restrict__ offsets,
-                    const int* __restrict__ params, int Hc, int Wc, int S, int NB,
-                    int bit_depth) {
-  constexpr int GH = SY ? 38 : 73, GW = SX ? 44 : 82;
-  constexpr int BW = BLOCK >> SX, BH = BLOCK >> SY;
-  constexpr int TW = CTA_BLOCKS * BW;  // tile width in chroma samples
-  constexpr int RP = THREADS / TW;     // tile rows per pass
-  __shared__ int16_t spat[GH * GW];
-  __shared__ int lut[256];
-  __shared__ int rnd[2][CTA_BLOCKS + 1];
+                    const int* __restrict__ params, int Hc, int Wc, int S, int NB, int SC,
+                    int NX, int units, int bit_depth) {
+  using G = Geo<SX, SY>;
+  constexpr int RT = G::BH / RPW;  // rows of a unit per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* spat = reinterpret_cast<int16_t*>(smem);
+  int* slut = reinterpret_cast<int*>(smem + G::PAT_BYTES);
 
-  const int bi = blockIdx.z, s = blockIdx.y, bx0 = blockIdx.x * CTA_BLOCKS;
-  const int* prm = params + (int64_t)bi * P_LEN;
-  const int64_t frame = (int64_t)bi * Hc * Wc;
-  const int yc0 = s * BH, xc0 = bx0 * BW;
-  const int rows = min(BH, Hc - yc0), cols = min(TW, Wc - xc0);
-  const int xl = threadIdx.x % TW;
+  const int lane = threadIdx.x % TX, phase = threadIdx.x / TX;
+  const int maxv = (1 << bit_depth) - 1;
+  int u0, u1;
+  Unit u;
+  unit_range(units, SC, NX, u0, u1, u);
+  int staged = -1;  // the frame whose tables are in shared memory
+  PlaneParams q{};
+  for (int i = u0; i < u1; ++i, u.next(SC, NX)) {
+    if (u.b != staged) {  // uniform across the CTA
+      staged = u.b;
+      const int* prm = params + (int64_t)u.b * P_LEN;
+      q = plane_params(prm, bit_depth);
+      __syncthreads();  // the previous frame's tables are no longer read
+      if (q.active)
+        stage_tables(spat, slut, pattern + u.b * pat_stride, G::GH * G::GW, prm, bit_depth);
+      __syncthreads();
+    }
+    const int xc = u.xs * UNIT_W + lane * GROUP;
+    if (xc >= Wc) continue;
+    const int rows = min(G::BH, Hc - u.s * G::BH);
+    const int64_t base = ((int64_t)u.b * Hc + u.s * G::BH) * Wc;
+    const int16_t* s0 = src + base;
+    const int16_t* a0 = avg + base;
+    int16_t* o0 = out + base;
+    // a row's 8 samples move as 16 bytes where src, avg and out all start
+    // it on a 16-byte boundary
+    auto vec = [&](int r) {
+      const int64_t o = (int64_t)r * Wc;
+      return xc + GROUP <= Wc && aligned16(s0 + o, o0 + o) && aligned16(a0 + o, o0 + o);
+    };
 
-  if (!prm[P_ACTIVE]) {  // inactive plane: samples pass through
-    if (xl < cols)
-      for (int r = threadIdx.x / TW; r < rows; r += RP) {
-        const int64_t idx = frame + (int64_t)(yc0 + r) * Wc + xc0 + xl;
-        out[idx] = src[idx];
+    int4 v[RT], a[RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < rows) v[t] = load8(s0 + (int64_t)r * Wc, xc, Wc, vec(r));
+    }
+    if (!q.active) {  // inactive plane: samples pass through
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        const int r = phase + t * RPW;
+        if (r < rows) store8(o0 + (int64_t)r * Wc, xc, Wc, vec(r), v[t]);
       }
-    return;
-  }
-  const int16_t* pat = pattern + bi * pat_stride;
-  for (int i = threadIdx.x; i < GH * GW; i += THREADS) spat[i] = pat[i];
-  lut[threadIdx.x] = prm[P_LUT + threadIdx.x];
-  load_randoms(rnd, offsets, bi, s, bx0, S, NB);
-  __syncthreads();
-  if (xl >= cols) return;
-
-  const int ss = prm[P_SCALING_SHIFT], lo = prm[P_CLIP_LO], hi = prm[P_CLIP_HI];
-  const int gmin = prm[P_GMIN], gmax = prm[P_GMAX];
-  const bool overlap = prm[P_OVERLAP] != 0;
-  const bool use_mult = prm[P_USE_MULT] != 0;
-  const int mult = prm[P_MULT] - 128, luma_mult = prm[P_LUMA_MULT] - 128;
-  // (offset - 256) << (bd - 8), written as a product (see plane_params)
-  const int offset = (prm[P_OFFSET] - 256) * (1 << (bit_depth - 8));
-  const int maxval = (1 << bit_depth) - 1;
-  const int j = xl / BW, c = xl % BW, jg = bx0 + j;
-  for (int r = threadIdx.x / TW; r < rows; r += RP) {
-    const int64_t idx = frame + (int64_t)(yc0 + r) * Wc + xc0 + xl;
-    const int v = src[idx];
-    const int a = avg[idx];
-    const int val = use_mult ? clampi(((a * luma_mult + v * mult) >> 6) + offset, 0, maxval) : a;
-    const int n = grain_noise<SX, SY>(spat, rnd, j, jg, c, r, s, overlap, gmin, gmax);
-    out[idx] = (int16_t)grained(v, n, scale_lookup(lut, val, bit_depth), ss, lo, hi);
+      continue;
+    }
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < rows) a[t] = load8(a0 + (int64_t)r * Wc, xc, Wc, vec(r));
+    }
+    const Windows w = windows<SX, SY>(offsets + ((int64_t)u.b * S + u.s) * NB, NB,
+                                      xc / G::BW, xc % G::BW, u.s, q.overlap);
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r >= rows) continue;
+      int sm[GROUP], av[GROUP], g[GROUP];
+      unpack8(v[t], sm);
+      unpack8(a[t], av);
+      noise8<SX, SY>(spat, w, r, q.gmin, q.gmax, g);
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        const int val = q.use_mult
+            ? clampi(((av[k] * q.luma_mult + sm[k] * q.mult) >> 6) + q.offset, 0, maxv)
+            : av[k];
+        sm[k] = grained(sm[k], g[k], slut[clampi(val, 0, maxv)], q.ss, q.lo, q.hi);
+      }
+      store8(o0 + (int64_t)r * Wc, xc, Wc, vec(r), pack8(sm));
+    }
   }
 }
-
 int nblocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 // Launch a persistent kernel over `units` work units with `smem` bytes of
@@ -722,23 +708,20 @@ int grain_chroma(const void* src, const void* avg, void* out, const void* patter
                  int64_t pat_stride, const void* offsets, const void* params, int B,
                  int Hc, int Wc, int S, int NB, int sub_x, int sub_y, int bit_depth,
                  void* stream) {
-  const dim3 grid((NB + CTA_BLOCKS - 1) / CTA_BLOCKS, S, B);
+  const int SC = (Hc + (BLOCK >> sub_y) - 1) / (BLOCK >> sub_y);
+  const int NX = (Wc + UNIT_W - 1) / UNIT_W;
+  const int64_t units = (int64_t)B * SC * NX;
 #define LAUNCH(SX, SY)                                                              \
-  grain_chroma_kernel<SX, SY><<<grid, THREADS, 0, (cudaStream_t)stream>>>(          \
-      (const int16_t*)src, (const int16_t*)avg, (int16_t*)out,                      \
-      (const int16_t*)pattern, pat_stride, (const int*)offsets, (const int*)params, \
-      Hc, Wc, S, NB, bit_depth)
-  if (sub_x == 1 && sub_y == 1) {
-    LAUNCH(1, 1);
-  } else if (sub_x == 1 && sub_y == 0) {
-    LAUNCH(1, 0);
-  } else if (sub_x == 0 && sub_y == 0) {
-    LAUNCH(0, 0);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  return launch_persistent(grain_chroma_kernel<SX, SY>, units, bit_depth,           \
+                           table_bytes<SX, SY>(1, bit_depth), (cudaStream_t)stream, \
+                           (const int16_t*)src, (const int16_t*)avg, (int16_t*)out,  \
+                           (const int16_t*)pattern, pat_stride, (const int*)offsets, \
+                           (const int*)params, Hc, Wc, S, NB, SC, NX)
+  if (sub_x == 1 && sub_y == 1) LAUNCH(1, 1);
+  if (sub_x == 1 && sub_y == 0) LAUNCH(1, 0);
+  if (sub_x == 0 && sub_y == 0) LAUNCH(0, 0);
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* grain_error_string(int err) {

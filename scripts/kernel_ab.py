@@ -22,8 +22,11 @@ name and power limit.
 - ``grain_kernels.cu``: the luma and chroma-pair kernels on 3840x2160
   10-bit 4:2:0 frames from a numpy seed with the frame parameters of
   .bench_cache/bench_4k10_grainy.ivf reseeded per frame (``chip_smoke.py``
-  phase 4's inputs) at B = 16 and B = 112, each time beside the kernel's
-  bound and share (``chip_smoke.timing``); then the same turns end to end:
+  phase 4's inputs) at B = 16 and B = 112, and the single-chroma-plane
+  kernel on their Cb planes (phase 7's main path: the averaged luma from
+  ``_avg_luma``; both builds equal to the chroma-pair kernel's Cb), each
+  time beside the kernel's bound and share (``chip_smoke.timing``); then
+  the same turns end to end:
   phase 4's apply with host patterns through ``ops.grain.apply_grain``
   with each build loaded, as frames/s on the host clock, and under
   torch.profiler as device-busy ms per batch and the device's idle share.
@@ -150,13 +153,16 @@ def device_busy(prof) -> float:
     return busy / 1e3
 
 
-def launchers(lib, luma_args, pair_args):
-    """Zero-argument launches of ``lib``'s two kernels on the arguments of
-    ``apply_plane_luma`` and ``apply_planes_pair``, into outputs made once."""
+def launchers(lib, luma_args, pair_args, chroma_args):
+    """Zero-argument launches of ``lib``'s three kernels on the arguments of
+    ``apply_plane_luma``, ``apply_planes_pair`` and ``apply_plane_chroma``,
+    into outputs made once."""
     y, pat, offs, prm, bd = luma_args
     _, cb, cr, cbp, crp, offs2, p2, _, sub_x, sub_y = pair_args
+    src, avg, cpat, coffs, cprm = chroma_args[:5]
     b, h, w = y.shape
     out_y, out_cb, out_cr = torch.empty_like(y), torch.empty_like(cb), torch.empty_like(cr)
+    out_c = torch.empty_like(src)
     stream = torch.cuda.current_stream().cuda_stream
 
     def luma():
@@ -171,7 +177,14 @@ def launchers(lib, luma_args, pair_args):
             p2.data_ptr(), b, h, w, sub_x, sub_y, bd, stream))
         return out_cb, out_cr
 
-    return luma, pair
+    def chroma():
+        check(lib.grain_chroma(
+            src.data_ptr(), avg.data_ptr(), out_c.data_ptr(), cpat.data_ptr(), cpat.stride(0),
+            coffs.data_ptr(), cprm.data_ptr(), b, src.shape[1], src.shape[2], coffs.shape[1],
+            coffs.shape[2], sub_x, sub_y, bd, stream))
+        return out_c
+
+    return luma, pair, chroma
 
 
 def grain_ab(libs, card: str, iters: int) -> None:
@@ -187,19 +200,23 @@ def grain_ab(libs, card: str, iters: int) -> None:
         pats = tg.generate_patterns_ref(params, bd, sx, sy)
         planes = [t.repeat(b // 16, 1, 1) for t in planes16]
         luma_args, pair_args = cs.kernel_inputs(params, planes, bd, sx, sy, dev, lambda *a: pats)
-        runs = {k: launchers(lib, luma_args, pair_args) for k, lib in libs.items()}
+        cb_args = cs.chroma_args(pair_args)[0]
+        runs = {k: launchers(lib, luma_args, pair_args, cb_args) for k, lib in libs.items()}
         want_y = gk.apply_plane_luma(*luma_args)
         want_c = gk.apply_planes_pair(*pair_args)
-        for k, (luma, pair) in runs.items():
+        for k, (luma, pair, chroma) in runs.items():
             if not torch.equal(luma(), want_y) or not all(
                 torch.equal(g, wc) for g, wc in zip(pair(), want_c)
-            ):
+            ) or not torch.equal(chroma(), want_c[0]):
                 raise AssertionError(f"B={b}: the {k} build differs from the package's wrappers")
         del want_y, want_c
-        work = {"grain_luma": cs.luma_work(luma_args), "grain_chroma_pair": cs.pair_work(pair_args)}
-        for idx, name in enumerate(("grain_luma", "grain_chroma_pair")):
+        src, avg, cpat, coffs, cprm = cb_args[:5]
+        work = {"grain_luma": cs.luma_work(luma_args), "grain_chroma_pair": cs.pair_work(pair_args),
+                "grain_chroma": (2 * cs.nbytes(src) + cs.nbytes(avg, cpat, coffs, cprm),
+                                 cs.chroma_ops(cprm, src.shape[1] * src.shape[2]))}
+        for idx, name in enumerate(("grain_luma", "grain_chroma_pair", "grain_chroma")):
             ms = turns({k: r[idx] for k, r in runs.items()}, iters)
-            report(name, f"4K10 4:2:0 B={b}", ms, card, work[name])
+            report(name, f"4K10 4:2:0 B={b}" + (", Cb" if idx == 2 else ""), ms, card, work[name])
         # what a plain device copy of the luma planes (K1's sample bytes,
         # read once and written once) reaches on this card: a yardstick of
         # the HBM rate a streaming kernel can get, not the kernels' function
@@ -231,7 +248,7 @@ def grain_ab(libs, card: str, iters: int) -> None:
             print(f"[ab] apply_grain 4K10 4:2:0 B={b} host patterns, {k} kernels: {fps:.1f} "
                   f"frames/s; profiled {wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
                   f"share {1 - busy / wall:.3f} on {card}", flush=True)
-        del runs, luma_args, pair_args, planes
+        del runs, luma_args, pair_args, cb_args, planes
         torch.cuda.empty_cache()
 
 

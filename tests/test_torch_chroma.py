@@ -71,6 +71,67 @@ def test_chroma_plain_matches_pallas_and_grain_ref(sub_x, sub_y, bd, h, w, jax_p
     assert not torch.equal(got["cb"], torch.from_numpy(cb))
 
 
+@pytest.mark.parametrize("sub_x,sub_y,bd,h,w,jax_planes", CASES)
+def test_chroma_plain_with_offsets_wider_than_the_plane_matches_pallas(
+    sub_x, sub_y, bd, h, w, jax_planes
+):
+    """Offsets of more blocks than the plane has, as many as the Pallas
+    kernel's 128-lane row holds: the stripes and blocks are the offsets',
+    the plane only reads its own."""
+    params, jb, (y, cb, cr), (_, cbp, crp), offs, avg = _setup(sub_x, sub_y, bd, h, w)
+    wcpad = (cb.shape[2] + 127) // 128 * 128
+    nb = wcpad // (32 >> sub_x)
+    assert nb > offs.shape[2]
+    wide = np.array(grain_jax.block_offsets(jb.seed, offs.shape[1], nb))
+    pt = tg.from_jax_params(jb, "cpu")
+    for plane, src, pat in (("cb", cb, cbp), ("cr", cr, crp)):
+        out = gk.apply_plane_chroma(
+            torch.from_numpy(src), torch.from_numpy(avg.astype(np.int16)),
+            torch.from_numpy(pat.astype(np.int16)), torch.from_numpy(wide),
+            gk.pack_plane_params(pt, plane, bd), bd, sub_x, sub_y,
+        )
+        want = grain_pallas.apply_plane_chroma(
+            src.astype(np.int32), avg, pat, wide,
+            grain_pallas.pack_plane_params(jb, plane, bd), bd, sub_x, sub_y,
+        )
+        _equal(out, want, f"{plane} vs pallas, {nb} blocks")
+
+
+@pytest.mark.parametrize("sub_x,sub_y,bd,h,w,jax_planes", CASES)
+def test_chroma_plain_with_offsets_taller_than_the_plane_matches_grain_ref(
+    sub_x, sub_y, bd, h, w, jax_planes
+):
+    """Offsets of two stripes and five blocks more than the plane has give
+    the plane's own grain: equal to grain_ref and to the Pallas kernel on
+    the plane's own offsets. (The Pallas kernel itself, on such offsets,
+    runs its stripes past the plane on the last block of rows, whose
+    window its interpret mode clamps into the plane, and writes their
+    grain over it: a fault of the reference that the port does not
+    share.)"""
+    params, jb, (y, cb, cr), (_, cbp, crp), offs, avg = _setup(sub_x, sub_y, bd, h, w)
+    tall = np.array(grain_jax.block_offsets(jb.seed, offs.shape[1] + 2, offs.shape[2] + 5))
+    pt = tg.from_jax_params(jb, "cpu")
+    got = {}
+    for plane, src, pat in (("cb", cb, cbp), ("cr", cr, crp)):
+        got[plane] = gk.apply_plane_chroma(
+            torch.from_numpy(src), torch.from_numpy(avg.astype(np.int16)),
+            torch.from_numpy(pat.astype(np.int16)), torch.from_numpy(tall),
+            gk.pack_plane_params(pt, plane, bd), bd, sub_x, sub_y,
+        )
+        want = grain_pallas.apply_plane_chroma(
+            src.astype(np.int32), avg, pat, offs,
+            grain_pallas.pack_plane_params(jb, plane, bd), bd, sub_x, sub_y,
+        )
+        _equal(got[plane], want, f"{plane} vs pallas on the plane's offsets")
+    for i, p in enumerate(params):
+        ref = grain_ref.apply_grain_frame(
+            [y[i].astype(np.int32), cb[i].astype(np.int32), cr[i].astype(np.int32)],
+            p, bd, sub_x, sub_y,
+        )
+        _equal(got["cb"][i], ref[1], f"frame {i} cb vs grain_ref")
+        _equal(got["cr"][i], ref[2], f"frame {i} cr vs grain_ref")
+
+
 def test_chroma_plain_equals_the_pair_per_plane():
     """Cb and Cr one at a time, with the pair's luma average, give the
     chroma-pair kernel's planes."""

@@ -87,8 +87,8 @@ def _mixed_params():
 
 class _KernelCase:
     """One parameter batch's tables at one bit depth and subsampling, on
-    the card: patterns once, then the luma and chroma-pair kernels against
-    their plain versions on any planes."""
+    the card: patterns once, then the luma, chroma-pair and single-chroma-
+    plane kernels against their plain versions on any planes."""
 
     def __init__(self, params, bd, sub_x, sub_y, device):
         self.bd, self.sub_x, self.sub_y = bd, sub_x, sub_y
@@ -117,6 +117,23 @@ class _KernelCase:
         for pi, (g, wnt) in enumerate(zip(got, want)):
             assert torch.equal(g, wnt), f"{what}: plane {pi}"
 
+    def check_chroma(self, y, cb, cr, what, avg=None, more=(0, 0)):
+        """The single-chroma-plane kernel on Cb and on Cr against its plain
+        version: ``avg`` the averaged luma (``_avg_luma`` of ``y`` by
+        default), offsets of ``more`` stripes and blocks past the plane's."""
+        b, h, w = y.shape
+        if avg is None:
+            avg = tg._avg_luma(y.to(torch.int32), cb.shape[1], cb.shape[2], self.sub_x,
+                               self.sub_y).to(torch.int16)
+        offs = tg.block_offsets(self.pb.seed, (h + 31) // 32 + more[0], (w + 31) // 32 + more[1])
+        for plane, src, pat, prm in (("cb", cb, self.pats[1], self.p2[:b]),
+                                     ("cr", cr, self.pats[2], self.p2[b:])):
+            args = (src, avg, pat, offs, prm, self.bd, self.sub_x, self.sub_y)
+            before = gk.LAUNCHES["grain_chroma"]
+            got = gk.apply_plane_chroma(*args)
+            assert gk.LAUNCHES["grain_chroma"] == before + 1
+            assert torch.equal(got, gk.apply_plane_chroma_reference(*args)), f"{what}: {plane}"
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
@@ -134,6 +151,14 @@ def test_kernels_match_plain_at_edge_geometries_on_cuda(cuda, sub_x, sub_y, bd):
     torch.cuda.synchronize()
 
 
+def _shifted(t, by=3):
+    """``t`` copied into a view ``by`` samples into a larger storage."""
+    store = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = store[by:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
 def test_kernels_match_plain_on_unaligned_bases_on_cuda(cuda, sub_x, sub_y):
@@ -149,12 +174,7 @@ def test_kernels_match_plain_on_unaligned_bases_on_cuda(cuda, sub_x, sub_y):
     sliced = [t[1:] for t in big]
     assert all(t.is_contiguous() and t.data_ptr() % 16 for t in sliced)
     case.check(*sliced, "batch slice [1:] of 41x301")
-    flat = []
-    for t in _random_planes(rng, b, 64, 256, 10, sub_x, sub_y, cuda):
-        store = torch.empty(t.numel() + 3, dtype=torch.int16, device=cuda)
-        view = store[3:].view(t.shape)
-        view.copy_(t)
-        flat.append(view)
+    flat = [_shifted(t) for t in _random_planes(rng, b, 64, 256, 10, sub_x, sub_y, cuda)]
     assert all(t.data_ptr() % 16 == 6 for t in flat)
     case.check(*flat, "64x256 planes 3 samples into their storage")
     torch.cuda.synchronize()
@@ -170,6 +190,76 @@ def test_kernels_match_plain_beyond_one_wave_on_cuda(cuda, sub_x, sub_y):
     case = _KernelCase(params, 10, sub_x, sub_y, cuda)
     planes = _random_planes(np.random.default_rng(8), len(params), 520, 1000, 10, sub_x, sub_y, cuda)
     case.check(*planes, f"{sub_x}{sub_y} 9 x 1000x520")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_chroma_kernel_matches_plain_at_edge_geometries_on_cuda(cuda, sub_x, sub_y, bd):
+    """The single-chroma-plane kernel at luma widths 520-535 (every residue
+    mod 8 of the chroma width), odd and even heights, overlap on and off,
+    mixed active and inactive planes."""
+    params = _mixed_params()
+    case = _KernelCase(params, bd, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(300 + bd)
+    for w in range(520, 536):
+        h = (41, 33, 64, 71)[w % 4]
+        y, cb, cr = _random_planes(rng, len(params), h, w, bd, sub_x, sub_y, cuda)
+        case.check_chroma(y, cb, cr, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+def test_chroma_kernel_matches_plain_on_unaligned_bases_on_cuda(cuda, sub_x, sub_y):
+    """src, avg or both off the 16-byte boundary: a batch slice ``[1:]`` of
+    41x301 frames, and 64x256 planes viewed 3 samples into their storage
+    with the averaged luma aligned and not."""
+    params = _mixed_params()
+    case = _KernelCase(params, 10, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(17)
+    b = len(params)
+    sliced = [t[1:] for t in _random_planes(rng, b + 1, 41, 301, 10, sub_x, sub_y, cuda)]
+    assert all(t.data_ptr() % 16 for t in sliced)
+    case.check_chroma(*sliced, "batch slice [1:] of 41x301")
+    y, cb, cr = _random_planes(rng, b, 64, 256, 10, sub_x, sub_y, cuda)
+    avg = tg._avg_luma(y.to(torch.int32), cb.shape[1], cb.shape[2], sub_x, sub_y).to(torch.int16)
+    scb, scr, savg = _shifted(cb), _shifted(cr), _shifted(avg)
+    assert all(t.data_ptr() % 16 == 6 for t in (scb, scr, savg))
+    case.check_chroma(y, scb, scr, "64x256 src 3 samples in", avg=avg)
+    case.check_chroma(y, cb, cr, "64x256 avg 3 samples in", avg=savg)
+    case.check_chroma(y, scb, scr, "64x256 src and avg 3 samples in", avg=savg)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (0, 0)])
+def test_chroma_kernel_matches_plain_beyond_one_wave_on_cuda(cuda, sub_x, sub_y):
+    """More units than CTAs resident on the card: 9 frames of 520x1000 are
+    576 (4:2:0) or 864 (4:4:4) units against 528 resident CTAs, with unit
+    ranges that cross frames."""
+    params = _mixed_params() + _params()[:1]
+    case = _KernelCase(params, 10, sub_x, sub_y, cuda)
+    planes = _random_planes(np.random.default_rng(18), len(params), 520, 1000, 10, sub_x, sub_y, cuda)
+    case.check_chroma(*planes, f"{sub_x}{sub_y} 9 x 1000x520")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+def test_chroma_kernel_matches_plain_with_offsets_larger_than_the_plane_on_cuda(
+    cuda, sub_x, sub_y
+):
+    """Offsets that cover more stripes and blocks than the plane has: the
+    kernel counts its units from the plane and finds a stripe's randoms at
+    the caller's row stride."""
+    params = _mixed_params()
+    case = _KernelCase(params, 12, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(19)
+    for h, w, more in ((70, 301, (2, 3)), (64, 256, (1, 0)), (41, 527, (0, 5))):
+        planes = _random_planes(rng, len(params), h, w, 12, sub_x, sub_y, cuda)
+        case.check_chroma(*planes, f"{w}x{h} offsets {more} larger", more=more)
     torch.cuda.synchronize()
 
 
@@ -280,6 +370,58 @@ def test_diff_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
     torch.cuda.synchronize()
 
 
+def _activity_equal(d, what):
+    """The flat-block activity kernel against its plain version, one launch."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+
+    before = dk.LAUNCHES["flat_block_activity"]
+    got = dk.flat_block_activity(d)
+    assert dk.LAUNCHES["flat_block_activity"] == before + 1
+    assert torch.equal(got, dk.flat_block_activity_reference(d)), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [64, 65, 79, 129])
+def test_flat_block_activity_matches_plain_at_every_width_residue_on_cuda(cuda, h):
+    """Widths 512-543 (every residue mod 16; 512 and 528 exactly WB * 16)
+    at heights with H mod 16 = 0 (exactly HB * 16), 1 and 15, and past one
+    64-row strip, over the whole int16 range."""
+    rng = np.random.default_rng(h)
+    for w in range(512, 544):
+        d = torch.from_numpy(rng.integers(-32768, 32768, (2, h, w), dtype=np.int16)).to(cuda)
+        _activity_equal(d, f"{w}x{h}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flat_block_activity_matches_plain_at_its_edges_on_cuda(cuda):
+    """Bases off the 16-byte boundary (a batch slice ``[1:]`` of 67x301
+    frames, a 80x512 plane 3 samples into its storage), samples alternating
+    -32768 and 32767 on 520x81 (every step 65535, every block sum 512 *
+    65535), 4 frames of 2600x16000 (1000 row strips of 64 rows, 1375 CTAs,
+    more than the card holds at once) and 32 frames of 960x540 (a 1080p
+    chroma batch, whose strips come out at 32 rows; the small planes above
+    take 16)."""
+    rng = np.random.default_rng(21)
+    big = torch.from_numpy(rng.integers(0, 1024, (4, 67, 301), dtype=np.int16)).to(cuda)
+    assert big[1:].data_ptr() % 16
+    _activity_equal(big[1:], "batch slice [1:] of 301x67")
+    flat = _shifted(torch.from_numpy(rng.integers(-32768, 32768, (2, 80, 512), dtype=np.int16)).to(cuda))
+    assert flat.data_ptr() % 16 == 6
+    _activity_equal(flat, "512x80 3 samples into its storage")
+    i, j = np.mgrid[0:81, 0:520]  # every full block has all 512 of its steps
+    alt = np.where((i + j) % 2, -32768, 32767).astype(np.int16)
+    d = torch.from_numpy(np.stack([alt, -1 - alt])).to(cuda)
+    _activity_equal(d, "alternating -32768 / 32767")
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    assert int(dk.flat_block_activity(d).min()) == 512 * 65535
+    tall = torch.from_numpy(rng.integers(0, 1024, (4, 16000, 2600), dtype=np.int16)).to(cuda)
+    _activity_equal(tall, "4 x 2600x16000")
+    mid = torch.from_numpy(rng.integers(0, 256, (32, 540, 960), dtype=np.int16)).to(cuda)
+    _activity_equal(mid, "32 x 960x540")
+    torch.cuda.synchronize()
+
+
 # (name, s, d, aux): a 12-bit plane at the ends of its range. r = s - d is
 # +4095 or -4095 on every pixel and the x4 luma-residual column +-16380, so
 # every pair sum of the statistics kernel reaches its bound.
@@ -358,12 +500,7 @@ def test_plane_stats_matches_plain_on_unaligned_rows_on_cuda(cuda):
         blocks = de.flat_blocks(dy)
         want = dk.plane_stats_reference(sy, dy, blocks, aux, 2, 10)
         _stats_equal(dk.plane_stats(sy, dy, blocks, aux, 2, 10), want, f"{w}x{h} aligned base")
-        shifted = []
-        for t in (sy, dy, aux):
-            store = torch.empty(t.numel() + 3, dtype=torch.int16, device=cuda)
-            view = store[3:].view(t.shape)
-            view.copy_(t)
-            shifted.append(view)
+        shifted = [_shifted(t) for t in (sy, dy, aux)]
         assert all(t.data_ptr() % 16 == 6 for t in shifted)
         got = dk.plane_stats(shifted[0], shifted[1], blocks, shifted[2], 2, 10)
         _stats_equal(got, want, f"{w}x{h} 3 samples into the storage")

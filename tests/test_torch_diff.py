@@ -69,17 +69,37 @@ def test_flat_blocks_match_jax(b, h, w, bd, dtype):
         assert 0 < int(got.sum()) < got.numel()  # both sides of the threshold
 
 
-def test_flat_block_activity_plain_is_the_block_sum():
-    rng = np.random.default_rng(3)
-    d = rng.integers(0, 4096, (2, 37, 50)).astype(np.int16)
+@pytest.mark.parametrize(
+    "h,w,lo,hi",
+    [
+        (37, 50, 0, 4096),
+        (16, 16, -32768, 32768),  # one block, no row or column past it
+        (32, 48, -32768, 32768),  # exactly HB * 16 x WB * 16
+        (17, 527, -32768, 32768),  # H mod 16 = 1, W mod 16 = 15
+        (31, 513, -32768, 32768),  # H mod 16 = 15, W mod 16 = 1
+        (48, 536, -32768, 32768),  # W mod 16 = 8
+        (33, 519, -32768, -32766),  # W mod 16 = 7, the bottom of the range
+        (20, 40, None, None),  # alternating -32768 and 32767: every step 65535
+    ],
+)
+def test_flat_block_activity_plain_is_the_block_sum(h, w, lo, hi):
+    """Each full block's sum of |horizontal| + |vertical| steps, a step
+    counted where its right or lower sample is inside the plane, against a
+    loop over the samples."""
+    if lo is None:
+        i, j = np.mgrid[0:h, 0:w]
+        d = np.stack([np.where((i + j) % 2, -32768, 32767)] * 2).astype(np.int16)
+    else:
+        d = np.random.default_rng(h * w).integers(lo, hi, (2, h, w)).astype(np.int16)
     got = dk.flat_block_activity(torch.from_numpy(d))
     v = d.astype(np.int64)
-    want = np.zeros((2, 2, 3), np.int64)
+    hb, wb = h // 16, w // 16
+    want = np.zeros((2, hb, wb), np.int64)
     for bi in range(2):
-        for i in range(32):
-            for j in range(48):
-                a = abs(v[bi, i, j + 1] - v[bi, i, j])
-                a += abs(v[bi, i + 1, j] - v[bi, i, j])
+        for i in range(hb * 16):
+            for j in range(wb * 16):
+                a = abs(v[bi, i, j + 1] - v[bi, i, j]) if j + 1 < w else 0
+                a += abs(v[bi, i + 1, j] - v[bi, i, j]) if i + 1 < h else 0
                 want[bi, i // 16, j // 16] += a
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
