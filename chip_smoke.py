@@ -79,12 +79,30 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    (every card) and over a two-shard mesh that names the card twice, at
    4K10 B = 16, equal to the unsharded output, frames exact, energy
    within rtol 1e-6 of an int64 recount; ``DiffEstimator.diff_batch``
-   over the two-shard mesh fits phase 6's table.
+   over the two-shard mesh fits phase 6's table; the entry point
+   ``entry.dryrun_multichip(1)``;
+11. distributed: two processes on one card. The script spawns two ranks
+   (spawn start method) that join one gloo process group through
+   ``parallel.distributed.initialize``, each with the card as its local
+   mesh. Each rebuilds phase 4's 4K10 B = 16 planes and reseeded
+   parameters from the same seed and applies its 8 frames through
+   ``sharded_apply_with_stats`` over the ``ProcessMesh`` (patterns made on
+   the card): every frame equal by sha256 to phase 10's unsharded output,
+   frames 16 and energy equal to the int64 recount on both ranks, the
+   pattern, luma and chroma-pair kernels launched in each rank; then
+   ``mesh_pair_stats_per_frame`` over the two ranks on phase 6's first
+   batch of 16 (lag 2): the whole batch's per-frame statistics on each
+   rank equal to the single-process ones to the last bit, both diff
+   kernels launched 3 times or more in each rank. The two-rank apply's
+   frames/s (host clock) is printed beside phase 10's two-shard number,
+   with each exchange alone (host copies and gloo); two ranks on one card
+   take turns on its SMs, so it is no scaling figure. A rank that fails or hangs (waited for with a timeout, then
+   killed) fails the script, its log's tail printed.
 
 Phases 1-8 take grain patterns from ``grain_ref`` on the host (the native
 libav*/dav1d shim, and with it ``generate_patterns_native`` and the
 render pipeline's decoder, is not built on hosts without those
-libraries); phases 9 and 10 make them on the card.
+libraries); phases 9-11 make them on the card.
 
 Every ``[time]`` line gives the kernel's time beside its plain version's
 and its bound: the larger of the bytes it must move (inputs read once,
@@ -108,9 +126,13 @@ import ctypes
 import dataclasses
 import hashlib
 import json
+import multiprocessing
+import multiprocessing.connection
 import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -148,6 +170,10 @@ KERNELS = (
 # energy of the sharded apply (an exact int64 sum per shard, added in
 # float64) against an int64 recount
 ENERGY_RTOL = 1e-6
+# phase 11: the process group's timeout (start-up and each collective), and
+# how long the script waits for both ranks
+RANK_GROUP_TIMEOUT = 180.0
+RANK_WAIT = 480.0
 # what a kernel's entry of the summary line may carry beside the common keys
 EXTRA_KEYS = ("label", "chain_bound_ms", "chain_steps", "chain_step_cycles", "sm_clock_mhz",
               "other_cases")
@@ -1348,7 +1374,8 @@ def pattern_phase(card, eff, dev, apply4):
 
 
 def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
-    """Phase 10: the sharded apply and diff paths."""
+    """Phase 10: the sharded apply and diff paths; returns the two-shard
+    apply's frames/s."""
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
@@ -1360,6 +1387,7 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
     want = dev_outs[16]
     d = want[0].to(torch.int64) - y.to(torch.int64)
     recount = float((d * d).sum())
+    fps = {}
     for name, mesh in (("make_mesh()", make_mesh()), ("two shards on one card", DeviceMesh([dev, dev]))):
         torch.cuda.synchronize()
         gk.reset_launch_counts()
@@ -1376,10 +1404,12 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
             raise AssertionError(
                 f"sharded apply over {name}: frames {frames}, energy {energy} vs {recount}"
             )
-        fps = frames_per_s(lambda: sharded_apply_with_stats(mesh, y, cb, cr, pb, BD), 16, 10)
+        fps[name] = frames_per_s(
+            lambda: sharded_apply_with_stats(mesh, y, cb, cr, pb, BD), 16, 10)
         log(f"[sharded] sharded_apply_with_stats over {name} ({len(mesh)} shard(s)), 4K10 4:2:0 "
             f"B=16: planes equal to the unsharded apply, frames 16, energy {energy:.6g} "
-            f"(int64 recount {recount:.6g}); launches {launches}; {fps:.1f} frames/s on {card}")
+            f"(int64 recount {recount:.6g}); launches {launches}; {fps[name]:.1f} frames/s "
+            f"on {card}")
 
     def estimate(mesh):
         est = de.DiffEstimator((30, 1), BD, BD, chunk_frames=1000, device=dev)
@@ -1393,6 +1423,201 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
         raise AssertionError(f"diff over two shards: {sharded} != {tables}")
     log(f"[sharded] DiffEstimator.diff_batch over two shards on one card, 4K10 4:2:0, "
         f"2 batches of 16: {len(sharded)} segment(s), table equal to the unsharded one")
+    from grav1synth_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(1)
+    return fps["two shards on one card"]
+
+
+def frame_digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+DIST_KERNELS = ("grain_pattern", "grain_luma", "grain_chroma_pair", "flat_block_activity",
+                "plane_stats")
+
+
+def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, diff_want):
+    """One rank of phase 11 (a spawned process). Its output goes to
+    ``work``/rank<r>.log, its result to ``work``/rank<r>.json; any failed
+    check raises, and the process exits non-zero."""
+    log_fd = os.open(os.path.join(work, f"rank{rank}.log"), os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(log_fd, 1)
+    os.dup2(log_fd, 2)
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.parallel import (
+        DeviceMesh, initialize, process_allgather, sharded_apply_with_stats, shutdown,
+        sync_global_devices,
+    )
+    from grav1synth_tpu_torch.parallel.distributed import all_sum, gather_frames, global_batch
+
+    BD, B = 10, 16
+    dev = torch.device("cuda", 0)
+    pm = initialize(f"127.0.0.1:{port}", world, rank, local=DeviceMesh([dev]),
+                    timeout=RANK_GROUP_TIMEOUT)
+    a, b = pm.frame_range(B)
+    host16 = random_planes(np.random.default_rng(7), B, 2160, 3840, BD, 1, 1)
+    y, cb, cr = (torch.from_numpy(p[a:b]).to(dev) for p in host16)
+    pb = tg.pack_params(reseeded(eff, B)[a:b], dev)
+
+    # the sharded apply, patterns made on the card
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    out = sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
+    torch.cuda.synchronize()
+    launches = {k: gk.LAUNCHES[k] for k in DIST_KERNELS[:3]}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"rank {rank}: a kernel of the sharded apply never launched: {launches}")
+    for k in range(3):
+        for i in range(b - a):
+            if frame_digest(out[k][i]) != digests[k][a + i]:
+                raise AssertionError(f"rank {rank}: frame {a + i} plane {k} differs from unsharded")
+    energy, frames = float(out[3]), int(out[4])
+    energies = process_allgather(np.array([energy]))[:, 0]
+    if frames != B or energy != float(recount) or (energies != energy).any():
+        raise AssertionError(f"rank {rank}: frames {frames}, energy {energies} vs {recount}")
+    reps = 10
+    sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
+    torch.cuda.synchronize()
+    sync_global_devices("apply timed: start")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
+    torch.cuda.synchronize()
+    sync_global_devices("apply timed: end")
+    fps = B * reps / (time.perf_counter() - t0)
+
+    # the sharded per-frame diff statistics
+    planes = [torch.from_numpy(p).to(dev) for p in diff_mine]
+    torch.cuda.synchronize()
+    dk.reset_launch_counts()
+    stats = de.mesh_pair_stats_per_frame(pm, *planes, lag=2, bit_depth=BD, sub_x=1, sub_y=1,
+                                         has_chroma=True)
+    torch.cuda.synchronize()
+    launches.update(dk.LAUNCHES)
+    if min(dk.LAUNCHES.values()) < 3:
+        raise AssertionError(f"rank {rank}: diff kernels launched {dict(dk.LAUNCHES)}")
+    for name, got, want in zip(("y", "cb", "cr"), stats, diff_want):
+        for key, w in want.items():
+            g = got[key].cpu().numpy()
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"rank {rank}: {name} {key} differs from one process")
+
+    # the exchanges alone, host copies included: the apply's (frame counts,
+    # then the int64 energy) and the diff's per-frame statistics of this
+    # rank's frames
+    energy_t = torch.zeros((), dtype=torch.int64, device=dev)
+    mine = [v[a:b] for st in stats for v in st.values()]
+    exchange = {}
+    for what, fn in (("apply", lambda: (global_batch(b - a), all_sum(energy_t))),
+                     ("diff", lambda: gather_frames(mine))):
+        fn()
+        sync_global_devices(f"{what} exchange timed")
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        exchange[what] = (time.perf_counter() - t0) / 50 * 1e3
+    exchange["diff_bytes"] = sum(v.numel() * v.element_size() for v in mine)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump({"rank": rank, "frames": [a, b], "launches": launches, "fps": fps,
+                   "energy": energy, "exchange": exchange}, fh)
+    sync_global_devices("done")
+    shutdown()
+
+
+def run_ranks(work, rank_args):
+    """Run ``distributed_rank`` once for each argument tuple, each in a
+    spawned process; wait for all with a timeout, and stop the others as
+    soon as one fails. Returns each rank's result and the seconds taken;
+    raises, with the failed ranks' log tails, if a rank failed or hung."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=distributed_rank, args=args) for args in rank_args]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + RANK_WAIT
+    pending = list(procs)
+    while pending and time.perf_counter() < deadline:
+        multiprocessing.connection.wait([p.sentinel for p in pending],
+                                        timeout=max(0.0, deadline - time.perf_counter()))
+        for p in [p for p in pending if p.exitcode is not None]:
+            pending.remove(p)
+            if p.exitcode != 0:
+                deadline = 0.0  # one rank failed: stop the others
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    elapsed = time.perf_counter() - t0
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    for r in failed:
+        path = os.path.join(work, f"rank{r}.log")
+        tail = "(no log)"
+        if os.path.exists(path):
+            with open(path, errors="replace") as fh:
+                tail = "".join(fh.readlines()[-30:])
+        log(f"[distributed] rank {r} exit code {procs[r].exitcode}"
+            f"{' (killed: hung or stopped)' if r in hung else ''}; its log's tail:\n{tail}")
+    if failed:
+        raise AssertionError(f"phase 11: ranks {failed} failed after {elapsed:.1f} s")
+    results = []
+    for r in range(len(procs)):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            results.append(json.load(fh))
+    return results, elapsed
+
+
+def distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy, two_shard_fps):
+    """Phase 11: two processes sharing the card; returns each kernel's
+    launches in each rank."""
+    from grav1synth_tpu_torch import _build
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+
+    world, B = 2, 16
+    want = dev_outs[16]
+    digests = [[frame_digest(t[i]) for i in range(B)] for t in want]
+    d = want[0].to(torch.int64) - apply4["frames"][16][0].to(torch.int64)
+    recount = int((d * d).sum())
+    batch = [p[:B] for pair in zip(grainy, clean) for p in pair]  # sy, dy, sc, dc, sr, dr
+    stats = de.batch_pair_stats_per_frame(
+        *(torch.from_numpy(p).to(dev) for p in batch), lag=2, bit_depth=10, sub_x=1, sub_y=1,
+        has_chroma=True,
+    )
+    diff_want = [{k: v.cpu().numpy() for k, v in s.items()} for s in stats]
+    port = free_port()
+    os.makedirs(_build.build_dir(), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as work:
+        results, elapsed = run_ranks(work, [
+            (rank, world, port, work, eff, digests, recount,
+             [p[rank * B // world:(rank + 1) * B // world] for p in batch], diff_want)
+            for rank in range(world)
+        ])
+    for res in results:
+        log(f"[distributed] rank {res['rank']} of {world} (gloo, local mesh cuda:0): frames "
+            f"{res['frames'][0]}-{res['frames'][1] - 1} of 4K10 4:2:0 B={B} equal by sha256 "
+            f"to the unsharded output, frames 16, energy {res['energy']:.6g} (int64 recount "
+            f"{recount}); per-frame diff statistics of all {B} frames equal to one process's; "
+            f"launches {res['launches']}; exchange alone (host copies and gloo) "
+            f"{res['exchange']['apply']:.3f} ms for the apply's frame counts and energy, "
+            f"{res['exchange']['diff']:.3f} ms for the diff's per-frame statistics "
+            f"({res['exchange']['diff_bytes']} bytes a rank), on {card}")
+    fps = results[0]["fps"]
+    log(f"[distributed] sharded_apply_with_stats over 2 processes sharing one card, 4K10 "
+        f"4:2:0 B=16 (8 frames a rank, patterns made on the card): {fps:.1f} frames/s on the "
+        f"host clock; phase 10's two shards in one process: {two_shard_fps:.1f} frames/s; two "
+        f"ranks on one card take turns on its SMs, so this is no scaling figure; phase "
+        f"{elapsed:.1f} s with start-up, on {card}")
+    return {k: [res["launches"][k] for res in results] for k in DIST_KERNELS}
 
 
 def main() -> int:
@@ -1584,7 +1809,9 @@ def main() -> int:
     launches.update(phase_launches)
     times.update(phase_times)
     errs.update(phase_errs)
-    sharded_phase(card, dev, apply4, dev_outs, clean, grainy)
+    two_shard_fps = sharded_phase(card, dev, apply4, dev_outs, clean, grainy)
+    rank_launches = distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy,
+                                      two_shard_fps)
 
     summary = {
         "kernels": [
@@ -1605,6 +1832,8 @@ def main() -> int:
                 # the pattern kernel's chain bound, and a kernel's times at
                 # its other sizes and lags
                 **{x: times[k][x] for x in EXTRA_KEYS if x in times[k]},
+                # phase 11: this kernel's launches in each rank
+                **({"rank_launches": rank_launches[k]} if k in rank_launches else {}),
             }
             for k in KERNELS
         ]

@@ -14,7 +14,8 @@ per plane and one download of all of a batch's statistics, and chunks
 frames into grain-table segments exactly as the JAX package's does.
 ``mesh_pair_stats_per_frame``, ``sharded_diff_stats`` and
 ``DiffEstimator.diff_batch(mesh=...)`` shard the frames over a
-``parallel.DeviceMesh``.
+``parallel.DeviceMesh``; the first two also over the processes of a
+``parallel.distributed.ProcessMesh``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ import numpy as np
 import torch
 
 from ..obu.types import FilmGrainParams, GrainTableSegment
+from ..parallel.distributed import (
+    ProcessMesh, all_sum, gather_frames, global_batch, split_mesh,
+)
 from ..parallel.mesh import shard_slices
 from ..tables.aggregate import packet_bounds
 from . import grain_ref
@@ -155,10 +159,22 @@ def mesh_pair_stats_per_frame(
     """``batch_pair_stats_per_frame`` with the frames sharded over a device
     mesh (diff_estimate.mesh_pair_stats_per_frame): each device reduces its
     shard, and the per-frame statistics are concatenated on ``mesh[0]``.
-    The batch must divide evenly over the mesh."""
+    The batch must divide evenly over the mesh. With a ``ProcessMesh`` the
+    planes are this rank's frames, and every rank gets the whole batch's
+    per-frame statistics in frame order, on its first local device (what
+    ``process_allgather`` of the JAX function's outputs gives)."""
+    devices, pm = split_mesh(mesh)
     planes = [sy, dy] + ([sc, dc, sr, dr] if has_chroma else [])
-    outs = _shard_stats(_split(mesh, planes), lag, bit_depth, sub_x, sub_y, has_chroma)
-    return _concat_on(mesh[0], outs)
+    outs = _shard_stats(_split(devices, planes), lag, bit_depth, sub_x, sub_y, has_chroma)
+    stats = _concat_on(devices[0], outs)
+    if pm is None:
+        return stats
+    dicts = [d for d in stats if d is not None]
+    keys = [(i, key) for i, d in enumerate(dicts) for key in d]
+    full = gather_frames([dicts[i][key] for i, key in keys])
+    for (i, key), t in zip(keys, full):
+        dicts[i][key] = t.to(devices[0])
+    return stats
 
 
 def sharded_diff_stats(mesh, src_planes, den_planes, lag: int, bit_depth: int):
@@ -166,7 +182,10 @@ def sharded_diff_stats(mesh, src_planes, den_planes, lag: int, bit_depth: int):
     each device sums its shard's statistics, and the per-shard sums are
     added on the host in float64. Every sum is exact (integer products, the
     chroma aux column in quarters), so the result equals the unsharded
-    one. Returns (y, cb|None, cr|None) dicts of numpy float64 arrays."""
+    one. Returns (y, cb|None, cr|None) dicts of numpy float64 arrays. With
+    a ``ProcessMesh`` the planes are this rank's frames, and the sums are
+    every rank's, the same on every rank."""
+    devices, pm = split_mesh(mesh)
     has_chroma = len(src_planes) >= 3 and len(den_planes) >= 3
     sub_x = sub_y = 0
     if has_chroma:
@@ -175,8 +194,8 @@ def sharded_diff_stats(mesh, src_planes, den_planes, lag: int, bit_depth: int):
     planes = [src_planes[0], den_planes[0]]
     if has_chroma:
         planes += [src_planes[1], den_planes[1], src_planes[2], den_planes[2]]
-    outs = _shard_stats(_split(mesh, planes), lag, bit_depth, sub_x, sub_y, has_chroma)
-    return tuple(
+    outs = _shard_stats(_split(devices, planes), lag, bit_depth, sub_x, sub_y, has_chroma)
+    sums = tuple(
         None if outs[0][k] is None
         else {
             key: np.asarray(sum(o[k][key].sum(0).cpu().numpy() for o in outs))
@@ -184,6 +203,14 @@ def sharded_diff_stats(mesh, src_planes, den_planes, lag: int, bit_depth: int):
         }
         for k in range(3)
     )
+    if pm is None:
+        return sums
+    global_batch(np.shape(src_planes[0])[0])
+    keys = [(d, key) for d in sums if d is not None for key in d]
+    flat = all_sum(torch.from_numpy(np.concatenate([d[key].ravel() for d, key in keys])))
+    for (d, key), part in zip(keys, torch.split(flat, [d[key].size for d, key in keys])):
+        d[key] = part.numpy().reshape(d[key].shape)
+    return sums
 
 
 # ---------------------------------------------------------------------------
@@ -631,6 +658,8 @@ class DiffEstimator:
             sub_y = 1 if hc < h else 0
             sub_x = 1 if wc < w else 0
         b = len(src_frames)
+        if isinstance(mesh, ProcessMesh):
+            raise TypeError("diff_batch is single-process: pass a DeviceMesh")
         mesh = (self.device,) if mesh is None else mesh
         pad = (-b) % len(mesh)
         src_frames = list(src_frames) + [src_frames[-1]] * pad

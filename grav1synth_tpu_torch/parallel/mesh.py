@@ -8,13 +8,17 @@ so it shards the same way), and only scalar statistics cross devices: the
 noise energy and the frame count are summed on the mesh's first device,
 where the JAX package psums them. One host thread issues every shard's
 work, each on its own device's current stream, so the devices run at the
-same time; the mesh is single-process and uses no ``torch.distributed``.
-Multi-process sharding of the host subcommands stays the JAX package's
-``parallel.host_shard``.
+same time.
 
 A mesh may name one device more than once: the CPU in the tests (the
 counterpart of the JAX tests' 8 virtual CPU devices), one card in
 ``chip_smoke.py``. Its shards then run one after another on that device.
+
+Across processes, the same entry points take a ``distributed.ProcessMesh``
+in the mesh's place, with this rank's frames: each rank runs the path
+above over its local devices, and the statistics are added over the
+process group. Multi-process sharding of the host subcommands is
+``parallel.host_shard``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..obu.types import FilmGrainParams
 from ..ops.grain import GrainParamsBatch, apply_grain
+from .distributed import all_sum, global_batch, split_mesh
 
 
 class DeviceMesh(tuple):
@@ -102,7 +107,7 @@ def _shard_params(p: GrainParamsBatch, sl: slice, device: torch.device) -> Grain
 
 
 def sharded_apply_with_stats(
-    mesh: Sequence[torch.device],
+    mesh,
     y: torch.Tensor,
     cb: Optional[torch.Tensor],
     cr: Optional[torch.Tensor],
@@ -118,10 +123,15 @@ def sharded_apply_with_stats(
     every frame, an exact int64 sum per shard, summed on ``mesh[0]`` and
     returned as a float64 scalar; ``frame_count`` an int64 scalar there.
     Patterns are made on each shard's device (``apply_grain`` without
-    host patterns). The batch must divide evenly over the mesh."""
-    home = mesh[0]
+    host patterns). The batch must divide evenly over the mesh.
+
+    With a ``ProcessMesh``, the planes and ``p`` are this rank's frames
+    and the planes come back on its first local device; ``noise_energy``
+    and ``frame_count`` are every rank's, the same on every rank."""
+    devices, pm = split_mesh(mesh)
+    home = devices[0]
     outs, energies = [], []
-    for dev, sl in zip(mesh, shard_slices(y.shape[0], len(mesh))):
+    for dev, sl in zip(devices, shard_slices(y.shape[0], len(devices))):
         ys = _to(y[sl], dev)
         planes = apply_grain(
             ys,
@@ -138,9 +148,13 @@ def sharded_apply_with_stats(
             return None
         return torch.cat([o[k].to(home) for o in outs])
 
-    energy = torch.stack([e.to(home) for e in energies]).sum().to(torch.float64)
-    frames = torch.tensor(y.shape[0], dtype=torch.int64, device=home)
-    return gather(0), gather(1), gather(2), energy, frames
+    energy = torch.stack([e.to(home) for e in energies]).sum()
+    n_frames = y.shape[0]
+    if pm is not None:
+        n_frames = global_batch(n_frames)
+        energy = all_sum(energy).to(home)
+    frames = torch.tensor(n_frames, dtype=torch.int64, device=home)
+    return gather(0), gather(1), gather(2), energy.to(torch.float64), frames
 
 
 def sharded_apply(mesh, y, cb, cr, p, bit_depth, **kw):
