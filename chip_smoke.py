@@ -18,10 +18,12 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 4. the main path at full size: the frame parameters of
    .bench_cache/bench_4k10_grainy.ivf (3840x2160, 10-bit, 4:2:0), parsed
    on the host and reseeded to batches of 16 and 112, applied through
-   ``ops.grain.apply_grain`` on the card (3-plane and luma-only tables),
-   first frames checked against grain_ref, the kernels' launch counters
-   read; then kernel times (CUDA events) beside the plain versions', and
-   apply frames/s with the pattern upload included;
+   ``ops.grain.apply_grain`` on the card (3-plane and luma-only tables;
+   each batch one parameter program, captured here and replayed, then the
+   grain kernels), first frames checked against grain_ref, the kernels'
+   launches and the programs' replays counted, one a batch; then kernel
+   times (CUDA events) beside the plain versions', and apply frames/s with
+   the pattern upload included;
 5. the two diff kernels against their plain versions on the card, equal
    to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
    small odd and even sizes (a plane under 16 px included) and at
@@ -71,7 +73,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    made on the card: ``apply_grain`` with no host patterns at 3840x2160
    10-bit 4:2:0, B = 16 and 112, 3-plane and luma-only, equal on every
    frame to phase 4's host-pattern output and on frame 0 to grain_ref,
-   with the pattern, luma and chroma-pair kernels' launches counted; then
+   with the pattern (inside the replayed program), luma and chroma-pair
+   kernels' launches counted, one a batch once the programs are captured; then
    the pattern kernel's time (CUDA events) at lag 2 and lag 3 beside its
    plain version's, its chain bound and grain_ref's host ms/frame, and
    apply+generate frames/s;
@@ -89,7 +92,7 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    ``sharded_apply_with_stats`` over the ``ProcessMesh`` (patterns made on
    the card): every frame equal by sha256 to phase 10's unsharded output,
    frames 16 and energy equal to the int64 recount on both ranks, the
-   pattern, luma and chroma-pair kernels launched in each rank; then
+   pattern, luma and chroma-pair kernels launched once in each rank; then
    ``mesh_pair_stats_per_frame`` over the two ranks on phase 6's first
    batch of 16 (lag 2): the whole batch's per-frame statistics on each
    rank equal to the single-process ones to the last bit, both diff
@@ -97,12 +100,25 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    frames/s (host clock) is printed beside phase 10's two-shard number,
    with each exchange alone (host copies and gloo); two ranks on one card
    take turns on its SMs, so it is no scaling figure. A rank that fails or hangs (waited for with a timeout, then
-   killed) fails the script, its log's tail printed.
+   killed) fails the script, its log's tail printed;
+12. the parameter program (``ops.program``): at 3840x2160 10-bit 4:2:0,
+   B = 16 and 112, 3-plane and luma-only, with host patterns, patterns
+   made on the card, and patterns made on the card with the host's facts
+   (segment bound, chroma kernel off for luma-only tables): every frame of
+   the graph path equal to the program's eager body on the card followed
+   by the same kernels, frame 0 to grain_ref; captures, replays and the
+   pattern, luma and chroma-pair kernels' launches counted exactly; each
+   program's graph nodes (read through libcuda), capture ms and device
+   time a replay; the host ms of ``pack_params`` and of the host
+   patterns' ``prepare_patterns``; per batch the host issue ms, device busy
+   ms and idle share (torch.profiler) of both paths, and both paths'
+   frames/s in turns (eager, graph, graph, eager).
 
 Phases 1-8 take grain patterns from ``grain_ref`` on the host (the native
 libav*/dav1d shim, and with it ``generate_patterns_native`` and the
 render pipeline's decoder, is not built on hosts without those
-libraries); phases 9-11 make them on the card.
+libraries); phases 9-11 make them on the card, phase 12 both. Every apply
+runs through the batch's parameter program (one graph replay on the card).
 
 Every ``[time]`` line gives the kernel's time beside its plain version's
 and its bound: the larger of the bytes it must move (inputs read once,
@@ -319,6 +335,76 @@ def pattern_work(params, packed, rows, sub_x: int, sub_y: int):
                 ops += GAUSS_OPS * ch * cw + (ch - 3) * (cw - 6) * (
                     2 * (taps + has_y) + AR_POS_OPS)
     return nbytes(rows, packed) + 2048 * 2, ops
+
+
+def device_busy(prof) -> float:
+    """ms of the union of the device intervals (kernels and copies) that
+    ``prof`` recorded."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def profile_batches(fn, reps: int) -> dict:
+    """Per call of ``fn`` (one batch), after one warm-up call: the host
+    issue ms (host clock around each call, no synchronise between calls),
+    then under torch.profiler the wall ms of ``reps`` calls that end in a
+    synchronise, the device busy ms (``device_busy``) and the idle share."""
+    fn()
+    torch.cuda.synchronize()
+    issue = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        issue += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy = device_busy(prof) / reps
+    return {"issue_ms": issue * 1e3 / reps, "wall_ms": wall, "busy_ms": busy,
+            "idle": 1 - busy / wall}
+
+
+# CUgraphNodeType values the parameter program's graph holds
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_nodes(graph) -> dict:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` (made with
+    ``keep_graph=True``), by type, read through libcuda
+    (cuGraphGetNodes, cuGraphNodeGetType)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUresult {err}")
+
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out = {"nodes": n.value}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)), "cuGraphNodeGetType")
+        kind = GRAPH_NODE_TYPES.get(t.value, f"type {t.value}")
+        out[kind] = out.get(kind, 0) + 1
+    return out
 
 
 def card_identity() -> str:
@@ -1249,6 +1335,7 @@ def pattern_phase(card, eff, dev, apply4):
     the summary, and the device-pattern outputs of the main path."""
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.ops import program as pg
 
     BD, SX, SY = 10, 1, 1
     err = 0
@@ -1301,14 +1388,19 @@ def pattern_phase(card, eff, dev, apply4):
         pb = pbl if key == "luma16" else tg.pack_params(batches[b], dev)
         return tg.apply_grain(*frames[b], pb, BD, SX, SY)
 
+    # capture the programs first (a capture's eager warm-up launches the
+    # pattern kernel once), then count one batch each
+    for b, key in ((16, 16), (112, 112)):
+        run(b, key)
     torch.cuda.synchronize()
     gk.reset_launch_counts()
+    pg.reset_counts()
     dev_outs = {key: run(b, key) for b, key in ((16, 16), (112, 112), (16, "luma16"))}
     torch.cuda.synchronize()
     launches = {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")}
-    log(f"[pattern main path] launches {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the device-pattern path never launched: {launches}")
+    log(f"[pattern main path] launches {launches}, parameter programs {pg.COUNTS}")
+    if set(launches.values()) != {3} or pg.COUNTS != {"captures": 0, "replays": 3}:
+        raise AssertionError(f"device-pattern path: launches {launches}, programs {pg.COUNTS}")
     for key, got in dev_outs.items():
         for k, (g, w) in enumerate(zip(got, outs[key])):
             if not torch.equal(g, w):
@@ -1379,6 +1471,7 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.ops import program as pg
     from grav1synth_tpu_torch.parallel import DeviceMesh, make_mesh, sharded_apply_with_stats
 
     BD = 10
@@ -1389,13 +1482,17 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
     recount = float((d * d).sum())
     fps = {}
     for name, mesh in (("make_mesh()", make_mesh()), ("two shards on one card", DeviceMesh([dev, dev]))):
+        sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)  # captures the shards' programs
         torch.cuda.synchronize()
         gk.reset_launch_counts()
+        pg.reset_counts()
         out = sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)
         torch.cuda.synchronize()
         launches = {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")}
-        if min(launches.values()) < len(mesh):
-            raise AssertionError(f"sharded apply over {name}: launches {launches}")
+        if set(launches.values()) != {len(mesh)} or pg.COUNTS != {"captures": 0,
+                                                                  "replays": len(mesh)}:
+            raise AssertionError(f"sharded apply over {name}: launches {launches}, "
+                                 f"programs {pg.COUNTS}")
         for k in range(3):
             if not torch.equal(out[k], want[k]):
                 raise AssertionError(f"sharded apply over {name}: plane {k} differs from unsharded")
@@ -1454,6 +1551,7 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     from grav1synth_tpu_torch.ops import diff_kernels as dk
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.ops import program as pg
     from grav1synth_tpu_torch.parallel import (
         DeviceMesh, initialize, process_allgather, sharded_apply_with_stats, shutdown,
         sync_global_devices,
@@ -1469,14 +1567,17 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     y, cb, cr = (torch.from_numpy(p[a:b]).to(dev) for p in host16)
     pb = tg.pack_params(reseeded(eff, B)[a:b], dev)
 
-    # the sharded apply, patterns made on the card
+    # the sharded apply, patterns made on the card (its program captured
+    # first)
+    sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
     torch.cuda.synchronize()
     gk.reset_launch_counts()
+    pg.reset_counts()
     out = sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
     torch.cuda.synchronize()
     launches = {k: gk.LAUNCHES[k] for k in DIST_KERNELS[:3]}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"rank {rank}: a kernel of the sharded apply never launched: {launches}")
+    if set(launches.values()) != {1} or pg.COUNTS != {"captures": 0, "replays": 1}:
+        raise AssertionError(f"rank {rank}: sharded apply launches {launches}, programs {pg.COUNTS}")
     for k in range(3):
         for i in range(b - a):
             if frame_digest(out[k][i]) != digests[k][a + i]:
@@ -1620,6 +1721,194 @@ def distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy, two_shard
     return {k: [res["launches"][k] for res in results] for k in DIST_KERNELS}
 
 
+def program_cells(apply4, lum112):
+    """Phase 12's cells: (B, kind, source, params, facts) at 4K10 4:2:0 for
+    B = 16 and 112, 3-plane and luma-only; patterns from the host (the
+    dispatch facts from host params), made on the card with the JAX
+    package's defaults (every curve segment, the chroma kernel on), and
+    made on the card with the host's facts."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    cells = []
+    for b in (16, 112):
+        for kind, params in (("3-plane", apply4["batches"][b]),
+                             ("luma-only", apply4["lum16"] if b == 16 else lum112)):
+            facts = tg._host_metadata(params, False)
+            cells += [(b, kind, "host patterns", params, facts),
+                      (b, kind, "card patterns", params, None),
+                      (b, kind, "card patterns, host facts", params, facts)]
+    return cells
+
+
+def program_paths(cell, frames, pats, dev):
+    """(graph, eager, key) of a phase-12 cell: the apply through its
+    parameter program (one upload, one graph replay, the grain kernels),
+    and the same with the program's eager body in the replay's place; both
+    pack the parameters and upload host patterns in the call."""
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import program as pg
+
+    BD, SX, SY = 10, 1, 1
+    b, _, source, params, facts = cell
+    y, cb, cr = frames
+    if source == "host patterns":
+        def prep():
+            return tg.prepare_patterns(params, BD, SX, SY, device=dev, generate=lambda *a: pats)
+
+        key = pg.ProgramKey.of(y, BD, SX, SY, False, *facts, "host")
+
+        def graph():
+            return tg.apply_grain(y, cb, cr, tg.pack_params(params, dev), BD, SX, SY,
+                                  prepared=prep())
+
+        def eager():
+            prepared = prep()
+            tables = pg.program_body(tg.pack_params(params, dev).as_buffer(), key)
+            return tg.apply_with_tables(y, cb, cr, tables, prepared.planes(), BD, SX, SY)
+
+        return graph, eager, key
+    n_seg, chroma_static = facts or (tg.MAX_Y_POINTS - 1, True)
+    key = pg.ProgramKey.of(y, BD, SX, SY, False, n_seg, chroma_static, "device")
+
+    def graph():
+        pb = tg.pack_params(params, dev)
+        if facts is None:
+            return tg.apply_grain(y, cb, cr, pb, BD, SX, SY)
+        return tg.apply_grain_device_patterns(y, cb, cr, pb, BD, SX, SY, n_seg=n_seg,
+                                              chroma_static=chroma_static)
+
+    def eager():
+        tables = pg.program_body(tg.pack_params(params, dev).as_buffer(), key)
+        planes = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(SX, SY))
+        return tg.apply_with_tables(y, cb, cr, tables, planes, BD, SX, SY)
+
+    return graph, eager, key
+
+
+def program_phase(card, dev, apply4):
+    """Phase 12: the apply path's parameter program (``ops.program``) at
+    4K10 4:2:0, B = 16 and 112, 3-plane and luma-only, host and card
+    patterns, with and without the host's facts. Every frame of the graph
+    path equal to the eager body on the card followed by the same kernels,
+    frame 0 to grain_ref; captures, replays and launches counted exactly;
+    each program's graph nodes, capture ms and device time per replay;
+    the host ms of the parameter pack and the host-pattern upload; per
+    batch the host issue ms, device busy ms and idle share of both paths;
+    frames/s of both in turns (eager, graph, graph, eager)."""
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.ops import grain_ref
+    from grav1synth_tpu_torch.ops import program as pg
+
+    BD, SX, SY = 10, 1, 1
+    host16, frames = apply4["host16"], apply4["frames"]
+    lum112 = luma_only(apply4["batches"][112])
+    lum_pats = {16: apply4["pats"]["luma16"], 112: tg.generate_patterns_ref(lum112, BD, SX, SY)}
+    refs = {}
+    for kind, p0 in (("3-plane", apply4["batches"][16][0]), ("luma-only", apply4["lum16"][0])):
+        refs[kind] = grain_ref.apply_grain_frame(
+            [host16[k][0].astype(np.int32) for k in range(3)], p0, BD, SX, SY)
+    kernels = ("grain_pattern", "grain_luma", "grain_chroma_pair")
+    pg.clear_programs()
+    for b in (16, 112):
+        cells = [c for c in program_cells(apply4, lum112) if c[0] == b]
+        paths = [program_paths(c, frames[b], apply4["pats"][b] if c[1] == "3-plane"
+                               else lum_pats[b], dev) for c in cells]
+        # first pass: the graph path (capturing each key's program) against
+        # the eager body with the same kernels, frame 0 against grain_ref
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        pg.reset_counts()
+        for (_, kind, source, _, _), (graph, eager, _) in zip(cells, paths):
+            got, want = graph(), eager()
+            for k in range(3):
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"B={b} {kind} {source}: plane {k} of the graph path "
+                                         "differs from the eager body's")
+                if not np.array_equal(got[k][0].cpu().numpy().astype(np.int64),
+                                      refs[kind][k].astype(np.int64)):
+                    raise AssertionError(f"B={b} {kind} {source}: frame 0 plane {k} differs "
+                                         "from grain_ref")
+        torch.cuda.synchronize()
+        keys = list(dict.fromkeys(key for _, _, key in paths))
+        first = {**pg.COUNTS, **{k: gk.LAUNCHES[k] for k in kernels}}
+        if first["captures"] != len(keys) or first["replays"] != len(cells):
+            raise AssertionError(f"B={b} first pass: {first}, {len(keys)} keys, {len(cells)} cells")
+        # second pass, every program captured: one replay a batch, and the
+        # pattern, luma and chroma-pair kernels once a batch where they run
+        want_counts = {
+            "captures": 0, "replays": len(cells),
+            "grain_pattern": sum(c[2] != "host patterns" for c in cells),
+            "grain_luma": len(cells),
+            "grain_chroma_pair": sum(c[1] == "3-plane" or c[2] == "card patterns" for c in cells),
+        }
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        pg.reset_counts()
+        for graph, _, _ in paths:
+            graph()
+        torch.cuda.synchronize()
+        counts = {**pg.COUNTS, **{k: gk.LAUNCHES[k] for k in kernels}}
+        if counts != want_counts:
+            raise AssertionError(f"B={b} second pass: counts {counts}, expected {want_counts}")
+        log(f"[program] 4K10 4:2:0 B={b}, {len(cells)} cells (3-plane and luma-only; host "
+            f"patterns, card patterns, card patterns with the host's facts): every frame of the "
+            f"graph path equal to the eager body's, frame 0 to grain_ref; first pass "
+            f"{first}, {len(keys)} programs; then one batch a cell: {counts}")
+        # each program alone: graph nodes, capture ms, device ms per replay
+        for (_, kind, source, params, _), (_, _, key) in zip(cells, paths):
+            if key not in keys:
+                continue
+            keys.remove(key)
+            prog = pg.program_for(key)
+            pb = tg.pack_params(params, dev)
+            replay_ms = cuda_ms(lambda: prog.run(pb), 50)
+            alone = profile_batches(lambda: prog.run(pb), 20)
+            log(f"[program] B={b} n_seg {key.n_seg}, chroma {'on' if key.chroma_static else 'off'},"
+                f" patterns {key.patterns} ({kind}, {source}): graph {graph_nodes(prog.graph)}, "
+                f"kernels recorded {prog.kernels}; capture (with the eager warm-up) "
+                f"{prog.capture_ms:.1f} ms; replay {replay_ms:.4f} ms back to back (CUDA events), "
+                f"device busy {alone['busy_ms']:.4f} ms a replay (torch.profiler) on {card}")
+        # the host's two pieces of a batch left outside the program
+        params = apply4["batches"][b]
+        host_ms = {}
+        for what, fn in (
+            ("pack_params", lambda: tg.pack_params(params, dev)),
+            ("prepare_patterns", lambda: tg.prepare_patterns(
+                params, BD, SX, SY, device=dev, generate=lambda *a: apply4["pats"][b])),
+        ):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host_ms[what] = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+        log(f"[program] 4K10 4:2:0 3-plane B={b}, host clock a batch (no synchronise): "
+            f"pack_params {host_ms['pack_params']:.3f} ms, prepare_patterns (the host "
+            f"patterns' pack, pinned copy and upload) {host_ms['prepare_patterns']:.3f} ms "
+            f"on {card}")
+        # both paths per batch, in turns
+        reps = 10 if b == 16 else 3
+        for (_, kind, source, _, facts), (graph, eager, key) in zip(cells, paths):
+            fps = {"eager": [], "graph": []}
+            for which in ("eager", "graph", "graph", "eager"):
+                fps[which].append(frames_per_s(eager if which == "eager" else graph, b, reps))
+            prof = {"graph": profile_batches(graph, reps), "eager": profile_batches(eager, reps)}
+            log(f"[program] 4K10 4:2:0 {kind} B={b}, {source} (n_seg {key.n_seg}, chroma "
+                f"{'on' if key.chroma_static else 'off'}): graph "
+                f"{fps['graph'][0]:.1f} / {fps['graph'][1]:.1f} frames/s, eager body "
+                f"{fps['eager'][0]:.1f} / {fps['eager'][1]:.1f} (turns eager, graph, graph, "
+                f"eager); per batch, graph: host issue {prof['graph']['issue_ms']:.3f} ms, "
+                f"profiled wall {prof['graph']['wall_ms']:.3f} ms, device busy "
+                f"{prof['graph']['busy_ms']:.3f} ms, idle {prof['graph']['idle']:.3f}; eager: "
+                f"host issue {prof['eager']['issue_ms']:.3f} ms, wall "
+                f"{prof['eager']['wall_ms']:.3f} ms, busy {prof['eager']['busy_ms']:.3f} ms, "
+                f"idle {prof['eager']['idle']:.3f}; on {card}")
+        del paths
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # 1. card identity
     if not torch.cuda.is_available():
@@ -1628,6 +1917,7 @@ def main() -> int:
     from grav1synth_tpu_torch import _build
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
+    from grav1synth_tpu_torch.ops import program as pg
 
     card = card_identity()
     log(card)
@@ -1720,14 +2010,17 @@ def main() -> int:
 
     torch.cuda.synchronize()
     gk.reset_launch_counts()
+    pg.reset_counts()
     out16 = run(16, batches[16], 16)
     out112 = run(112, batches[112], 112)
     outl = run(16, lum16, "luma16")
     torch.cuda.synchronize()
     launches = {k: gk.LAUNCHES[k] for k in ("grain_luma", "grain_chroma_pair")}
-    log(f"[main path] launches {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    log(f"[main path] launches {launches}, parameter programs {pg.COUNTS}")
+    # one program replay and one luma kernel a batch, the chroma-pair
+    # kernel but for the luma-only batch (each program captured here)
+    if launches != {"grain_luma": 3, "grain_chroma_pair": 2} or pg.COUNTS["replays"] != 3:
+        raise AssertionError(f"main path: launches {launches}, programs {pg.COUNTS}")
     for o, b in ((out16, 16), (out112, 112)):
         for k, t in enumerate(o):
             if tuple(t.shape) != tuple(frames[b][k].shape) or t.dtype != torch.int16:
@@ -1812,6 +2105,7 @@ def main() -> int:
     two_shard_fps = sharded_phase(card, dev, apply4, dev_outs, clean, grainy)
     rank_launches = distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy,
                                       two_shard_fps)
+    program_phase(card, dev, apply4)
 
     summary = {
         "kernels": [

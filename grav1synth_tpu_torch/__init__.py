@@ -5,9 +5,13 @@ This package sits beside the JAX package ``grav1synth_tpu``, which stays
 the reference it is held against, and imports nothing of it. The device
 half:
 
-- ``ops.grain``          -- parameter batches, block-offset randoms,
-                            pattern upload, the ``apply_grain`` dispatch
-                            and its plain PyTorch reference
+- ``ops.grain``          -- parameter batches (one buffer each),
+                            block-offset randoms, pattern upload, the
+                            ``apply_grain`` dispatch and its plain
+                            PyTorch reference
+- ``ops.program``        -- each apply batch's parameter program: a
+                            captured CUDA graph on the card, eager on the
+                            CPU (the counterpart of ``jax.jit``)
 - ``ops.grain_kernels``  -- the grain and pattern kernel wrappers, each
                             beside its plain PyTorch version
 - ``ops.diff_kernels``   -- the flat-block activity and lag-window

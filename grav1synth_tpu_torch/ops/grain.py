@@ -1,15 +1,23 @@
 """AV1 film grain application in PyTorch (counterpart of
 grav1synth_tpu/ops/grain_jax.py).
 
-Grain patterns come either from the host (the native C++ recurrence, or
-``grain_ref`` where the native shim is missing), uploaded as one packed
-int16 buffer per batch, or from the device: the pattern kernel of
-``grain_kernels`` writes the same packed buffer from the parameter batch
-(``prepare_patterns_device``; ``generate_patterns`` is its plain
-version). The per-pixel work runs in the two CUDA kernels of
-``grain_kernels`` (luma, then Cb+Cr in one pass). Everything here is
-integer arithmetic and bit-exact against ``grain_ref`` (itself validated
-against dav1d).
+A batch's parameters travel as one (B, ``PARAMS_WIDTH``) int32 buffer
+(``GrainParamsBatch``: every field is a view of it), built in numpy and
+uploaded in one pinned, non-blocking copy. Grain patterns come either from
+the host (the native C++ recurrence, or ``grain_ref`` where the native
+shim is missing), uploaded as one packed int16 buffer per batch, or from
+the device: the pattern kernel of ``grain_kernels`` writes the same packed
+buffer from the parameter batch (``prepare_patterns_device``;
+``generate_patterns`` is its plain version).
+
+``apply_grain`` runs each batch as one parameter program
+(``ops.program``, the counterpart of the JAX package's ``jax.jit``
+boundary): the per-plane parameter tables, the block offsets and, with
+patterns made on the device, the pattern kernel, replayed as one CUDA
+graph on the card and run eagerly on the CPU. The per-pixel work then
+runs in the two CUDA kernels of ``grain_kernels`` (luma, then Cb+Cr in
+one pass). Everything here is integer arithmetic and bit-exact against
+``grain_ref`` (itself validated against dav1d).
 
 ``apply_grain_reference`` is the plain PyTorch version of the whole
 apply, written from the same pieces as the JAX package's XLA
@@ -19,8 +27,8 @@ formulation: ``_noise_plane``, ``scaling_lookup``, ``_avg_luma``.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass, fields
-from typing import Callable, List, Optional, Tuple
+from dataclasses import InitVar, dataclass, fields
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,11 +67,17 @@ def _lag_offsets(lag: int) -> List[Tuple[int, int]]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _lag3_slots(lag: int) -> np.ndarray:
+    """The lag-3 slot of each lag-N coefficient, in scan order."""
+    return np.asarray([_LAG3_SLOT[off] for off in _lag_offsets(lag)], dtype=np.int64)
+
+
 def scatter_coeffs_to_lag3(coeffs: List[int], lag: int) -> np.ndarray:
     """Place a lag-N coefficient list into the 24 lag-3 slots."""
     out = np.zeros(24, dtype=np.int32)
-    for c, off in zip(coeffs, _lag_offsets(lag)):
-        out[_LAG3_SLOT[off]] = c
+    slots = _lag3_slots(lag)[: len(coeffs)]
+    out[slots] = coeffs[: len(slots)]
     return out
 
 
@@ -73,7 +87,13 @@ def scatter_coeffs_to_lag3(coeffs: List[int], lag: int) -> np.ndarray:
 
 @dataclass
 class GrainParamsBatch:
-    """Per-frame grain parameters as stacked int32 tensors (leading B)."""
+    """Per-frame grain parameters as stacked int32 tensors (leading B).
+
+    A batch made by ``pack_params``, ``from_jax_params`` or
+    ``from_buffer`` holds one (B, ``PARAMS_WIDTH``) int32 ``buffer``, and
+    every field is a view of its columns (``PARAM_COLUMNS``), so the batch
+    uploads, slices and moves as one tensor. A batch built field by field
+    has no buffer; ``as_buffer`` then packs one."""
 
     seed: torch.Tensor  # (B,)
     num_y: torch.Tensor  # (B,)
@@ -97,6 +117,34 @@ class GrainParamsBatch:
     csfl: torch.Tensor  # (B,) 0/1
     overlap: torch.Tensor  # (B,) 0/1
     clip: torch.Tensor  # (B,) 0/1
+    buffer: InitVar[Optional[torch.Tensor]] = None
+
+    def __post_init__(self, buffer):
+        self.buffer = buffer
+
+    @classmethod
+    def from_buffer(cls, buf: torch.Tensor) -> "GrainParamsBatch":
+        """The batch whose fields are views of ``buf`` (B, PARAMS_WIDTH)."""
+        b = buf.shape[0]
+        views = {
+            name: buf[:, start] if not shape else buf[:, start : start + _numel(shape)].view(b, *shape)
+            for name, (start, shape) in PARAM_COLUMNS.items()
+        }
+        return cls(**views, buffer=buf)
+
+    def as_buffer(self) -> torch.Tensor:
+        """The (B, PARAMS_WIDTH) int32 buffer every field is a view of; for
+        a batch whose fields are not all views of its buffer (built field
+        by field, or a field replaced since), a new buffer of their values."""
+        buf = self.buffer
+        if buf is not None and all(
+            _is_column_view(getattr(self, name), buf, start, shape)
+            for name, (start, shape) in PARAM_COLUMNS.items()
+        ):
+            return buf
+        return torch.cat(
+            [getattr(self, name).reshape(self.batch, -1).to(torch.int32) for name in PARAM_COLUMNS], 1
+        )
 
     @property
     def batch(self) -> int:
@@ -107,33 +155,73 @@ class GrainParamsBatch:
         return self.seed.device
 
 
-def from_jax_params(batch, device) -> GrainParamsBatch:
-    """The JAX package's GrainParamsBatch (any object whose fields are
-    array-likes: numpy arrays or jax arrays) as the port's, on
-    ``device``. The tests feed one packed batch to both packages
-    through this."""
-    return GrainParamsBatch(
-        **{
-            f.name: torch.as_tensor(
-                np.array(getattr(batch, f.name), dtype=np.int32), device=device
-            )
-            for f in fields(GrainParamsBatch)
-        }
+# per-frame shape of each field that is not a scalar
+_FIELD_SHAPES = {
+    "pts_y": (MAX_Y_POINTS, 2), "pts_cb": (MAX_UV_POINTS, 2), "pts_cr": (MAX_UV_POINTS, 2),
+    "coeffs_y": (24,), "coeffs_cb": (25,), "coeffs_cr": (25,),
+}
+
+
+def _numel(shape: Tuple[int, ...]) -> int:
+    return int(np.prod(shape, dtype=np.int64))
+
+
+def _column_layout() -> Tuple[Dict[str, Tuple[int, Tuple[int, ...]]], int]:
+    out, start = {}, 0
+    for f in fields(GrainParamsBatch):
+        shape = _FIELD_SHAPES.get(f.name, ())
+        out[f.name] = (start, shape)
+        start += _numel(shape)
+    return out, start
+
+
+# field -> (first column, per-frame shape) in the parameter buffer, in the
+# fields' order; PARAMS_WIDTH columns in all
+PARAM_COLUMNS, PARAMS_WIDTH = _column_layout()
+
+
+def _is_column_view(t: torch.Tensor, buf: torch.Tensor, start: int, shape) -> bool:
+    return (
+        t.device == buf.device and t.dtype == buf.dtype
+        and tuple(t.shape) == (buf.shape[0], *shape)
+        and t.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
+        and t.storage_offset() == buf.storage_offset() + start
+        and t.stride(0) == buf.stride(0)
     )
 
 
+def _upload_params(values: Dict[str, np.ndarray], b: int, device) -> GrainParamsBatch:
+    """Field values (each (B, *shape)) written into one host buffer, then
+    one copy to ``device``: pinned and non-blocking on a CUDA device."""
+    host = np.zeros((b, PARAMS_WIDTH), dtype=np.int32)
+    for name, (start, shape) in PARAM_COLUMNS.items():
+        host[:, start : start + _numel(shape)] = np.asarray(values[name], dtype=np.int32).reshape(b, -1)
+    buf = torch.from_numpy(host)
+    device = torch.device(device)
+    if device.type == "cuda":
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    else:
+        buf = buf.to(device)
+    return GrainParamsBatch.from_buffer(buf)
+
+
+def from_jax_params(batch, device) -> GrainParamsBatch:
+    """The JAX package's GrainParamsBatch (any object whose fields are
+    array-likes: numpy arrays or jax arrays) as the port's, on
+    ``device``, in one buffer. The tests feed one packed batch to both
+    packages through this."""
+    values = {name: np.array(getattr(batch, name), dtype=np.int32) for name in PARAM_COLUMNS}
+    return _upload_params(values, len(values["seed"]), device)
+
+
 def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
-    """Stack host FilmGrainParams into a batch on ``device``."""
+    """Stack host FilmGrainParams into one parameter buffer on ``device``."""
     b = len(params)
 
     def pad_points(pts, n):
-        out = np.zeros((b, n, 2), dtype=np.int32)
-        for i, p in enumerate(pts):
-            if p:
-                arr = np.asarray(p, dtype=np.int32)
-                out[i, : len(p)] = arr
-                out[i, len(p) :] = arr[-1]  # pad with the last point
-        return out
+        # padded with the last point; an empty curve is all zeros
+        rows = [list(p) + [p[-1]] * (n - len(p)) if p else [(0, 0)] * n for p in pts]
+        return np.asarray(rows, dtype=np.int32).reshape(b, n, 2)
 
     def arr(get):
         return np.asarray([get(p) for p in params], dtype=np.int32)
@@ -182,9 +270,7 @@ def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
         overlap=arr(lambda p: int(p.overlap_flag)),
         clip=arr(lambda p: int(p.clip_to_restricted_range)),
     )
-    return GrainParamsBatch(
-        **{k: torch.as_tensor(v, device=device) for k, v in host.items()}
-    )
+    return _upload_params(host, b, device)
 
 
 # ---------------------------------------------------------------------------
@@ -205,15 +291,26 @@ def _lfsr_basis(n: int) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _lfsr_basis_on(n: int, device: torch.device) -> torch.Tensor:
+    """``_lfsr_basis(n)`` on ``device``, uploaded once per (n, device) and
+    never freed: a captured parameter program reads it in place."""
+    return torch.as_tensor(_lfsr_basis(n), device=device)
+
+
 def lfsr_outputs(seeds: torch.Tensor, n: int, nbits: int) -> torch.Tensor:
     """(N,) int32 seeds -> (N, n) outputs of get_random_number(nbits):
-    the top ``nbits`` of the state after each of n updates."""
-    basis = torch.as_tensor(_lfsr_basis(n), device=seeds.device)
-    seeds = seeds.to(torch.int32)
-    state = torch.zeros((seeds.shape[0], n), dtype=torch.int32, device=seeds.device)
-    for j in range(16):
-        bit = (seeds >> j) & 1
-        state ^= basis[None, :, j] * bit[:, None]
+    the top ``nbits`` of the state after each of n updates. The state is
+    the XOR of the basis columns of the seed's set bits: one broadcast over
+    the 16 bits, then an XOR tree over them."""
+    basis = _lfsr_basis_on(n, seeds.device)
+    bit = torch.arange(16, dtype=torch.int32, device=seeds.device)
+    bits = (seeds.to(torch.int32)[:, None] >> bit) & 1  # (N, 16)
+    terms = basis[None, :, :] * bits[:, None, :]  # (N, n, 16)
+    while terms.shape[-1] > 1:
+        half = terms.shape[-1] // 2
+        terms = terms[..., :half] ^ terms[..., half:]
+    state = terms[..., 0]
     return (state >> (16 - nbits)) & ((1 << nbits) - 1)
 
 
@@ -340,9 +437,13 @@ def _scaling_eval8(
 ) -> torch.Tensor:
     """Exact spec LUT value at 8-bit node positions: lut[x] for x in
     [x_j, x_{j+1}) is y_j + ((x - x_j) * delta_j + 32768) >> 16 with
-    delta_j = dy * ((65536 + dx/2) // dx). ``n_seg`` bounds the segment
-    loop (no curve in the batch has more segments)."""
+    delta_j = dy * ((65536 + dx/2) // dx). ``n_seg`` bounds the segments
+    looked at (no curve in the batch has more). The segments are one
+    broadcast over (B, n_seg, samples); where several hold a sample, the
+    last one gives its value. Large inputs go in column chunks of about
+    2^24 segment tests."""
     b, p_max, _ = pts.shape
+    n = min(n_seg, p_max - 1)
     x_j = pts[:, :, 0]
     y_j = pts[:, :, 1]
     dx = x_j[:, 1:] - x_j[:, :-1]
@@ -351,20 +452,23 @@ def _scaling_eval8(
     delta = dy * torch.div(65536 + (dx_safe >> 1), dx_safe, rounding_mode="floor")
     seg_idx = torch.arange(p_max - 1, device=pts.device)[None, :]
     seg_valid = (seg_idx < (num[:, None] - 1)) & (dx > 0)
+    lo, hi, ok = x_j[:, :n, None], x_j[:, 1 : n + 1, None], seg_valid[:, :n, None]
+    order = torch.arange(1, n + 1, dtype=torch.int32, device=pts.device)[None, :, None]
+
+    def segments(vs):  # (B, L) -> (B, L) value of the last segment holding each sample, or 0
+        x = vs[:, None, :]
+        pick = torch.where((x >= lo) & (x < hi) & ok, order, 0).amax(1)
+        j = (pick - 1).clamp(min=0).long()
+        seg_val = torch.gather(y_j, 1, j) + (
+            ((vs - torch.gather(x_j, 1, j)) * torch.gather(delta, 1, j) + 32768) >> 16
+        )
+        return torch.where(pick > 0, seg_val, 0)
 
     shape = v.shape
     vflat = v.reshape(b, -1)
-    val = torch.zeros_like(vflat)
-    for j in range(min(n_seg, p_max - 1)):
-        in_seg = (
-            (vflat >= x_j[:, j : j + 1])
-            & (vflat < x_j[:, j + 1 : j + 2])
-            & seg_valid[:, j : j + 1]
-        )
-        seg_val = y_j[:, j : j + 1] + (
-            ((vflat - x_j[:, j : j + 1]) * delta[:, j : j + 1] + 32768) >> 16
-        )
-        val = torch.where(in_seg, seg_val, val)
+    step = max(1, (1 << 24) // max(1, b * n))
+    chunks = [segments(vflat[:, i : i + step]) for i in range(0, max(vflat.shape[1], 1), step)]
+    val = chunks[0] if len(chunks) == 1 else torch.cat(chunks, 1)
     last = torch.clamp(num - 1, min=0)[:, None].long()
     below = vflat < x_j[:, :1]
     above = vflat >= torch.gather(x_j, 1, last)
@@ -743,44 +847,25 @@ def apply_grain(
     back as int16. Patterns come from ``prepared``; failing that, from the
     host when ``host_params`` is given; failing that, from the pattern
     kernel on the device (grain_jax.apply_grain_batch_pallas: every curve
-    segment, the chroma kernel on). On a CUDA device the CUDA kernels run
-    (luma, then Cb+Cr); on the CPU their plain versions. A batch whose
-    tables touch no chroma (known from ``host_params`` or ``prepared``)
-    skips the chroma kernel and returns ``cb``/``cr`` untouched."""
+    segment, the chroma kernel on). The batch's parameter program
+    (``ops.program``) runs first: one graph replay on a CUDA device, eager
+    on the CPU. Then the CUDA kernels run (luma, then Cb+Cr); on the CPU
+    their plain versions. A batch whose tables touch no chroma (known from
+    ``host_params`` or ``prepared``) skips the chroma kernel and returns
+    ``cb``/``cr`` untouched."""
+    if prepared is None and host_params is not None:
+        prepared = prepare_patterns(
+            host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
+        )
     if prepared is None:
-        if host_params is None:
-            prepared = prepare_patterns_device(p, bit_depth, sub_x, sub_y, monochrome)
-        else:
-            prepared = prepare_patterns(
-                host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
-            )
-    from . import grain_kernels as gk
+        return apply_grain_device_patterns(y, cb, cr, p, bit_depth, sub_x, sub_y, monochrome)
+    from .program import ProgramKey, program_for
 
-    y16 = y.to(torch.int16)
-    _, h, w = y16.shape
-    offs = block_offsets(p.seed, (h + BLOCK - 1) // BLOCK, (w + BLOCK - 1) // BLOCK)
-    luma_pat, cb_pat, cr_pat = prepared.planes()
-    # the luma kernel writes a fresh tensor, so the chroma kernel below
-    # still reads the ungrained luma for its scaling input
-    y_out = gk.apply_plane_luma(
-        y16, luma_pat, offs,
-        gk.pack_plane_params(p, "y", bit_depth, prepared.n_seg), bit_depth,
-    )
-    if monochrome:
-        return y_out, None, None
-    if not prepared.chroma_static:
-        return y_out, cb, cr
-    params2 = torch.cat(
-        [
-            gk.pack_plane_params(p, "cb", bit_depth, prepared.n_seg),
-            gk.pack_plane_params(p, "cr", bit_depth, prepared.n_seg),
-        ]
-    )
-    cb_out, cr_out = gk.apply_planes_pair(
-        y16, cb.to(torch.int16), cr.to(torch.int16), cb_pat, cr_pat, offs,
-        params2, bit_depth, sub_x, sub_y,
-    )
-    return y_out, cb_out, cr_out
+    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, prepared.n_seg,
+                        prepared.chroma_static, "host")
+    tables = program_for(key).run(p)
+    return apply_with_tables(y, cb, cr, tables, prepared.planes(), bit_depth, sub_x, sub_y,
+                             monochrome)
 
 
 def apply_grain_device_patterns(
@@ -797,12 +882,49 @@ def apply_grain_device_patterns(
 ):
     """Apply with patterns made on the device, given the dispatch facts
     that host params would give (grain_jax.apply_grain_device_patterns):
+    the pattern kernel runs inside the batch's parameter program, and
     ``chroma_static`` False runs the luma kernel alone and returns
     ``cb``/``cr`` untouched."""
-    prepared = prepare_patterns_device(
-        p, bit_depth, sub_x, sub_y, monochrome, n_seg, chroma_static
+    from .program import ProgramKey, program_for
+
+    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, n_seg, chroma_static, "device")
+    tables = program_for(key).run(p)
+    chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)
+    return apply_with_tables(y, cb, cr, tables, _unpack_patterns(tables.patterns, chroma_shape),
+                             bit_depth, sub_x, sub_y, monochrome)
+
+
+def apply_with_tables(
+    y: torch.Tensor,
+    cb: Optional[torch.Tensor],
+    cr: Optional[torch.Tensor],
+    tables,
+    patterns,
+    bit_depth: int,
+    sub_x: int = 1,
+    sub_y: int = 1,
+    monochrome: bool = False,
+):
+    """The grain kernels after a parameter program: the luma kernel, then,
+    unless monochrome or the program made no chroma rows, the chroma-pair
+    kernel, on the stream the program ran on. ``tables`` is the program's
+    ``ProgramOutputs``, ``patterns`` the (luma, cb, cr) pattern views."""
+    from . import grain_kernels as gk
+
+    luma_pat, cb_pat, cr_pat = patterns
+    y16 = y.to(torch.int16)
+    # the luma kernel writes a fresh tensor, so the chroma kernel below
+    # still reads the ungrained luma for its scaling input
+    y_out = gk.apply_plane_luma(y16, luma_pat, tables.offsets, tables.params_y, bit_depth)
+    if monochrome:
+        return y_out, None, None
+    if tables.params2 is None:
+        return y_out, cb, cr
+    cb_out, cr_out = gk.apply_planes_pair(
+        y16, cb.to(torch.int16), cr.to(torch.int16), cb_pat, cr_pat, tables.offsets,
+        tables.params2, bit_depth, sub_x, sub_y,
     )
-    return apply_grain(y, cb, cr, p, bit_depth, sub_x, sub_y, monochrome, prepared=prepared)
+    return y_out, cb_out, cr_out
 
 
 def apply_grain_reference(

@@ -18,7 +18,10 @@ version.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper.
+kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper. A
+launch recorded into a CUDA graph under capture launches nothing: it is
+counted in ``RECORDED``, and the graph's owner (``ops.program``) adds
+what its graph holds to ``LAUNCHES`` on each replay.
 
 Per-plane parameter rows (``pack_plane_params``) carry the scalars the
 kernels read and the plane's 256-entry scaling LUT at the 8-bit nodes;
@@ -29,7 +32,7 @@ the kernels read the LUT directly (and interpolate between nodes above
 from __future__ import annotations
 
 from dataclasses import fields
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -68,6 +71,8 @@ P_LEN = P_LUT + 256
 LAUNCHES: Dict[str, int] = {
     "grain_luma": 0, "grain_chroma_pair": 0, "grain_chroma": 0, "grain_pattern": 0,
 }
+# launches recorded into CUDA graphs under capture, per wrapper (never reset)
+RECORDED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 # packed per-frame pattern row (int32; csrc/pattern_kernels.cu)
 Q_SEED = 0
@@ -87,6 +92,15 @@ Q_LEN = Q_COEFFS_CR + 24
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched(name: str) -> None:
+    """Count one launch of ``name``'s kernel, or, under graph capture,
+    one launch recorded into the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def pack_plane_params(
@@ -327,7 +341,7 @@ def apply_plane_luma(
             _stream(src),
         )
     _raise_on(err, "grain_luma launch")
-    LAUNCHES["grain_luma"] += 1
+    _launched("grain_luma")
     return out
 
 
@@ -382,7 +396,7 @@ def apply_plane_chroma(
             b, hc, wc, s, nb, sub_x, sub_y, bit_depth, _stream(src),
         )
     _raise_on(err, "grain_chroma launch")
-    LAUNCHES["grain_chroma"] += 1
+    _launched("grain_chroma")
     return out
 
 
@@ -429,20 +443,23 @@ def apply_planes_pair(
             b, h, w, sub_x, sub_y, bit_depth, _stream(y),
         )
     _raise_on(err, "grain_chroma_pair launch")
-    LAUNCHES["grain_chroma_pair"] += 1
+    _launched("grain_chroma_pair")
     return out_cb, out_cr
 
 
 def generate_patterns_packed(
     p: GrainParamsBatch, bit_depth: int, sub_x: int = 1, sub_y: int = 1,
-    monochrome: bool = False,
+    monochrome: bool = False, rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Grain patterns of a parameter batch, made on its device: a new
     (B, 73 * 82 [+ 2 ch cw]) int16 tensor in ``PreparedPatterns.packed``'s
-    layout (luma, then Cb and Cr unless monochrome)."""
+    layout (luma, then Cb and Cr unless monochrome). ``rows``: the batch's
+    ``pattern_params``, where the caller has made them already."""
     if _on_cpu(*(getattr(p, f.name) for f in fields(p))):
         return generate_patterns_packed_reference(p, bit_depth, sub_x, sub_y, monochrome)
-    return pattern_kernel(pattern_params(p), bit_depth, sub_x, sub_y, monochrome)
+    if rows is None:
+        rows = pattern_params(p)
+    return pattern_kernel(rows, bit_depth, sub_x, sub_y, monochrome)
 
 
 def pattern_kernel(
@@ -472,5 +489,5 @@ def pattern_kernel(
             sub_x, sub_y, bit_depth, int(monochrome), _stream(rows),
         )
     _raise_on(err, "grain_pattern launch")
-    LAUNCHES["grain_pattern"] += 1
+    _launched("grain_pattern")
     return out

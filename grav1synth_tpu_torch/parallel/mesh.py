@@ -13,6 +13,10 @@ same time.
 A mesh may name one device more than once: the CPU in the tests (the
 counterpart of the JAX tests' 8 virtual CPU devices), one card in
 ``chip_smoke.py``. Its shards then run one after another on that device.
+Each shard's apply runs the parameter program of its device and shape
+(``ops.program``), a CUDA graph on a card; shards on one device run on its
+current stream one after another, so one program's outputs are consumed
+by a shard's grain kernels before the next shard's replay writes them.
 
 Across processes, the same entry points take a ``distributed.ProcessMesh``
 in the mesh's place, with this rank's frames: each rank runs the path
@@ -23,7 +27,6 @@ process group. Multi-process sharding of the host subcommands is
 
 from __future__ import annotations
 
-from dataclasses import fields
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,10 +103,12 @@ def _to(t: Optional[torch.Tensor], device: torch.device) -> Optional[torch.Tenso
 
 
 def _shard_params(p: GrainParamsBatch, sl: slice, device: torch.device) -> GrainParamsBatch:
-    """Rows ``sl`` of a parameter batch, on ``device``."""
-    return GrainParamsBatch(
-        **{f.name: _to(getattr(p, f.name)[sl], device) for f in fields(GrainParamsBatch)}
-    )
+    """Rows ``sl`` of a parameter batch, on ``device``: one copy of its
+    buffer's rows (pinned first when they go from the host to a card)."""
+    buf = p.as_buffer()[sl]
+    if device.type == "cuda" and buf.device.type == "cpu":
+        buf = buf.pin_memory()
+    return GrainParamsBatch.from_buffer(buf.to(device, non_blocking=True))
 
 
 def sharded_apply_with_stats(

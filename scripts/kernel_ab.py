@@ -137,22 +137,6 @@ def loaded(lib):
         _build._lib = saved
 
 
-def device_busy(prof) -> float:
-    """ms of the union of the device intervals (kernels and copies) that
-    ``prof`` recorded."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
 def launchers(lib, luma_args, pair_args, chroma_args):
     """Zero-argument launches of ``lib``'s three kernels on the arguments of
     ``apply_plane_luma``, ``apply_planes_pair`` and ``apply_plane_chroma``,
@@ -244,7 +228,7 @@ def grain_ab(libs, card: str, iters: int) -> None:
                         apply()
                     torch.cuda.synchronize()
                     wall = (time.perf_counter() - t0) * 1e3 / reps
-            busy = device_busy(prof) / reps
+            busy = cs.device_busy(prof) / reps
             print(f"[ab] apply_grain 4K10 4:2:0 B={b} host patterns, {k} kernels: {fps:.1f} "
                   f"frames/s; profiled {wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
                   f"share {1 - busy / wall:.3f} on {card}", flush=True)

@@ -17,6 +17,7 @@ import torch
 from av1_builder import sample_grain_params
 from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
+from grav1synth_tpu_torch.ops import program as pg
 
 
 @pytest.fixture
@@ -737,12 +738,16 @@ def test_device_pattern_apply_equals_host_pattern_apply_on_cuda(cuda, sub_x, sub
         params, 10, sub_x, sub_y, device=cuda, generate=tg.generate_patterns_ref
     )
     want = tg.apply_grain(*planes, pb, 10, sub_x, sub_y, prepared=prep)
+    tg.apply_grain(*planes, pb, 10, sub_x, sub_y)  # captures the batch's program
+    torch.cuda.synchronize()
     gk.reset_launch_counts()
+    pg.reset_counts()
     got = tg.apply_grain(*planes, pb, 10, sub_x, sub_y)
     torch.cuda.synchronize()
     assert {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")} == {
         "grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1,
     }
+    assert pg.COUNTS == {"captures": 0, "replays": 1}
     for pi in range(3):
         assert torch.equal(got[pi], want[pi]), f"plane {pi}"
 
@@ -761,3 +766,100 @@ def test_sharded_apply_over_a_two_shard_mesh_on_one_card(cuda):
     d = want[0].to(torch.int64) - y.to(torch.int64)
     assert got[3].dtype == torch.float64 and got[3].item() == float((d * d).sum())
     assert got[4].item() == len(params)
+
+
+def program_paths(params, planes, bd, sub_x, sub_y, mono, patterns, device):
+    """(graph, eager): the apply through the batch's parameter program, and
+    the same with the program's eager body in the graph's place."""
+    y, cb, cr = planes
+    if patterns == "host":
+        def prep():
+            return tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device=device,
+                                       generate=tg.generate_patterns_ref)
+        n_seg, chroma_static = tg._host_metadata(params, mono)
+    else:
+        n_seg, chroma_static = 13, True
+    key = pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, n_seg, chroma_static, patterns)
+
+    def graph():
+        pb = tg.pack_params(params, device)
+        if patterns == "host":
+            return tg.apply_grain(y, cb, cr, pb, bd, sub_x, sub_y, mono, prepared=prep())
+        return tg.apply_grain(y, cb, cr, pb, bd, sub_x, sub_y, mono)
+
+    def eager():
+        tables = pg.program_body(tg.pack_params(params, device).as_buffer(), key)
+        if patterns == "host":
+            pats = prep().planes()
+        else:
+            pats = tg._unpack_patterns(
+                tables.patterns, None if mono else tg.chroma_pattern_shape(sub_x, sub_y))
+        return tg.apply_with_tables(y, cb, cr, tables, pats, bd, sub_x, sub_y, mono)
+
+    return graph, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patterns", ["host", "device"])
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, patterns):
+    """The apply through the captured program equals the eager body with
+    the same kernels, and the CPU run; after the capture a batch is one
+    replay, with the pattern kernel in it for card patterns."""
+    params = pattern_zoo(60 + 2 * sub_x + sub_y + 4 * mono)
+    planes = _random_planes(np.random.default_rng(5), len(params), 70, 301, 10, sub_x, sub_y, cuda)
+    if mono:
+        planes = [planes[0], None, None]
+    graph, eager = program_paths(params, planes, 10, sub_x, sub_y, mono, patterns, cuda)
+    got = graph()
+    want = eager()
+    cpu_planes = [None if t is None else t.cpu() for t in planes]
+    on_cpu = program_paths(params, cpu_planes, 10, sub_x, sub_y, mono, patterns, "cpu")[0]()
+    for k in range(1 if mono else 3):
+        assert torch.equal(got[k], want[k]), f"plane {k}: graph vs eager body"
+        assert torch.equal(got[k].cpu(), on_cpu[k]), f"plane {k}: card vs CPU"
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    pg.reset_counts()
+    again = graph()
+    torch.cuda.synchronize()
+    assert pg.COUNTS == {"captures": 0, "replays": 1}
+    assert gk.LAUNCHES["grain_pattern"] == (patterns == "device")
+    assert gk.LAUNCHES["grain_luma"] == 1 and gk.LAUNCHES["grain_chroma_pair"] == (not mono)
+    assert all(torch.equal(a, b) for a, b in zip(again[:1 if mono else 3], got))
+
+
+@pytest.mark.cuda
+def test_program_replays_on_two_streams_in_turn_on_cuda(cuda):
+    """Batches of one program on two streams in turn: each replay waits for
+    the stream of the last, so no batch reads another's tables."""
+    params = [pattern_zoo(70 + i) for i in range(4)]
+    planes = _random_planes(np.random.default_rng(6), len(params[0]), 64, 96, 10, 1, 1, cuda)
+    want = [tg.apply_grain(*planes, tg.pack_params(ps, cuda), 10) for ps in params]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    got = []
+    for i, ps in enumerate(params):
+        with torch.cuda.stream(streams[i % 2]):
+            streams[i % 2].wait_stream(torch.cuda.default_stream(cuda))
+            got.append(tg.apply_grain(*planes, tg.pack_params(ps, cuda), 10))
+    torch.cuda.synchronize()
+    for i in range(len(params)):
+        for k in range(3):
+            assert torch.equal(got[i][k], want[i][k]), f"batch {i} plane {k}"
+
+
+@pytest.mark.cuda
+def test_program_outputs_are_the_next_replays_on_cuda(cuda):
+    """A replay's outputs are the graph's static tensors: the next replay
+    of the same program writes the same tensors with its batch's tables."""
+    first, second = pattern_zoo(80), pattern_zoo(81)
+    y = torch.zeros((len(first), 64, 64), dtype=torch.int16, device=cuda)
+    prog = pg.program_for(pg.ProgramKey.of(y, 10, 1, 1, False, 13, True, "device"))
+    out1 = prog.run(tg.pack_params(first, cuda))
+    kept = out1.offsets.clone()
+    pb2 = tg.pack_params(second, cuda)
+    out2 = prog.run(pb2)
+    assert out2.offsets is out1.offsets and out2.patterns is out1.patterns
+    torch.cuda.synchronize()
+    want = tg.block_offsets(pb2.seed, 2, 2)  # the seeds differ between the batches
+    assert torch.equal(out2.offsets, want) and not torch.equal(kept, want)
