@@ -102,11 +102,12 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    take turns on its SMs, so it is no scaling figure. A rank that fails or hangs (waited for with a timeout, then
    killed) fails the script, its log's tail printed;
 12. the parameter program (``ops.program``): at 3840x2160 10-bit 4:2:0,
-   B = 16 and 112, 3-plane and luma-only, with host patterns, patterns
-   made on the card, and patterns made on the card with the host's facts
-   (segment bound, chroma kernel off for luma-only tables): every frame of
-   the graph path equal to the program's eager body on the card followed
-   by the same kernels, frame 0 to grain_ref; captures, replays and the
+   B = 16 and 112 (the latter a ragged batch of a program made at 128),
+   3-plane and luma-only, with host patterns, patterns made on the card,
+   and patterns made on the card with the host's fact (chroma tables and
+   kernel off for luma-only tables): every frame of the graph path equal
+   to the program's eager body on the card followed by the same kernels,
+   frame 0 to grain_ref; captures, replays and the
    pattern, luma and chroma-pair kernels' launches counted exactly; each
    program's graph nodes (read through libcuda), capture ms and device
    time a replay; the host ms of ``pack_params`` and of the host
@@ -1450,10 +1451,10 @@ def pattern_phase(card, eff, dev, apply4):
             f"apply+generate (param pack, pattern kernel, offsets, grain kernels); phase 4 "
             f"with host patterns: {host:.1f} frames/s apply alone, "
             f"{1e3 / (1e3 / host + apply4['gen_ms']):.1f} with grain_ref's generation, on {card}")
-        # the same with the dispatch facts host params give (segment bound,
-        # chroma kernel off for luma-only tables), as apply_grain_device_patterns takes them
+        # the same with the dispatch fact host params give (chroma kernel
+        # off for luma-only tables), as apply_grain_device_patterns takes it
         ps = apply4["lum16"] if key == "luma16" else batches[b]
-        facts = dict(zip(("n_seg", "chroma_static"), tg._host_metadata(ps, False)))
+        facts = {"chroma_static": tg._touches_chroma(ps)}
         fps_facts = frames_per_s(
             lambda: tg.apply_grain_device_patterns(
                 *frames[b], tg.pack_params(ps, dev), BD, SX, SY, **facts
@@ -1724,16 +1725,16 @@ def distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy, two_shard
 def program_cells(apply4, lum112):
     """Phase 12's cells: (B, kind, source, params, facts) at 4K10 4:2:0 for
     B = 16 and 112, 3-plane and luma-only; patterns from the host (the
-    dispatch facts from host params), made on the card with the JAX
-    package's defaults (every curve segment, the chroma kernel on), and
-    made on the card with the host's facts."""
+    dispatch fact, chroma on or off, from host params), made on the card
+    with the JAX package's default (the chroma kernel on), and made on the
+    card with the host's fact."""
     from grav1synth_tpu_torch.ops import grain as tg
 
     cells = []
     for b in (16, 112):
         for kind, params in (("3-plane", apply4["batches"][b]),
                              ("luma-only", apply4["lum16"] if b == 16 else lum112)):
-            facts = tg._host_metadata(params, False)
+            facts = tg._touches_chroma(params)
             cells += [(b, kind, "host patterns", params, facts),
                       (b, kind, "card patterns", params, None),
                       (b, kind, "card patterns, host facts", params, facts)]
@@ -1755,7 +1756,7 @@ def program_paths(cell, frames, pats, dev):
         def prep():
             return tg.prepare_patterns(params, BD, SX, SY, device=dev, generate=lambda *a: pats)
 
-        key = pg.ProgramKey.of(y, BD, SX, SY, False, *facts, "host")
+        key = pg.ProgramKey.of(y, BD, SX, SY, False, facts, "host")
 
         def graph():
             return tg.apply_grain(y, cb, cr, tg.pack_params(params, dev), BD, SX, SY,
@@ -1763,22 +1764,22 @@ def program_paths(cell, frames, pats, dev):
 
         def eager():
             prepared = prep()
-            tables = pg.program_body(tg.pack_params(params, dev).as_buffer(), key)
+            tables = pg.program_body(tg.pack_params(params, dev).buffer, key)
             return tg.apply_with_tables(y, cb, cr, tables, prepared.planes(), BD, SX, SY)
 
         return graph, eager, key
-    n_seg, chroma_static = facts or (tg.MAX_Y_POINTS - 1, True)
-    key = pg.ProgramKey.of(y, BD, SX, SY, False, n_seg, chroma_static, "device")
+    chroma_static = True if facts is None else facts
+    key = pg.ProgramKey.of(y, BD, SX, SY, False, chroma_static, "device")
 
     def graph():
         pb = tg.pack_params(params, dev)
         if facts is None:
             return tg.apply_grain(y, cb, cr, pb, BD, SX, SY)
-        return tg.apply_grain_device_patterns(y, cb, cr, pb, BD, SX, SY, n_seg=n_seg,
+        return tg.apply_grain_device_patterns(y, cb, cr, pb, BD, SX, SY,
                                               chroma_static=chroma_static)
 
     def eager():
-        tables = pg.program_body(tg.pack_params(params, dev).as_buffer(), key)
+        tables = pg.program_body(tg.pack_params(params, dev).buffer, key)
         planes = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(SX, SY))
         return tg.apply_with_tables(y, cb, cr, tables, planes, BD, SX, SY)
 
@@ -1864,7 +1865,8 @@ def program_phase(card, dev, apply4):
             pb = tg.pack_params(params, dev)
             replay_ms = cuda_ms(lambda: prog.run(pb), 50)
             alone = profile_batches(lambda: prog.run(pb), 20)
-            log(f"[program] B={b} n_seg {key.n_seg}, chroma {'on' if key.chroma_static else 'off'},"
+            log(f"[program] B={b} (made at {key.batch}), chroma "
+                f"{'on' if key.chroma_static else 'off'},"
                 f" patterns {key.patterns} ({kind}, {source}): graph {graph_nodes(prog.graph)}, "
                 f"kernels recorded {prog.kernels}; capture (with the eager warm-up) "
                 f"{prog.capture_ms:.1f} ms; replay {replay_ms:.4f} ms back to back (CUDA events), "
@@ -1895,7 +1897,7 @@ def program_phase(card, dev, apply4):
             for which in ("eager", "graph", "graph", "eager"):
                 fps[which].append(frames_per_s(eager if which == "eager" else graph, b, reps))
             prof = {"graph": profile_batches(graph, reps), "eager": profile_batches(eager, reps)}
-            log(f"[program] 4K10 4:2:0 {kind} B={b}, {source} (n_seg {key.n_seg}, chroma "
+            log(f"[program] 4K10 4:2:0 {kind} B={b}, {source} (made at {key.batch}, chroma "
                 f"{'on' if key.chroma_static else 'off'}): graph "
                 f"{fps['graph'][0]:.1f} / {fps['graph'][1]:.1f} frames/s, eager body "
                 f"{fps['eager'][0]:.1f} / {fps['eager'][1]:.1f} (turns eager, graph, graph, "

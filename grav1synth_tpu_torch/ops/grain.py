@@ -7,8 +7,8 @@ uploaded in one pinned, non-blocking copy. Grain patterns come either from
 the host (the native C++ recurrence, or ``grain_ref`` where the native
 shim is missing), uploaded as one packed int16 buffer per batch, or from
 the device: the pattern kernel of ``grain_kernels`` writes the same packed
-buffer from the parameter batch (``prepare_patterns_device``;
-``generate_patterns`` is its plain version).
+buffer from the parameter batch inside the batch's parameter program
+(``generate_patterns`` is its plain version).
 
 ``apply_grain`` runs each batch as one parameter program
 (``ops.program``, the counterpart of the JAX package's ``jax.jit``
@@ -27,7 +27,7 @@ formulation: ``_noise_plane``, ``scaling_lookup``, ``_avg_luma``.
 from __future__ import annotations
 
 import functools
-from dataclasses import InitVar, dataclass, fields
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -85,81 +85,19 @@ def scatter_coeffs_to_lag3(coeffs: List[int], lag: int) -> np.ndarray:
 # Batched parameters
 
 
-@dataclass
-class GrainParamsBatch:
-    """Per-frame grain parameters as stacked int32 tensors (leading B).
-
-    A batch made by ``pack_params``, ``from_jax_params`` or
-    ``from_buffer`` holds one (B, ``PARAMS_WIDTH``) int32 ``buffer``, and
-    every field is a view of its columns (``PARAM_COLUMNS``), so the batch
-    uploads, slices and moves as one tensor. A batch built field by field
-    has no buffer; ``as_buffer`` then packs one."""
-
-    seed: torch.Tensor  # (B,)
-    num_y: torch.Tensor  # (B,)
-    num_cb: torch.Tensor
-    num_cr: torch.Tensor
-    pts_y: torch.Tensor  # (B, 14, 2), padded with the last point
-    pts_cb: torch.Tensor  # (B, 10, 2)
-    pts_cr: torch.Tensor
-    coeffs_y: torch.Tensor  # (B, 24) in lag-3 slots
-    coeffs_cb: torch.Tensor  # (B, 25): 24 slots + luma coefficient
-    coeffs_cr: torch.Tensor
-    scaling_shift: torch.Tensor  # (B,)
-    ar_shift: torch.Tensor
-    grain_scale_shift: torch.Tensor
-    cb_mult: torch.Tensor
-    cb_luma_mult: torch.Tensor
-    cb_offset: torch.Tensor
-    cr_mult: torch.Tensor
-    cr_luma_mult: torch.Tensor
-    cr_offset: torch.Tensor
-    csfl: torch.Tensor  # (B,) 0/1
-    overlap: torch.Tensor  # (B,) 0/1
-    clip: torch.Tensor  # (B,) 0/1
-    buffer: InitVar[Optional[torch.Tensor]] = None
-
-    def __post_init__(self, buffer):
-        self.buffer = buffer
-
-    @classmethod
-    def from_buffer(cls, buf: torch.Tensor) -> "GrainParamsBatch":
-        """The batch whose fields are views of ``buf`` (B, PARAMS_WIDTH)."""
-        b = buf.shape[0]
-        views = {
-            name: buf[:, start] if not shape else buf[:, start : start + _numel(shape)].view(b, *shape)
-            for name, (start, shape) in PARAM_COLUMNS.items()
-        }
-        return cls(**views, buffer=buf)
-
-    def as_buffer(self) -> torch.Tensor:
-        """The (B, PARAMS_WIDTH) int32 buffer every field is a view of; for
-        a batch whose fields are not all views of its buffer (built field
-        by field, or a field replaced since), a new buffer of their values."""
-        buf = self.buffer
-        if buf is not None and all(
-            _is_column_view(getattr(self, name), buf, start, shape)
-            for name, (start, shape) in PARAM_COLUMNS.items()
-        ):
-            return buf
-        return torch.cat(
-            [getattr(self, name).reshape(self.batch, -1).to(torch.int32) for name in PARAM_COLUMNS], 1
-        )
-
-    @property
-    def batch(self) -> int:
-        return self.seed.shape[0]
-
-    @property
-    def device(self) -> torch.device:
-        return self.seed.device
-
-
-# per-frame shape of each field that is not a scalar
-_FIELD_SHAPES = {
-    "pts_y": (MAX_Y_POINTS, 2), "pts_cb": (MAX_UV_POINTS, 2), "pts_cr": (MAX_UV_POINTS, 2),
-    "coeffs_y": (24,), "coeffs_cb": (25,), "coeffs_cr": (25,),
-}
+# the fields of a parameter batch, in the buffer's column order, with the
+# per-frame shape of each that is not a scalar
+_PARAM_FIELDS: Tuple[Tuple[str, Tuple[int, ...]], ...] = (
+    ("seed", ()), ("num_y", ()), ("num_cb", ()), ("num_cr", ()),
+    ("pts_y", (MAX_Y_POINTS, 2)),  # padded with the last point
+    ("pts_cb", (MAX_UV_POINTS, 2)), ("pts_cr", (MAX_UV_POINTS, 2)),
+    ("coeffs_y", (24,)),  # in lag-3 slots
+    ("coeffs_cb", (25,)), ("coeffs_cr", (25,)),  # 24 slots + luma coefficient
+    ("scaling_shift", ()), ("ar_shift", ()), ("grain_scale_shift", ()),
+    ("cb_mult", ()), ("cb_luma_mult", ()), ("cb_offset", ()),
+    ("cr_mult", ()), ("cr_luma_mult", ()), ("cr_offset", ()),
+    ("csfl", ()), ("overlap", ()), ("clip", ()),  # 0/1
+)
 
 
 def _numel(shape: Tuple[int, ...]) -> int:
@@ -168,26 +106,52 @@ def _numel(shape: Tuple[int, ...]) -> int:
 
 def _column_layout() -> Tuple[Dict[str, Tuple[int, Tuple[int, ...]]], int]:
     out, start = {}, 0
-    for f in fields(GrainParamsBatch):
-        shape = _FIELD_SHAPES.get(f.name, ())
-        out[f.name] = (start, shape)
+    for name, shape in _PARAM_FIELDS:
+        out[name] = (start, shape)
         start += _numel(shape)
     return out, start
 
 
-# field -> (first column, per-frame shape) in the parameter buffer, in the
-# fields' order; PARAMS_WIDTH columns in all
+# field -> (first column, per-frame shape) in the parameter buffer;
+# PARAMS_WIDTH columns in all
 PARAM_COLUMNS, PARAMS_WIDTH = _column_layout()
 
 
-def _is_column_view(t: torch.Tensor, buf: torch.Tensor, start: int, shape) -> bool:
-    return (
-        t.device == buf.device and t.dtype == buf.dtype
-        and tuple(t.shape) == (buf.shape[0], *shape)
-        and t.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr()
-        and t.storage_offset() == buf.storage_offset() + start
-        and t.stride(0) == buf.stride(0)
-    )
+class GrainParamsBatch:
+    """Per-frame grain parameters of a batch: one (B, ``PARAMS_WIDTH``)
+    int32 ``buffer``, so the batch uploads, slices and moves as one
+    tensor. Each field of ``PARAM_COLUMNS`` (``seed``, ``pts_y``, ...) is
+    a read-only property giving a view of its columns, (B,) or
+    (B, *shape); an in-place edit of a view is an edit of the buffer."""
+
+    __slots__ = ("buffer",)
+
+    def __init__(self, buffer: torch.Tensor):
+        if buffer.dim() != 2 or buffer.shape[1] != PARAMS_WIDTH or buffer.dtype != torch.int32:
+            raise ValueError(
+                f"a parameter buffer is (B, {PARAMS_WIDTH}) int32, got "
+                f"{tuple(buffer.shape)} {buffer.dtype}"
+            )
+        self.buffer = buffer
+
+    @property
+    def batch(self) -> int:
+        return self.buffer.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.buffer.device
+
+
+def _column_view(start: int, shape: Tuple[int, ...]) -> property:
+    if not shape:
+        return property(lambda self: self.buffer[:, start])
+    stop = start + _numel(shape)
+    return property(lambda self: self.buffer[:, start:stop].view(self.buffer.shape[0], *shape))
+
+
+for _name, (_start, _shape) in PARAM_COLUMNS.items():
+    setattr(GrainParamsBatch, _name, _column_view(_start, _shape))
 
 
 def _upload_params(values: Dict[str, np.ndarray], b: int, device) -> GrainParamsBatch:
@@ -202,7 +166,7 @@ def _upload_params(values: Dict[str, np.ndarray], b: int, device) -> GrainParams
         buf = buf.pin_memory().to(device, non_blocking=True)
     else:
         buf = buf.to(device)
-    return GrainParamsBatch.from_buffer(buf)
+    return GrainParamsBatch(buf)
 
 
 def from_jax_params(batch, device) -> GrainParamsBatch:
@@ -433,17 +397,15 @@ def _scaling_eval8(
     v: torch.Tensor,  # (B, ...) int32 in the 8-bit node domain 0..255
     pts: torch.Tensor,  # (B, P, 2)
     num: torch.Tensor,  # (B,)
-    n_seg: int = MAX_Y_POINTS - 1,
 ) -> torch.Tensor:
     """Exact spec LUT value at 8-bit node positions: lut[x] for x in
     [x_j, x_{j+1}) is y_j + ((x - x_j) * delta_j + 32768) >> 16 with
-    delta_j = dy * ((65536 + dx/2) // dx). ``n_seg`` bounds the segments
-    looked at (no curve in the batch has more). The segments are one
-    broadcast over (B, n_seg, samples); where several hold a sample, the
-    last one gives its value. Large inputs go in column chunks of about
-    2^24 segment tests."""
+    delta_j = dy * ((65536 + dx/2) // dx). Every segment of the padded
+    curves is one broadcast over (B, P - 1, samples); where several hold
+    a sample, the last one gives its value. Large inputs go in column
+    chunks of about 2^24 segment tests."""
     b, p_max, _ = pts.shape
-    n = min(n_seg, p_max - 1)
+    n = p_max - 1
     x_j = pts[:, :, 0]
     y_j = pts[:, :, 1]
     dx = x_j[:, 1:] - x_j[:, :-1]
@@ -452,7 +414,7 @@ def _scaling_eval8(
     delta = dy * torch.div(65536 + (dx_safe >> 1), dx_safe, rounding_mode="floor")
     seg_idx = torch.arange(p_max - 1, device=pts.device)[None, :]
     seg_valid = (seg_idx < (num[:, None] - 1)) & (dx > 0)
-    lo, hi, ok = x_j[:, :n, None], x_j[:, 1 : n + 1, None], seg_valid[:, :n, None]
+    lo, hi, ok = x_j[:, :n, None], x_j[:, 1:, None], seg_valid[:, :, None]
     order = torch.arange(1, n + 1, dtype=torch.int32, device=pts.device)[None, :, None]
 
     def segments(vs):  # (B, L) -> (B, L) value of the last segment holding each sample, or 0
@@ -495,13 +457,11 @@ def scaling_lookup(
     return torch.where(idx >= 255, a, interp)
 
 
-def scaling_lut(
-    pts: torch.Tensor, num: torch.Tensor, n_seg: int = MAX_Y_POINTS - 1
-) -> torch.Tensor:
+def scaling_lut(pts: torch.Tensor, num: torch.Tensor) -> torch.Tensor:
     """(B, 256) int32 scaling LUT at the 8-bit nodes, as
     grain_ref.build_scaling_lut builds it for 8-bit content."""
     nodes = torch.arange(256, dtype=torch.int32, device=pts.device)
-    return _scaling_eval8(nodes.expand(pts.shape[0], 256), pts, num, n_seg)
+    return _scaling_eval8(nodes.expand(pts.shape[0], 256), pts, num)
 
 
 def lut_scale(v: torch.Tensor, lut: torch.Tensor, bit_depth: int) -> torch.Tensor:
@@ -554,34 +514,16 @@ def _round_shift(x: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
 # Host metadata and patterns
 
 
-def _max_segments(params_list, monochrome: bool) -> int:
-    """Bound on scaling-curve segments across a batch of params (the
-    LUT build loops exactly this often)."""
-    n = 1
-    for p in params_list:
-        counts = [len(p.scaling_points_y)]
-        if not monochrome:
-            if p.chroma_scaling_from_luma:
-                counts.append(len(p.scaling_points_y))
-            else:
-                counts.append(len(p.scaling_points_cb))
-                counts.append(len(p.scaling_points_cr))
-        n = max(n, max(counts) - 1)
-    return max(1, min(n, 13))
-
-
-def _host_metadata(host_params, monochrome: bool) -> Tuple[int, bool]:
-    """The segment bound, and whether any frame in the batch touches
-    chroma (photon-noise tables without --chroma and many film tables
-    are luma-only; the chroma kernel is then skipped)."""
-    n_seg = _max_segments(host_params, monochrome)
-    chroma_static = any(
+def _touches_chroma(host_params) -> bool:
+    """Whether any frame in the batch touches chroma (photon-noise tables
+    without --chroma and many film tables are luma-only; the chroma tables
+    and the chroma kernel are then skipped)."""
+    return any(
         hp.chroma_scaling_from_luma
         or len(hp.scaling_points_cb) > 0
         or len(hp.scaling_points_cr) > 0
         for hp in host_params
     )
-    return n_seg, chroma_static
 
 
 @dataclass
@@ -592,8 +534,7 @@ class PreparedPatterns:
 
     packed: torch.Tensor  # (B, n_luma [+ 2 n_chroma]) int16
     chroma_shape: Optional[Tuple[int, int]]  # (ch, cw) or None
-    n_seg: int
-    chroma_static: bool
+    chroma_static: bool  # some frame touches chroma
 
     def planes(self):
         return _unpack_patterns(self.packed, self.chroma_shape)
@@ -652,7 +593,7 @@ def prepare_patterns(
         from ..container.ffshim import generate_patterns_native
 
         generate = generate_patterns_native
-    n_seg, chroma_static = _host_metadata(host_params, monochrome)
+    chroma_static = _touches_chroma(host_params)
     lp, cbp, crp = generate(host_params, bit_depth, sub_x, sub_y, monochrome)
     chroma_shape = None if cbp is None else tuple(int(v) for v in cbp.shape[1:])
     host = pack_patterns(*(None if a is None else torch.from_numpy(a) for a in (lp, cbp, crp)))
@@ -661,7 +602,7 @@ def prepare_patterns(
         packed = host.pin_memory().to(device, non_blocking=True)
     else:
         packed = host.to(device)
-    return PreparedPatterns(packed, chroma_shape, n_seg, chroma_static)
+    return PreparedPatterns(packed, chroma_shape, chroma_static)
 
 
 # ---------------------------------------------------------------------------
@@ -803,28 +744,6 @@ def pack_patterns(luma, cb, cr) -> torch.Tensor:
     return torch.cat(parts, 1).to(torch.int16)
 
 
-def prepare_patterns_device(
-    p: GrainParamsBatch,
-    bit_depth: int,
-    sub_x: int = 1,
-    sub_y: int = 1,
-    monochrome: bool = False,
-    n_seg: int = MAX_Y_POINTS - 1,
-    chroma_static: bool = True,
-) -> PreparedPatterns:
-    """Grain patterns made on ``p``'s device from the parameter batch: the
-    pattern kernel on a CUDA device, its plain version on the CPU. No host
-    pattern generation and no pattern upload. ``n_seg`` and
-    ``chroma_static`` are the dispatch facts ``prepare_patterns`` derives
-    from host params; without them, the JAX package's defaults (every
-    curve segment, the chroma kernel on)."""
-    from . import grain_kernels as gk
-
-    packed = gk.generate_patterns_packed(p, bit_depth, sub_x, sub_y, monochrome)
-    chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)
-    return PreparedPatterns(packed, chroma_shape, n_seg, chroma_static)
-
-
 # ---------------------------------------------------------------------------
 # Full application
 
@@ -861,8 +780,7 @@ def apply_grain(
         return apply_grain_device_patterns(y, cb, cr, p, bit_depth, sub_x, sub_y, monochrome)
     from .program import ProgramKey, program_for
 
-    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, prepared.n_seg,
-                        prepared.chroma_static, "host")
+    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, prepared.chroma_static, "host")
     tables = program_for(key).run(p)
     return apply_with_tables(y, cb, cr, tables, prepared.planes(), bit_depth, sub_x, sub_y,
                              monochrome)
@@ -877,17 +795,17 @@ def apply_grain_device_patterns(
     sub_x: int = 1,
     sub_y: int = 1,
     monochrome: bool = False,
-    n_seg: int = MAX_Y_POINTS - 1,
     chroma_static: bool = True,
 ):
-    """Apply with patterns made on the device, given the dispatch facts
-    that host params would give (grain_jax.apply_grain_device_patterns):
-    the pattern kernel runs inside the batch's parameter program, and
-    ``chroma_static`` False runs the luma kernel alone and returns
-    ``cb``/``cr`` untouched."""
+    """Apply with patterns made on the device, given the dispatch fact
+    that host params would give (grain_jax.apply_grain_device_patterns
+    without its segment bound: the program evaluates every segment, at the
+    same device time): the pattern kernel runs inside the batch's
+    parameter program, and ``chroma_static`` False runs the luma kernel
+    alone and returns ``cb``/``cr`` untouched."""
     from .program import ProgramKey, program_for
 
-    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, n_seg, chroma_static, "device")
+    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, chroma_static, "device")
     tables = program_for(key).run(p)
     chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)
     return apply_with_tables(y, cb, cr, tables, _unpack_patterns(tables.patterns, chroma_shape),

@@ -31,8 +31,7 @@ the kernels read the LUT directly (and interpolate between nodes above
 
 from __future__ import annotations
 
-from dataclasses import fields
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -103,9 +102,7 @@ def _launched(name: str) -> None:
         LAUNCHES[name] += 1
 
 
-def pack_plane_params(
-    p: GrainParamsBatch, plane: str, bit_depth: int, n_seg: int = 13
-) -> torch.Tensor:
+def pack_plane_params(p: GrainParamsBatch, plane: str, bit_depth: int) -> torch.Tensor:
     """(B, P_LEN) int32 rows for plane "y", "cb" or "cr", on p's device."""
     maxval = (1 << bit_depth) - 1
     grain_center = 128 << (bit_depth - 8)
@@ -143,7 +140,7 @@ def pack_plane_params(
     out[:, P_MULT] = mult
     out[:, P_LUMA_MULT] = luma_mult
     out[:, P_OFFSET] = offset
-    out[:, P_LUT:] = scaling_lut(pts, num, n_seg)
+    out[:, P_LUT:] = scaling_lut(pts, num)
     return out
 
 
@@ -449,17 +446,14 @@ def apply_planes_pair(
 
 def generate_patterns_packed(
     p: GrainParamsBatch, bit_depth: int, sub_x: int = 1, sub_y: int = 1,
-    monochrome: bool = False, rows: Optional[torch.Tensor] = None,
+    monochrome: bool = False,
 ) -> torch.Tensor:
     """Grain patterns of a parameter batch, made on its device: a new
     (B, 73 * 82 [+ 2 ch cw]) int16 tensor in ``PreparedPatterns.packed``'s
-    layout (luma, then Cb and Cr unless monochrome). ``rows``: the batch's
-    ``pattern_params``, where the caller has made them already."""
-    if _on_cpu(*(getattr(p, f.name) for f in fields(p))):
+    layout (luma, then Cb and Cr unless monochrome)."""
+    if _on_cpu(p.buffer):
         return generate_patterns_packed_reference(p, bit_depth, sub_x, sub_y, monochrome)
-    if rows is None:
-        rows = pattern_params(p)
-    return pattern_kernel(rows, bit_depth, sub_x, sub_y, monochrome)
+    return pattern_kernel(pattern_params(p), bit_depth, sub_x, sub_y, monochrome)
 
 
 def pattern_kernel(

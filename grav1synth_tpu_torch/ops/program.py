@@ -5,7 +5,7 @@ the JAX package's ``jax.jit`` boundary (``grain_jax.apply_grain_device_patterns`
 shape and per value of their static arguments.
 
 The program takes a batch's one parameter buffer
-(``GrainParamsBatch.as_buffer``) to what the grain kernels read: the luma
+(``GrainParamsBatch.buffer``) to what the grain kernels read: the luma
 and the Cb|Cr per-plane parameter tables, the block offsets and, with
 patterns made on the device, the pattern rows and the pattern kernel's
 packed patterns (``program_body``). ``GrainProgram`` runs it for one
@@ -16,6 +16,15 @@ batch's buffer into the graph's static input and replays the graph on the
 current stream. On the CPU ``run`` calls the body eagerly: the same code,
 no graph. A failed capture or replay raises; nothing falls back to the
 eager body on the card.
+
+A program is keyed by its batch rounded up to a power of two
+(``batch_bucket``), not by the batch itself: a batch of fewer frames
+fills the first rows of the static input, and takes the first rows of
+the outputs. Every step of the body works frame by frame, so the rows
+past the batch (zeros, or an earlier batch's frames) touch nothing of
+it. The JAX package's segment bound ``n_seg`` is not in the key: the
+body evaluates every curve segment in one broadcast, at the same device
+time (``PERF.md`` §5), with the same tables.
 
 The outputs of a replay are the graph's static tensors: the next replay
 of the same program overwrites them. A caller consumes them on the stream
@@ -33,7 +42,7 @@ from __future__ import annotations
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,9 +54,12 @@ from .grain import (
     block_offsets,
 )
 
-# programs kept per process, least recently used dropped first: one
-# geometry with a ragged last batch and a few segment bounds
-MAX_PROGRAMS = 8
+# programs kept per process, least recently used dropped first. One
+# geometry at batches of up to 2^k frames makes at most 2 (k + 1) keys a
+# pattern source (k + 1 batch buckets, chroma on or off): 10 at render's
+# batch of 16, whatever the stream's tables. The 4K bench stream
+# (.bench_cache/bench_4k10_grainy.ivf) makes one.
+MAX_PROGRAMS = 16
 
 COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
 
@@ -63,24 +75,29 @@ class ProgramKey:
     arguments, the batch's shape and its device."""
 
     device: torch.device
-    batch: int
+    batch: int  # batch_bucket of the batches it runs
     height: int
     width: int
     bit_depth: int
     sub_x: int
     sub_y: int
     monochrome: bool
-    n_seg: int
-    chroma_static: bool
+    chroma_static: bool  # the Cb|Cr tables are made (never when monochrome)
     patterns: str  # "device": the pattern kernel runs in the program; "host": uploaded
 
     @classmethod
     def of(cls, y: torch.Tensor, bit_depth: int, sub_x: int, sub_y: int, monochrome: bool,
-           n_seg: int, chroma_static: bool, patterns: str) -> "ProgramKey":
+           chroma_static: bool, patterns: str) -> "ProgramKey":
         """The key of a batch of luma planes ``y`` (B, H, W)."""
         b, h, w = y.shape
-        return cls(y.device, b, h, w, bit_depth, sub_x, sub_y, bool(monochrome), int(n_seg),
-                   bool(chroma_static), patterns)
+        return cls(y.device, batch_bucket(b), h, w, bit_depth, sub_x, sub_y, bool(monochrome),
+                   bool(chroma_static) and not monochrome, patterns)
+
+
+def batch_bucket(b: int) -> int:
+    """The batch a program for batches of ``b`` frames is made at: the
+    next power of two."""
+    return 1 << max(0, b - 1).bit_length()
 
 
 @dataclass
@@ -91,6 +108,23 @@ class ProgramOutputs:
     rows: Optional[torch.Tensor]  # (B, Q_LEN) pattern rows; patterns made on the device only
     patterns: Optional[torch.Tensor] = None  # (B, n) int16 packed; the same
 
+    def first(self, b: int) -> "ProgramOutputs":
+        """The outputs of the first ``b`` frames: views of the same tensors,
+        but the Cb|Cr rows, which are copied together unless ``b`` is the
+        whole batch."""
+        n = self.params_y.shape[0]
+        if b == n:
+            return self
+
+        def rows_of(t):
+            return None if t is None else t[:b]
+
+        params2 = self.params2
+        if params2 is not None:
+            params2 = torch.cat([params2[:b], params2[n : n + b]])
+        return ProgramOutputs(rows_of(self.params_y), params2, rows_of(self.offsets),
+                              rows_of(self.rows), rows_of(self.patterns))
+
 
 def program_tables(p: GrainParamsBatch, key: ProgramKey) -> ProgramOutputs:
     """Everything of the program but the pattern kernel's launch, from
@@ -98,11 +132,11 @@ def program_tables(p: GrainParamsBatch, key: ProgramKey) -> ProgramOutputs:
     offsets = block_offsets(
         p.seed, (key.height + BLOCK - 1) // BLOCK, (key.width + BLOCK - 1) // BLOCK
     )
-    params_y = gk.pack_plane_params(p, "y", key.bit_depth, key.n_seg)
+    params_y = gk.pack_plane_params(p, "y", key.bit_depth)
     params2 = None
-    if not key.monochrome and key.chroma_static:
+    if key.chroma_static and not key.monochrome:
         params2 = torch.cat(
-            [gk.pack_plane_params(p, plane, key.bit_depth, key.n_seg) for plane in ("cb", "cr")]
+            [gk.pack_plane_params(p, plane, key.bit_depth) for plane in ("cb", "cr")]
         )
     rows = gk.pattern_params(p) if key.patterns == "device" else None
     return ProgramOutputs(params_y, params2, offsets, rows)
@@ -111,13 +145,14 @@ def program_tables(p: GrainParamsBatch, key: ProgramKey) -> ProgramOutputs:
 def program_body(buf: torch.Tensor, key: ProgramKey) -> ProgramOutputs:
     """The whole program on the (B, PARAMS_WIDTH) parameter buffer
     ``buf``, eagerly: ``program_tables``, then, with patterns made on the
-    device, the pattern kernel (its plain version on the CPU)."""
-    p = GrainParamsBatch.from_buffer(buf)
+    device, the pattern kernel on its rows (on the CPU, its plain
+    version)."""
+    p = GrainParamsBatch(buf)
     out = program_tables(p, key)
     if key.patterns == "device":
-        out.patterns = gk.generate_patterns_packed(
-            p, key.bit_depth, key.sub_x, key.sub_y, key.monochrome, rows=out.rows
-        )
+        layout = (key.bit_depth, key.sub_x, key.sub_y, key.monochrome)
+        out.patterns = (gk.pattern_kernel(out.rows, *layout) if buf.is_cuda
+                        else gk.generate_patterns_packed_reference(p, *layout))
     return out
 
 
@@ -141,35 +176,37 @@ class GrainProgram:
 
     def run(self, p: GrainParamsBatch) -> ProgramOutputs:
         """The program's outputs for the batch ``p``: on a CUDA device the
-        graph's static outputs after a replay (see the module's note on
-        their lifetime), on the CPU new tensors."""
+        first rows of the graph's static outputs after a replay (see the
+        module's note on their lifetime), on the CPU new tensors."""
         key = self.key
-        buf = p.as_buffer()
-        if tuple(buf.shape) != (key.batch, PARAMS_WIDTH) or buf.device != key.device:
+        buf = p.buffer
+        b = buf.shape[0]
+        if batch_bucket(b) != key.batch or buf.device != key.device:
             raise ValueError(
-                f"parameter buffer {tuple(buf.shape)} on {buf.device} does not fit the program "
-                f"of {key.batch} frames on {key.device}"
+                f"a batch of {b} frames on {buf.device} does not fit the program of "
+                f"{key.batch} frames on {key.device}"
             )
         if key.device.type == "cpu":
             return program_body(buf, key)
         if self.graph is None:
-            self._capture(buf)
+            self._capture()
         stream = torch.cuda.current_stream(key.device)
         if self._stream is not None and self._stream != stream:
             stream.wait_stream(self._stream)
         self._stream = stream
-        self.static_in.copy_(buf, non_blocking=True)
+        self.static_in[:b].copy_(buf, non_blocking=True)
         self.graph.replay()
         COUNTS["replays"] += 1
         for name, n in self.kernels.items():
             gk.LAUNCHES[name] += n
-        return self.outputs
+        return self.outputs.first(b)
 
-    def _capture(self, buf: torch.Tensor) -> None:
+    def _capture(self) -> None:
         t0 = time.perf_counter()
         dev = self.key.device
         with torch.cuda.device(dev):
-            self.static_in = buf.clone(memory_format=torch.contiguous_format)
+            self.static_in = torch.zeros((self.key.batch, PARAMS_WIDTH), dtype=torch.int32,
+                                         device=dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -189,26 +226,41 @@ class GrainProgram:
 
 
 _PROGRAMS: "OrderedDict[ProgramKey, GrainProgram]" = OrderedDict()
+# dropped programs whose last replay's stream had work queued, each with
+# an event recorded after that work; freed once it has passed
+_RETIRED: List[Tuple[torch.cuda.Event, GrainProgram]] = []
+
+
+def _retire(prog: GrainProgram) -> None:
+    """Keep ``prog`` until the work queued so far on its last replay's
+    stream has run: its outputs' readers run on that stream."""
+    if prog._stream is not None:
+        done = torch.cuda.Event()
+        done.record(prog._stream)
+        _RETIRED.append((done, prog))
 
 
 def program_for(key: ProgramKey) -> GrainProgram:
     """The cached program of ``key`` (made, not yet captured, on a miss).
-    Beyond ``MAX_PROGRAMS`` the least recently used is dropped, once its
-    device has finished with it."""
+    Beyond ``MAX_PROGRAMS`` the least recently used is dropped; its graph
+    and outputs are freed once its stream has passed them, without waiting
+    for the device."""
+    _RETIRED[:] = [(done, prog) for done, prog in _RETIRED if not done.query()]
     prog = _PROGRAMS.pop(key, None)
     if prog is None:
         prog = GrainProgram(key)
         while len(_PROGRAMS) >= MAX_PROGRAMS:
-            _, old = _PROGRAMS.popitem(last=False)
-            if old.graph is not None:
-                torch.cuda.synchronize(old.key.device)
+            _retire(_PROGRAMS.popitem(last=False)[1])
     _PROGRAMS[key] = prog
     return prog
 
 
 def clear_programs() -> None:
-    """Drop every cached program, once the devices have finished with them."""
+    """Drop every cached program, waiting until their streams have passed
+    them."""
     for prog in _PROGRAMS.values():
-        if prog.graph is not None:
-            torch.cuda.synchronize(prog.key.device)
+        _retire(prog)
     _PROGRAMS.clear()
+    for done, _ in _RETIRED:
+        done.synchronize()
+    _RETIRED.clear()

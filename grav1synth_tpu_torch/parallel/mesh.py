@@ -105,10 +105,10 @@ def _to(t: Optional[torch.Tensor], device: torch.device) -> Optional[torch.Tenso
 def _shard_params(p: GrainParamsBatch, sl: slice, device: torch.device) -> GrainParamsBatch:
     """Rows ``sl`` of a parameter batch, on ``device``: one copy of its
     buffer's rows (pinned first when they go from the host to a card)."""
-    buf = p.as_buffer()[sl]
+    buf = p.buffer[sl]
     if device.type == "cuda" and buf.device.type == "cpu":
         buf = buf.pin_memory()
-    return GrainParamsBatch.from_buffer(buf.to(device, non_blocking=True))
+    return GrainParamsBatch(buf.to(device, non_blocking=True))
 
 
 def sharded_apply_with_stats(

@@ -776,10 +776,10 @@ def program_paths(params, planes, bd, sub_x, sub_y, mono, patterns, device):
         def prep():
             return tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device=device,
                                        generate=tg.generate_patterns_ref)
-        n_seg, chroma_static = tg._host_metadata(params, mono)
+        chroma_static = tg._touches_chroma(params)
     else:
-        n_seg, chroma_static = 13, True
-    key = pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, n_seg, chroma_static, patterns)
+        chroma_static = True
+    key = pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, chroma_static, patterns)
 
     def graph():
         pb = tg.pack_params(params, device)
@@ -788,7 +788,7 @@ def program_paths(params, planes, bd, sub_x, sub_y, mono, patterns, device):
         return tg.apply_grain(y, cb, cr, pb, bd, sub_x, sub_y, mono)
 
     def eager():
-        tables = pg.program_body(tg.pack_params(params, device).as_buffer(), key)
+        tables = pg.program_body(tg.pack_params(params, device).buffer, key)
         if patterns == "host":
             pats = prep().planes()
         else:
@@ -854,12 +854,56 @@ def test_program_outputs_are_the_next_replays_on_cuda(cuda):
     of the same program writes the same tensors with its batch's tables."""
     first, second = pattern_zoo(80), pattern_zoo(81)
     y = torch.zeros((len(first), 64, 64), dtype=torch.int16, device=cuda)
-    prog = pg.program_for(pg.ProgramKey.of(y, 10, 1, 1, False, 13, True, "device"))
+    prog = pg.program_for(pg.ProgramKey.of(y, 10, 1, 1, False, True, "device"))
     out1 = prog.run(tg.pack_params(first, cuda))
     kept = out1.offsets.clone()
     pb2 = tg.pack_params(second, cuda)
     out2 = prog.run(pb2)
-    assert out2.offsets is out1.offsets and out2.patterns is out1.patterns
+    assert out2.offsets.data_ptr() == out1.offsets.data_ptr()
+    assert out2.patterns.data_ptr() == out1.patterns.data_ptr()
     torch.cuda.synchronize()
     want = tg.block_offsets(pb2.seed, 2, 2)  # the seeds differ between the batches
     assert torch.equal(out2.offsets, want) and not torch.equal(kept, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patterns", ["host", "device"])
+def test_program_ragged_batches_share_a_program_on_cuda(cuda, patterns):
+    """Batches of 5, 8 and 6 frames run one program captured at 8: each
+    fills the first rows of the static input and equals the eager body with
+    the same kernels, after a batch of other frames filled the rest."""
+    pg.clear_programs()
+    outs = []
+    for n, seed in ((5, 90), (8, 91), (6, 92)):
+        params = pattern_zoo(seed, n=n)
+        planes = _random_planes(np.random.default_rng(seed), n, 70, 301, 10, 1, 1, cuda)
+        graph, eager = program_paths(params, planes, 10, 1, 1, False, patterns, cuda)
+        outs.append((graph(), eager()))
+    torch.cuda.synchronize()
+    assert len(pg._PROGRAMS) == 1 and next(iter(pg._PROGRAMS)).batch == 8
+    for i, (got, want) in enumerate(outs):
+        for k in range(3):
+            assert torch.equal(got[k], want[k]), f"batch {i} plane {k}"
+
+
+@pytest.mark.cuda
+def test_program_cache_drops_programs_without_waiting_on_cuda(cuda):
+    """More geometries than the cache keeps: the least recent programs are
+    dropped once their stream has passed them, with no device-wide wait,
+    and every batch stays equal to its eager body."""
+    pg.clear_programs()
+    params = pattern_zoo(93, n=4)
+    results = []
+    for h in range(64, 64 + pg.MAX_PROGRAMS + 3):
+        planes = _random_planes(np.random.default_rng(h), len(params), h, 96, 10, 1, 1, cuda)
+        graph, eager = program_paths(params, planes, 10, 1, 1, False, "host", cuda)
+        results.append((graph(), eager()))
+    assert len(pg._PROGRAMS) == pg.MAX_PROGRAMS
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(results):
+        for k in range(3):
+            assert torch.equal(got[k], want[k]), f"geometry {i} plane {k}"
+    pg.program_for(next(iter(pg._PROGRAMS)))  # frees what has passed
+    assert not pg._RETIRED
+    pg.clear_programs()
+    assert not pg._PROGRAMS and not pg._RETIRED

@@ -8,7 +8,6 @@ so every comparison is exact (tolerance 0).
 """
 
 import copy
-import dataclasses
 
 import numpy as np
 import pytest
@@ -178,9 +177,9 @@ def test_pack_params_matches_jax():
     params = _param_zoo()
     mine = tg.pack_params(params, "cpu")
     theirs = grain_jax.pack_params(params)
-    for f in dataclasses.fields(tg.GrainParamsBatch):
-        _equal(getattr(mine, f.name), getattr(theirs, f.name), f.name)
-        assert getattr(mine, f.name).dtype == torch.int32, f.name
+    for name in tg.PARAM_COLUMNS:
+        _equal(getattr(mine, name), getattr(theirs, name), name)
+        assert getattr(mine, name).dtype == torch.int32, name
     assert mine.batch == len(params)
 
 

@@ -62,8 +62,7 @@ def test_generate_patterns_matches_jax_ref_and_native(bd, sub_x, sub_y, mono):
     packed = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
     host = tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device="cpu")
     assert packed.dtype == torch.int16 and torch.equal(packed, host.packed)
-    dev = tg.prepare_patterns_device(pb, bd, sub_x, sub_y, mono)
-    assert dev.chroma_shape == host.chroma_shape and torch.equal(dev.packed, host.packed)
+    assert host.chroma_shape == (None if mono else tg.chroma_pattern_shape(sub_x, sub_y))
 
 
 @pytest.mark.parametrize("lag", [0, 1, 2, 3])
@@ -149,8 +148,7 @@ def test_apply_without_patterns_matches_jax_device_paths_and_ref(sub_x, sub_y, m
     n_seg, chroma_static = grain_jax._host_metadata(params, mono)
     assert chroma_static
     mine_dev = tg.apply_grain_device_patterns(
-        _t(y), _t(cb), _t(cr), pb, bd, sub_x, sub_y, mono, n_seg=n_seg,
-        chroma_static=chroma_static,
+        _t(y), _t(cb), _t(cr), pb, bd, sub_x, sub_y, mono, chroma_static=chroma_static,
     )
     batch = grain_jax.apply_grain_batch_pallas(y, cb, cr, jb, bd, sub_x, sub_y, mono)
     dev = grain_jax.apply_grain_device_patterns(
@@ -182,12 +180,11 @@ def test_device_patterns_luma_only_batch_returns_chroma_untouched():
         p.ar_coeffs_cb, p.ar_coeffs_cr = [], []
     y, cb, cr = _frames(len(params), 64, 64, 10, 1, 1, False, seed=2)
     jb = grain_jax.pack_params(params)
-    n_seg, chroma_static = tg._host_metadata(params, False)
-    assert not chroma_static
+    n_seg, chroma_static = grain_jax._host_metadata(params, False)
+    assert not chroma_static and not tg._touches_chroma(params)
     cb_t, cr_t = _t(cb), _t(cr)
     out = tg.apply_grain_device_patterns(
-        _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), 10, n_seg=n_seg,
-        chroma_static=chroma_static,
+        _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), 10, chroma_static=chroma_static,
     )
     assert out[1] is cb_t and out[2] is cr_t
     want = grain_jax.apply_grain_device_patterns(
@@ -226,6 +223,6 @@ def test_pattern_wrapper_refuses_other_devices():
     """On any device but the CPU the wrapper launches the kernel or
     raises: it never falls back to the plain version."""
     pb = tg.pack_params(pattern_zoo(1, n=2), "cpu")
-    meta = tg.GrainParamsBatch(**{**vars(pb), "seed": pb.seed.to("meta")})
+    meta = tg.GrainParamsBatch(pb.buffer.to("meta"))
     with pytest.raises(ValueError, match="one CUDA device or on the CPU"):
         gk.generate_patterns_packed(meta, 10)

@@ -323,39 +323,33 @@ def test_one_buffer_pack_params_equals_per_field_upload(batch):
     want = parent_pack_params(params, "cpu")
     assert tuple(pb.buffer.shape) == (len(params), tg.PARAMS_WIDTH)
     assert pb.buffer.dtype == torch.int32 and pb.buffer.is_contiguous()
-    assert pb.as_buffer() is pb.buffer  # every field is a view of it
-    assert [f.name for f in dataclasses.fields(tg.GrainParamsBatch)] == list(want)
+    assert list(tg.PARAM_COLUMNS) == list(want)
     for name, w in want.items():
         got = getattr(pb, name)
         assert got.dtype == torch.int32 and got.shape == w.shape, name
+        assert got.untyped_storage().data_ptr() == pb.buffer.untyped_storage().data_ptr(), name
         _equal(got, w, name)
     jb = tg.from_jax_params(grain_jax.pack_params(params), "cpu")
-    assert jb.as_buffer() is jb.buffer
     assert torch.equal(jb.buffer, pb.buffer)
 
 
 def test_buffer_follows_in_place_edits_and_replaced_fields():
-    """In-place edits of a field land in the buffer; a batch whose field
-    was replaced, or that was built field by field, packs a new buffer of
-    its fields' values."""
+    """In-place edits of a field land in the buffer, the batch's only
+    storage; a field cannot be replaced, and a batch is made only from a
+    buffer of the layout's width."""
     pb = tg.pack_params(stray_slot_frames(), "cpu")
     stray_slots(pb)
-    buf = pb.as_buffer()
-    assert buf is pb.buffer
     start = tg.PARAM_COLUMNS["coeffs_cb"][0]
-    assert int(buf[1, start + 6]) == -90
-    seed = pb.seed + 1
-    swapped = tg.GrainParamsBatch(**{**vars(pb), "seed": seed})
-    assert swapped.as_buffer() is not pb.buffer
-    _equal(swapped.as_buffer()[:, 0], seed, "replaced seed")
-    _equal(swapped.as_buffer()[:, 1:], pb.buffer[:, 1:], "other columns")
-    rebuilt = dataclasses.replace(pb, clip=pb.clip ^ 1)
-    assert rebuilt.as_buffer() is not pb.buffer
-    _equal(rebuilt.as_buffer()[:, -1], pb.clip ^ 1, "replaced clip")
-    fieldwise = tg.GrainParamsBatch(
-        **{f.name: getattr(pb, f.name).clone() for f in dataclasses.fields(pb)}
-    )
-    assert torch.equal(fieldwise.as_buffer(), pb.buffer)
+    assert int(pb.buffer[1, start + 6]) == -90
+    pb.clip[:] ^= 1
+    _equal(pb.buffer[:, -1], pb.clip, "clip edited in place")
+    with pytest.raises(AttributeError):
+        pb.seed = pb.seed + 1
+    with pytest.raises(AttributeError):
+        pb.extra = 1  # nothing beside the buffer
+    for bad in (pb.buffer[:, 1:], pb.buffer.to(torch.int64), pb.buffer[0]):
+        with pytest.raises(ValueError, match="parameter buffer"):
+            tg.GrainParamsBatch(bad)
 
 
 def test_shard_params_move_buffer_rows():
@@ -364,22 +358,22 @@ def test_shard_params_move_buffer_rows():
     params = pattern_zoo(23, n=6)
     pb = tg.pack_params(params, "cpu")
     shard = tmesh._shard_params(pb, slice(2, 5), torch.device("cpu"))
-    assert shard.as_buffer() is shard.buffer
     assert torch.equal(shard.buffer, pb.buffer[2:5])
     want = tg.pack_params(params[2:5], "cpu")
-    for f in dataclasses.fields(pb):
-        _equal(getattr(shard, f.name), getattr(want, f.name), f.name)
+    for name in tg.PARAM_COLUMNS:
+        _equal(getattr(shard, name), getattr(want, name), name)
 
 
 # ---------------------------------------------------------------------------
 # The broadcast forms against the loops
 
 
-def _curves(rng, b):
-    """(pts, num) int32: random curves of every length, with repeated and
-    decreasing x among them."""
+def _curves(rng, b, most=14):
+    """(pts, num) int32: random curves of up to ``most`` points (the first
+    has that many), with repeated and decreasing x among them."""
     pts = np.zeros((b, 14, 2), dtype=np.int32)
-    num = rng.integers(0, 15, b).astype(np.int32)
+    num = rng.integers(0, most + 1, b).astype(np.int32)
+    num[0] = most
     for i in range(b):
         n = int(num[i])
         if i % 3 == 0:
@@ -395,17 +389,20 @@ def _curves(rng, b):
 
 @pytest.mark.parametrize("n_seg", range(1, 14))
 def test_scaling_eval8_broadcast_equals_loop(n_seg):
+    """Batches whose curves have at most ``n_seg`` segments: the broadcast
+    over every segment equals the loop bounded by the batch's ``n_seg`` (as
+    the parent's tables ran it) and the loop over all 13."""
     rng = np.random.default_rng(n_seg)
-    pts, num = _curves(rng, 24)
+    pts, num = _curves(rng, 24, most=n_seg + 1)
     nodes = torch.arange(256, dtype=torch.int32).expand(24, 256)
-    _equal(tg._scaling_eval8(nodes, pts, num, n_seg),
-           parent_scaling_eval8(nodes, pts, num, n_seg), "LUT")
-    _equal(tg.scaling_lut(pts, num, n_seg), parent_scaling_eval8(nodes, pts, num, n_seg),
-           "scaling_lut")
+    want = parent_scaling_eval8(nodes, pts, num, n_seg)
+    _equal(want, parent_scaling_eval8(nodes, pts, num), "loop: n_seg against 13")
+    _equal(tg._scaling_eval8(nodes, pts, num), want, "LUT")
+    _equal(tg.scaling_lut(pts, num), want, "scaling_lut")
     # planes wider than one chunk of the broadcast (2^24 segment tests)
     if n_seg in (1, 13):
         v = torch.from_numpy(rng.integers(0, 256, (24, 3, 30000)).astype(np.int32))
-        _equal(tg._scaling_eval8(v, pts, num, n_seg), parent_scaling_eval8(v, pts, num, n_seg),
+        _equal(tg._scaling_eval8(v, pts, num), parent_scaling_eval8(v, pts, num, n_seg),
                "chunked planes")
 
 
@@ -428,30 +425,29 @@ def test_program_outputs_equal_parent_tables(bd, layout, sub_x, sub_y, mono):
     params = mixed_batch(10 * bd + sub_x + 2 * sub_y + 4 * mono)
     pb = tg.pack_params(params, "cpu")
     h, w = 70, 130
-    n_seg, chroma_static = tg._host_metadata(params, mono)
-    assert chroma_static
+    # the segment bound the parent's tables ran with (the JAX package's)
+    n_seg, chroma_static = grain_jax._host_metadata(params, mono)
+    assert chroma_static and tg._touches_chroma(params)
     offs = parent_block_offsets(pb.seed, 3, 5)
-    y_rows = {n: parent_pack_plane_params(pb, "y", bd, n) for n in (n_seg, 13)}
-    c_rows = {n: torch.cat([parent_pack_plane_params(pb, pl, bd, n) for pl in ("cb", "cr")])
-              for n in (n_seg, 13)}
+    y_rows = parent_pack_plane_params(pb, "y", bd, n_seg)
+    c_rows = torch.cat([parent_pack_plane_params(pb, pl, bd, n_seg) for pl in ("cb", "cr")])
 
     def check(out, key):
-        what = f"{key.patterns} patterns, n_seg {key.n_seg}, chroma {key.chroma_static}"
+        what = f"{key.patterns} patterns, chroma {key.chroma_static}"
         _equal(out.offsets, offs, f"{what}: offsets")
-        _equal(out.params_y, y_rows[key.n_seg], f"{what}: luma rows")
+        _equal(out.params_y, y_rows, f"{what}: luma rows")
         if mono or not key.chroma_static:
             assert out.params2 is None, what
         else:
-            _equal(out.params2, c_rows[key.n_seg], f"{what}: Cb|Cr rows")
+            _equal(out.params2, c_rows, f"{what}: Cb|Cr rows")
         if key.patterns == "host":
             assert out.rows is None and out.patterns is None, what
         else:
             _equal(out.rows, parent_pattern_params(pb), f"{what}: pattern rows")
 
-    keys = [pg.ProgramKey(torch.device("cpu"), len(params), h, w, bd, sub_x, sub_y, mono, n, cs,
-                          patterns)
-            for patterns in ("host", "device")
-            for n, cs in ((n_seg, True), (13, True), (n_seg, False))]
+    y = torch.zeros((len(params), h, w), dtype=torch.int16)
+    keys = [pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, cs, patterns)
+            for patterns in ("host", "device") for cs in (True, False)]
     for key in keys:
         check(pg.program_tables(pb, key), key)
     # whole runs: the host-pattern program, and one with the pattern
@@ -462,8 +458,8 @@ def test_program_outputs_equal_parent_tables(bd, layout, sub_x, sub_y, mono):
     assert again.params_y is not host.params_y and torch.equal(again.params_y, host.params_y)
     if bd != 10:  # the plain pattern generator is slow; one bit depth a layout
         return
-    card = pg.program_for(keys[3]).run(pb)
-    check(card, keys[3])
+    card = pg.program_for(keys[2]).run(pb)
+    check(card, keys[2])
     want = tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device="cpu",
                                generate=tg.generate_patterns_ref).packed
     assert card.patterns.dtype == torch.int16 and torch.equal(card.patterns, want)
@@ -471,7 +467,7 @@ def test_program_outputs_equal_parent_tables(bd, layout, sub_x, sub_y, mono):
 
 def test_program_refuses_a_batch_it_was_not_made_for():
     pb = tg.pack_params(pattern_zoo(2, n=3), "cpu")
-    key = pg.ProgramKey(torch.device("cpu"), 4, 64, 64, 10, 1, 1, False, 13, True, "host")
+    key = pg.ProgramKey(torch.device("cpu"), 2, 64, 64, 10, 1, 1, False, True, "host")
     with pytest.raises(ValueError, match="does not fit the program"):
         pg.GrainProgram(key).run(pb)
     with pytest.raises(ValueError, match="patterns must be"):
@@ -482,8 +478,8 @@ def test_program_refuses_a_batch_it_was_not_made_for():
 
 def test_program_cache_keeps_the_most_recent():
     pg.clear_programs()
-    keys = [pg.ProgramKey(torch.device("cpu"), 2, 64, 64, 10, 1, 1, False, n, True, "host")
-            for n in range(1, pg.MAX_PROGRAMS + 3)]
+    keys = [pg.ProgramKey(torch.device("cpu"), 2, 64, h, 10, 1, 1, False, True, "host")
+            for h in range(64, 64 + pg.MAX_PROGRAMS + 2)]
     progs = [pg.program_for(k) for k in keys]
     assert pg.program_for(keys[2]) is progs[2]  # now the most recent
     pg.program_for(keys[0])  # made again: the least recent (keys[3]) goes
@@ -492,6 +488,48 @@ def test_program_cache_keeps_the_most_recent():
     assert pg.program_for(keys[-1]) is progs[-1]
     pg.clear_programs()
     assert not pg._PROGRAMS
+
+
+@pytest.mark.parametrize("b,bucket", [(0, 1), (1, 1), (2, 2), (3, 4), (5, 8), (16, 16),
+                                      (17, 32), (112, 128)])
+def test_program_key_rounds_the_batch_up_to_a_power_of_two(b, bucket):
+    """Batches of 9 to 16 frames share one program, and so on: a stream's
+    batches make a few programs, not one per batch size. Monochrome keys
+    never make chroma tables, whatever the caller says."""
+    assert pg.batch_bucket(b) == bucket
+    y = torch.zeros((b, 8, 8), dtype=torch.int16)
+    key = pg.ProgramKey.of(y, 10, 1, 1, False, True, "host")
+    assert key.batch == bucket and key.chroma_static
+    assert pg.ProgramKey.of(y, 10, 1, 1, True, True, "host") == \
+        pg.ProgramKey.of(y, 10, 1, 1, True, False, "host")
+
+
+@pytest.mark.parametrize("layout,sub_x,sub_y,mono", LAYOUTS, ids=[c[0] for c in LAYOUTS])
+def test_program_rows_past_the_batch_touch_nothing(layout, sub_x, sub_y, mono):
+    """On the card a batch fills the first rows of its program's static
+    input and the rest keep zeros or an earlier batch's frames. The body on
+    such a padded buffer, cut to the batch (``ProgramOutputs.first``),
+    equals the body on the batch alone, the Cb|Cr rows included."""
+    params = mixed_batch(30 + sub_x + 2 * sub_y)
+    b = len(params)
+    n = pg.batch_bucket(b)
+    assert n > b
+    pb = tg.pack_params(params, "cpu")
+    other = tg.pack_params(pattern_zoo(31, n=n), "cpu").buffer
+    y = torch.zeros((b, 40, 70), dtype=torch.int16)
+    for patterns in ("host", "device") if layout == "420" else ("host",):
+        key = pg.ProgramKey.of(y, 10, sub_x, sub_y, mono, True, patterns)
+        want = pg.program_body(pb.buffer, key)
+        for pad in (torch.zeros_like(other), other):
+            padded = pad.clone()
+            padded[:b] = pb.buffer
+            got = pg.program_body(padded, key).first(b)
+            for name in ("params_y", "params2", "offsets", "rows", "patterns"):
+                g, w = getattr(got, name), getattr(want, name)
+                assert (g is None) == (w is None), name
+                if w is not None:
+                    _equal(g, w, f"{patterns} patterns: {name}")
+        assert pg.program_body(pb.buffer, key).first(b).params_y.shape[0] == b
 
 
 # ---------------------------------------------------------------------------
@@ -515,7 +553,7 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
     params = mixed_batch(bd + h) if batch == "mixed" else luma_batch(bd + h)
     y, cb, cr = frames(len(params), h, w, bd, sub_x, sub_y, mono, seed=bd * 7 + h)
     jb = grain_jax.pack_params(params)
-    n_seg, chroma_static = tg._host_metadata(params, mono)
+    chroma_static = tg._touches_chroma(params)
     assert chroma_static == (batch == "mixed")
     cb_t, cr_t = _t(cb), _t(cr)
     outs = {
@@ -525,7 +563,7 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
                                         sub_x, sub_y, mono),
         "card patterns, host facts": tg.apply_grain_device_patterns(
             _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), bd, sub_x, sub_y, mono,
-            n_seg=n_seg, chroma_static=chroma_static),
+            chroma_static=chroma_static),
     }
     want = grain_jax.apply_grain(y, cb, cr, jb, bd, sub_x, sub_y, mono, backend="pallas",
                                  host_params=params)
@@ -589,11 +627,11 @@ def test_program_body_is_capture_safe(layout, sub_x, sub_y, mono, patterns):
     params = mixed_batch(4)
     buf = tg.pack_params(params, "cpu").buffer.to("meta")
     key = pg.ProgramKey(torch.device("meta"), len(params), 2160, 3840, 10, sub_x, sub_y, mono,
-                        3, True, patterns)
-    p = tg.GrainParamsBatch.from_buffer(buf)
+                        True, patterns)
+    p = tg.GrainParamsBatch(buf)
     pg.program_tables(p, key)  # warm-up: fills the LFSR basis cache
     with NoHostTensors():
-        out = pg.program_tables(tg.GrainParamsBatch.from_buffer(buf), key)
+        out = pg.program_tables(tg.GrainParamsBatch(buf), key)
     assert out.offsets.device.type == "meta"
     assert tuple(out.offsets.shape) == (len(params), 68, 120)
     assert tuple(out.params_y.shape) == (len(params), gk.P_LEN)
