@@ -55,15 +55,28 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    plain version, to the chroma-pair kernel and, on frame 0, to
    grain_ref; two small frames also against grain_ref; then its time
    (CUDA events) beside its plain version's;
-8. the estimate main path at full size: the grained film-like frames of
-   phase 6, two batches of 16 through ``NoiseEstimator.push_batch`` and
-   ``finish`` on the card (the flat-block kernel's launches counted);
-   the table must equal the one from the same estimator with the
-   flat-block kernel's plain version, and the blurred plane, the flat
-   map and the statistics of the first two frames must agree with the
-   port's CPU run (rtol 1e-9); the recovered luma sigma curve is scored
-   against the injected one, and push_batch frames/s is timed with the
-   upload and the statistics download;
+8. the blur and self-statistics kernels of the estimate path against their
+   plain versions on the card, equal to the last bit, over 4:2:0/4:2:2/
+   4:4:4 x 8/10/12-bit x lag 0-3 x small odd and even sizes (planes under
+   9 and under 16 samples) and at 3840x2160 10-bit 4:2:0 with 16 frames,
+   luma and chroma with the pooled luma column; the blur also at widths
+   520-531 (every residue of its 4-column lanes), on uint8 planes, on bases
+   off the 16-byte boundary, on 41,000 CTAs and over the int16 range; the
+   statistics on the 12-bit 0/max checkerboard (|q| = 40 max), a plane
+   10000 rows tall and q/den/lsum off the 16-byte boundary. Then the
+   estimate main path at full size: the grained film-like frames of phase
+   6, two batches of 16 through ``NoiseEstimator.push_batch`` and
+   ``finish`` on the card, with the blur, flat-block and statistics
+   kernels' launches counted exactly (once a plane and batch); the table
+   must equal the one from the same estimator on the plain versions, and
+   the blur, residual, flat map and statistics of the first two frames
+   must equal the port's CPU run (an entry whose raw sum may pass 2^53 at
+   rtol 1e-9); the recovered luma sigma curve is scored against the
+   injected one; then both kernels' times (CUDA events) beside their plain
+   versions' and bounds (the blur also beside one cuDNN convolution of
+   its box sum), and push_batch frames/s with the upload and the
+   statistics download, its device busy and idle share and its device
+   time by entry under torch.profiler;
 9. the grain-pattern kernel against its plain version on the card, equal
    (tolerance 0), over 8/10/12-bit x 4:2:0/4:2:2/4:4:4/monochrome with
    mixed batches (AR lag 0-3, grain_scale_shift 0-3, chroma scaling from
@@ -123,14 +136,17 @@ runs through the batch's parameter program (one graph replay on the card).
 
 Every ``[time]`` line gives the kernel's time beside its plain version's
 and its bound: the larger of the bytes it must move (inputs read once,
-outputs written once) over the card's 3.35 TB/s and its integer
-operations over the int32 rate, computed from that run's inputs, and the
-share (bound / time). The pattern kernel is a dependent chain, which that
+outputs written once) over the card's 3.35 TB/s and its operations over
+the card's peak for their type (integer ones over the int32 rate, the
+self-statistics' float64 multiply-adds over the tensor cores' float64
+rate, with their bound outside the tensor cores beside it), computed
+from that run's inputs, and the share (bound / time). The pattern kernel is a dependent chain, which that
 bound does not see: its lines add the chain bound, the wavefront steps of
 the slowest frame times the least cycles a step can take, which a loop of
 the step's dependent instructions measures in the same run (the "[chain]"
-line) with the SM clock it ran at. No PyTorch call computes any kernel's function, so
-``library_ms`` is null. The script ends by checking that neither jax nor
+line) with the SM clock it ran at. No PyTorch call computes any kernel's function but
+the blur's box sum (``library_ms`` of ``self_blur``: one convolution), so
+the others' ``library_ms`` is null. The script ends by checking that neither jax nor
 any module of the JAX package ``grav1synth_tpu`` was imported.
 
 The last two lines are the kernels' JSON summary and
@@ -163,6 +179,8 @@ SOURCES = {
     "grain_pattern": "grav1synth_tpu_torch/csrc/pattern_kernels.cu",
     "flat_block_activity": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
     "plane_stats": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
+    "self_blur": "grav1synth_tpu_torch/csrc/estimate_kernels.cu",
+    "self_stats": "grav1synth_tpu_torch/csrc/estimate_kernels.cu",
 }
 REPLACES = {
     "grain_luma": "grav1synth_tpu/ops/grain_pallas.py:575",  # _luma_kernel
@@ -173,16 +191,22 @@ REPLACES = {
     "grain_pattern": "grav1synth_tpu/ops/grain_jax.py:266",
     "flat_block_activity": "grav1synth_tpu/ops/diff_pallas.py:272",  # _act_kernel
     "plane_stats": "grav1synth_tpu/ops/diff_pallas.py:108",  # _stats_kernel
+    # not Pallas kernels: XLA inside the jitted frame_self_stats (:77) and
+    # frame_self_stats_chroma (:114)
+    "self_blur": "grav1synth_tpu/ops/estimate.py:52",  # _box_blur, round and clip :85-88
+    # _masked_normal_eqs (:128) and _binned_moments (:175)
+    "self_stats": "grav1synth_tpu/ops/diff_estimate.py:128",
 }
-# integer arithmetic (grain) and exact int64 / float64 sums (diff): the
-# kernels and their plain versions must be equal
+# integer arithmetic (grain, blur) and exact int64 / float64 sums (diff,
+# estimate statistics): the kernels and their plain versions must be equal
 TOLERANCE = 0
-# the estimate statistics on the card against the CPU run: float64 sums of
-# integer products, taken in another order (cuBLAS, atomics)
+# the estimate statistics on the card against the CPU run: equal, but for an
+# entry whose raw integer sum may pass 2^53, where the CPU's float64 sums,
+# taken in another order, may round
 ESTIMATE_RTOL = 1e-9
 KERNELS = (
     "grain_luma", "grain_chroma_pair", "grain_chroma", "grain_pattern",
-    "flat_block_activity", "plane_stats",
+    "flat_block_activity", "plane_stats", "self_blur", "self_stats",
 )
 # energy of the sharded apply (an exact int64 sum per shard, added in
 # float64) against an int64 recount
@@ -193,16 +217,22 @@ RANK_GROUP_TIMEOUT = 180.0
 RANK_WAIT = 480.0
 # what a kernel's entry of the summary line may carry beside the common keys
 EXTRA_KEYS = ("label", "chain_bound_ms", "chain_steps", "chain_step_cycles", "sm_clock_mhz",
-              "other_cases")
+              "fp64_core_bound_ms", "other_cases")
 # (sub_x, sub_y, monochrome) of the pattern kernel's cases
 PATTERN_LAYOUTS = ((1, 1, False), (1, 0, False), (0, 0, False), (1, 1, True))
 
 # The card's peaks for a kernel's bound (H100 SXM at 700 W): HBM3 at
 # 3.35 TB/s. For int32 outside the tensor cores, an SM has 64 int32 lanes
 # against 128 float32 ones, so half of its 67 TFLOP/s float32 rate, a
-# multiply-add counted as two operations.
+# multiply-add counted as two operations. float64 runs at 67 TFLOP/s on the
+# tensor cores (DMMA), the card's peak for the type, and at half that
+# outside them (the data sheet's 34 TFLOP/s), where a float64 multiply-add
+# of the self-statistics runs today: its bound takes the first, and its line
+# adds the second as its own ceiling.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+FP64_OPS_PER_S = 67e12
+FP64_CORE_OPS_PER_S = 33.5e12
 # Integer operations of the grain arithmetic per sample (a multiply-add
 # counts two): scaling input clamp 2, scale x noise + rounding 2, shift 1,
 # add 1, clip 2. Chroma adds the pair average (3 per sample, shared by Cb
@@ -211,6 +241,10 @@ INT32_OPS_PER_S = 33.5e12
 GRAIN_OPS, AVG_OPS, COMBINE_OPS = 8, 3, 8
 # flat-block activity: two differences, two absolute values, two adds
 ACTIVITY_OPS = 6
+# blur, per sample: the vertical and horizontal running sums (an add and a
+# subtraction each), the rounding add and the division by 81 (a multiply-
+# high and a shift), the clip (2) and q = 81 f - S (a multiply-add)
+BLUR_OPS = 11
 # pattern generation: per Gaussian sample an LFSR step, the table read and
 # a Round2 (6); per AR position a Round2 and a clamp (4) beside one
 # multiply-add per tap
@@ -245,7 +279,8 @@ extern "C" int chain_cycles(void* out, int iters, int shuffle, void* stream) {
   return (int)cudaGetLastError();
 }
 """
-# No PyTorch call computes any kernel's function, so no library time.
+# No PyTorch call computes the function of any kernel but the blur's, whose
+# box sum one convolution computes (timed in phase 8 as its library_ms).
 LIBRARY_NOTE = {
     "grain_luma": "none: per-block pattern gather, LUT scaling and overlap blend",
     "grain_chroma_pair": "none: the chroma grain of grain_luma with the luma pair average",
@@ -253,6 +288,8 @@ LIBRARY_NOTE = {
     "grain_pattern": "none: an AR recurrence over LFSR Gaussian noise",
     "flat_block_activity": "none: per-block sum of absolute gradients",
     "plane_stats": "none: a masked lag-window Gram and binned moments",
+    "self_blur": "torch.nn.functional.conv2d of the box sum (float32; den and q not formed)",
+    "self_stats": "none: the Gram needs the shifted, masked design built first",
 }
 
 
@@ -264,21 +301,35 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def timing(ms: float, plain_ms: float, moved: float, ops: float) -> dict:
+def timing(ms: float, plain_ms: float, moved: float, ops: float, fp64_ops: float = 0.0) -> dict:
     """A kernel's time beside its plain version's and its bound: the
-    larger of the bytes it must move over the HBM rate and its integer
-    operations over the int32 rate."""
-    b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    larger of the bytes it must move over the HBM rate and its operations
+    over the card's peak for their type (integer over the int32 rate,
+    float64 over the tensor cores' float64 rate). With float64 operations
+    the record adds ``fp64_core_bound_ms``, the bound with them outside the
+    tensor cores."""
+    b_ms = moved / HBM_BYTES_PER_S * 1e3
+    o_ms = (ops / INT32_OPS_PER_S + fp64_ops / FP64_OPS_PER_S) * 1e3
     bound_ms, by = (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "bytes": moved, "ops": ops}
+    rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+           "bytes": moved, "ops": ops, "fp64_ops": fp64_ops}
+    if fp64_ops:
+        rec["fp64_core_bound_ms"] = max(
+            b_ms, (ops / INT32_OPS_PER_S + fp64_ops / FP64_CORE_OPS_PER_S) * 1e3)
+    return rec
 
 
 def time_line(name: str, label: str, t: dict, card: str) -> str:
     plain = "not timed" if t["plain_ms"] is None else f"{t['plain_ms']:.3f} ms"
+    ops = f"{t['ops'] / 1e9:.3f} G int ops"
+    core = ""
+    if t["fp64_ops"]:
+        ops += f" + {t['fp64_ops'] / 1e9:.3f} G float64 ops"
+        core = (f"; outside the tensor cores {t['fp64_core_bound_ms']:.4f} ms, share "
+                f"{t['fp64_core_bound_ms'] / t['ms']:.3f}")
     return (f"[time] {name} {label}: kernel {t['ms']:.4f} ms, plain PyTorch {plain}"
             f"; bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes'] / 1e6:.1f} MB, "
-            f"{t['ops'] / 1e9:.3f} G int ops), share {t['bound_ms'] / t['ms']:.3f}; library "
+            f"{ops}), share {t['bound_ms'] / t['ms']:.3f}{core}; library "
             f"call {LIBRARY_NOTE[name]} on {card}")
 
 
@@ -586,7 +637,12 @@ def film_frames(rng, n, h, w, bd):
 
 
 def stats_err(got: dict, want: dict) -> float:
-    return max(float((got[k] - want[k]).abs().max().item()) for k in want)
+    """Largest |difference| over the statistics (the Gram of a lag-0 luma
+    plane is empty); differing keys or shapes raise."""
+    if set(got) != set(want) or any(got[k].shape != want[k].shape for k in want):
+        raise AssertionError(f"statistics differ in keys or shapes: {sorted(got)}, {sorted(want)}")
+    return max((float((got[k] - want[k]).abs().max().item()) for k in want if want[k].numel()),
+               default=0.0)
 
 
 def diff_planes(rng, b, h, w, bd, sub_x, sub_y):
@@ -1100,28 +1156,242 @@ def stats_rel_err(got: dict, want: dict) -> float:
     )
 
 
+def blur_equal(f, bd, errs, what):
+    """``self_blur`` against its plain version; returns (den, q)."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    den, q = ek.self_blur(f, bd)
+    pden, pq = ek.self_blur_reference(f, bd)
+    e = max(max_abs_err(den, pden), int((q.long() - pq.long()).abs().max().item()))
+    errs["self_blur"] = max(errs["self_blur"], e)
+    if e > TOLERANCE:
+        raise AssertionError(f"{what}: self_blur vs plain max |err| {e}")
+    return den, q
+
+
+def self_stats_equal(q, den, lsum, n_pool, lags, bd, errs, what):
+    """``self_stats`` against its plain version on the same card inputs,
+    without and (where given) with the pooled luma column; returns the
+    number of comparisons."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    blocks = de.flat_blocks(den)
+    n = 0
+    for lag in lags:
+        for aux in (None,) if lsum is None else (None, lsum):
+            e = stats_err(ek.self_stats(q, den, blocks, aux, n_pool, lag, bd),
+                          ek.self_stats_reference(q, den, blocks, aux, n_pool, lag, bd))
+            errs["self_stats"] = max(errs["self_stats"], e)
+            if e > TOLERANCE:
+                raise AssertionError(f"{what} lag {lag} lsum {aux is not None}: self_stats vs "
+                                     f"plain max |err| {e}")
+            n += 1
+    return n
+
+
+def estimate_planes_equal(planes, bd, sub_x, sub_y, lags, dev, errs, what):
+    """Both estimate kernels on a luma and a chroma plane batch (numpy or
+    card tensors): the blur of each, then the statistics of luma and of
+    chroma with the luma pooled as the estimate path pools it."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+
+    y, c = (t if torch.is_tensor(t) else torch.from_numpy(t).to(dev) for t in planes)
+    den_y, q_y = blur_equal(y, bd, errs, f"{what} luma")
+    den_c, q_c = blur_equal(c, bd, errs, f"{what} chroma")
+    lsum = de.pool_sum(q_y, c.shape[1], c.shape[2], sub_x, sub_y)
+    return (self_stats_equal(q_y, den_y, None, 1, lags, bd, errs, f"{what} luma")
+            + self_stats_equal(q_c, den_c, lsum, (1 + sub_x) * (1 + sub_y), lags, bd, errs,
+                               f"{what} chroma"))
+
+
+def checkerboard(b, h, w, bd):
+    """0 / max in a checkerboard (mirrored in odd frames): every block away
+    from the edge has the same activity, so all of them are flat, and |q|
+    reaches 40 max inside the edge band."""
+    i, j = np.mgrid[0:h, 0:w]
+    board = np.where((i + j) % 2, 0, (1 << bd) - 1).astype(np.int16)
+    return np.stack([board if k % 2 == 0 else board[:, ::-1] for k in range(b)])
+
+
+def estimate_edge_cases(rng, dev, errs) -> int:
+    """The estimate kernels at their edges (as tests/test_torch_cuda.py):
+    the blur at widths 520-531 (every residue of its 4-column lanes), on
+    uint8 planes, on bases off the 16-byte boundary and a batch slice, on
+    4 frames of 16000x2600 (41,000 CTAs), over the whole int16 range; the
+    statistics on the 12-bit 0/max checkerboard (|q| = 40 max), on a plane
+    10000 rows tall, on q, den and lsum off the 16-byte boundary, at lags
+    0-3. Returns the number of cases."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    n = 0
+    for w in range(520, 532):
+        for bd in (8, 10, 12):
+            h = (33, 64, 41)[w % 3]
+            f = torch.from_numpy(rng.integers(0, 1 << bd, (3, h, w), dtype=np.int16)).to(dev)
+            blur_equal(f, bd, errs, f"{bd}-bit {w}x{h}")
+            if bd == 8:
+                blur_equal(f.to(torch.uint8), bd, errs, f"uint8 {w}x{h}")
+            n += 1
+    f = torch.from_numpy(rng.integers(0, 1024, (4, 40, 528), dtype=np.int16)).to(dev)
+    blur_equal(shifted(f), 10, errs, "528x40 3 samples into its storage")
+    blur_equal(f[1:], 10, errs, "batch slice [1:] of 528x40")
+    big = torch.from_numpy(rng.integers(0, 4096, (4, 2600, 16000), dtype=np.int16)).to(dev)
+    blur_equal(big, 12, errs, "4 x 16000x2600")
+    del big
+    for v in (-32768, 32767):
+        blur_equal(torch.full((2, 40, 150), v, dtype=torch.int16, device=dev), 12, errs, f"all {v}")
+    n += 5
+    for sub in ((0, 0), (1, 1)):
+        y = torch.from_numpy(checkerboard(2, 96, 200, 12)).to(dev)
+        c = torch.from_numpy(checkerboard(2, 96 >> sub[1], 200 >> sub[0], 12)).to(dev)
+        den, q = ek.self_blur(y, 12)
+        if int(q[:, 4:-4, 4:-4].abs().max()) != 40 * 4095:
+            raise AssertionError("the checkerboard's |q| is not 40 max")
+        estimate_planes_equal((y, c), 12, *sub, (0, 1, 2, 3), dev, errs,
+                              f"12-bit checkerboard {sub}")
+        n += 1
+    tall = torch.from_numpy(diff_planes(rng, 1, 10000, 48, 10, 0, 0)[0]).to(dev)
+    den, q = blur_equal(tall, 10, errs, "48x10000")
+    self_stats_equal(q, den, q, 1, (0, 1, 2, 3), 10, errs, "10-bit 48x10000")
+    sy = torch.from_numpy(diff_planes(rng, 2, 150, 264, 10, 0, 0)[0]).to(dev)
+    den, q = blur_equal(sy, 10, errs, "264x150")
+    self_stats_equal(shifted(q), shifted(den), shifted(q, 1), 1, (0, 1, 2, 3), 10, errs,
+                     "264x150 q, den, lsum off the 16-byte boundary")
+    return n + 2
+
+
+class plain_estimate_path:
+    """Within the block, ops.estimate runs the plain PyTorch versions of
+    the blur, the flat-block activity and the statistics instead of the
+    kernels (the reference the fitted table is held against)."""
+
+    def __enter__(self):
+        from grav1synth_tpu_torch.ops import diff_estimate as de
+        from grav1synth_tpu_torch.ops import diff_kernels as dk
+        from grav1synth_tpu_torch.ops import estimate as te
+        from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+        self.saved = te.self_blur, te.self_stats, de.flat_block_activity
+        te.self_blur, te.self_stats = ek.self_blur_reference, ek.self_stats_reference
+        de.flat_block_activity = dk.flat_block_activity_reference
+
+    def __exit__(self, *exc):
+        from grav1synth_tpu_torch.ops import diff_estimate as de
+        from grav1synth_tpu_torch.ops import estimate as te
+
+        te.self_blur, te.self_stats, de.flat_block_activity = self.saved
+
+
+def estimate_launches():
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    return {**ek.LAUNCHES, "flat_block_activity": dk.LAUNCHES["flat_block_activity"]}
+
+
+def exact_or_rtol(got: dict, want: dict, n_pool, what: str) -> str:
+    """Card statistics against the CPU run's: equal where every raw integer
+    sum behind an entry is below 2^53 (both sides then hold it exactly);
+    an entry whose raw sum may pass 2^53 is compared at ESTIMATE_RTOL, and
+    the returned note says how many did."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    loose = 0
+    for k, w in want.items():
+        g = got[k].cpu()
+        # the largest factor between an entry and its raw integer sum
+        unscale = {"ata": ek.AREA**2 * (n_pool or 1) ** 2, "atb": ek.AREA**2 * (n_pool or 1),
+                   "bin_sum": ek.AREA, "bin_sumsq": ek.AREA**2}.get(k, 1)
+        big = w.abs() * unscale >= 2.0**53
+        loose += int(big.sum())
+        if not torch.equal(g[~big], w[~big]):
+            raise AssertionError(f"{what} {k}: card differs from the CPU run")
+        if big.any():
+            scale = max(float(w.abs().max()), 1.0)
+            if float((g[big] - w[big]).abs().max()) / scale > ESTIMATE_RTOL:
+                raise AssertionError(f"{what} {k}: card vs CPU beyond rtol {ESTIMATE_RTOL}")
+    return f"{what}: {loose} entries past 2^53 (at rtol {ESTIMATE_RTOL}), the rest equal"
+
+
+def top_device_ops(fn, reps: int, n: int = 8) -> str:
+    """The ``n`` largest device-time entries of torch.profiler's key
+    averages over ``reps`` calls of ``fn``, ms per call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    rows = sorted((e for e in prof.key_averages() if dev_us(e) > 0), key=dev_us, reverse=True)
+    return "; ".join(f"{e.key[:60]} {dev_us(e) / 1e3 / reps:.3f} ms" for e in rows[:n])
+
+
 def estimate_phase(card, eff, dev, grainy):
-    """Phase 8: the estimate main path at full size."""
+    """Phase 8: the estimate kernels against their plain versions, then
+    the estimate main path at full size; returns K8's and K9's launches,
+    times and errors for the summary."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import diff_kernels as dk
     from grav1synth_tpu_torch.ops import estimate as te
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
     BD = 10
+    errs = {"self_blur": 0, "self_stats": 0.0}
+    rng = np.random.default_rng(2027)
+    n_cases = n_stats = 0
+    for bd in (8, 10, 12):
+        for sub_x, sub_y in ((1, 1), (1, 0), (0, 0)):
+            for h, w in ((64, 64), (70, 100), (41, 301), (33, 17), (12, 40), (8, 77), (150, 260)):
+                sy, _, sc = diff_planes(rng, 3, h, w, bd, sub_x, sub_y)[:3]
+                n_stats += estimate_planes_equal((sy, sc), bd, sub_x, sub_y, (0, 1, 2, 3), dev,
+                                                 errs, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
+                n_cases += 1
+    n_edge = estimate_edge_cases(rng, dev, errs)
+    # the main path's inputs: the first batch of grained 4K10 frames
+    y16, cb16, cr16 = (torch.from_numpy(p[:16]).to(dev) for p in grainy)
+    for c in (cb16, cr16):
+        n_stats += estimate_planes_equal((y16, c), BD, 1, 1, (0, 1, 2, 3), dev, errs,
+                                         "10-bit 4:2:0 3840x2160 B=16")
+    torch.cuda.synchronize()
+    log(f"[estimate kernels] {n_cases + 1} plane sets (4:2:0/4:2:2/4:4:4 x 8/10/12-bit, planes "
+        f"under 9 and 16 samples, 3840x2160 10-bit 4:2:0 B=16) and {n_edge} edge cases (blur "
+        f"widths 520-531, uint8, bases off the 16-byte boundary, 41,000 CTAs, int16 extremes; "
+        f"the 12-bit 0/max checkerboard, a 10000-row plane, unaligned q/den/lsum); {n_stats} "
+        f"statistics comparisons at lags 0-3, luma and chroma with the pooled luma column; equal "
+        f"to the plain versions (max |err| {errs})")
 
-    def estimate(device):
+    # the main path: two batches of 16 through push_batch, then finish
+    def estimate(device, counts=None):
         est = te.NoiseEstimator((30, 1), BD, device=device)
         for i0 in (0, 16):
             est.push_batch(frames_of(grainy, i0, 16))
+        if counts is not None:
+            torch.cuda.synchronize()
+            counts.append(estimate_launches())
         return est.finish()
 
     torch.cuda.synchronize()
+    ek.reset_launch_counts()
     dk.reset_launch_counts()
-    tables = estimate(dev)
+    pushed = []
+    tables = estimate(dev, pushed)
     torch.cuda.synchronize()
-    launches = dk.LAUNCHES["flat_block_activity"]
-    log(f"[estimate main path] launches {{'flat_block_activity': {launches}}}")
-    if launches < 1:
-        raise AssertionError("the flat-block kernel never launched on the estimate path")
-    with plain_diff_path():
+    launches = estimate_launches()
+    log(f"[estimate main path] launches after the two push_batch calls {pushed[0]}, after "
+        f"finish (its calibration pushes one 6-frame batch) {launches}")
+    # K8, K5 and K9 once a plane and batch: 3 planes x 2 batches, then the
+    # calibration's 3-plane batch
+    if pushed[0] != {"self_blur": 6, "self_stats": 6, "flat_block_activity": 6} or launches != {
+            "self_blur": 9, "self_stats": 9, "flat_block_activity": 9}:
+        raise AssertionError(f"estimate main path launches {pushed[0]}, {launches}")
+    with plain_estimate_path():
         plain_tables = estimate(dev)
     if not tables or [(t.start_time, t.end_time, t.params) for t in tables] != [
         (t.start_time, t.end_time, t.params) for t in plain_tables
@@ -1133,37 +1403,103 @@ def estimate_phase(card, eff, dev, grainy):
 
     # the first two frames against the port's CPU run
     y, cb, cr = (torch.from_numpy(p[:2]) for p in grainy)
-    den_c, _ = te.box_blur(y, BD)
-    den_d, _ = te.box_blur(y.to(dev), BD)
-    if not torch.equal(den_d.cpu(), den_c):
-        raise AssertionError("blurred plane on the card differs from the CPU's")
+    den_c, q_c = te.self_blur(y, BD)
+    den_d, q_d = te.self_blur(y.to(dev), BD)
+    if not torch.equal(den_d.cpu(), den_c) or not torch.equal(q_d.cpu(), q_c):
+        raise AssertionError("blurred plane or residual on the card differs from the CPU's")
     if not torch.equal(te.flat_blocks(den_d).cpu(), te.flat_blocks(den_c)):
         raise AssertionError("flat map on the card differs from the CPU's")
-    err = stats_rel_err(te.batch_self_stats(y.to(dev), 2, BD), te.batch_self_stats(y, 2, BD))
-    for c in (cb, cr):
-        err = max(err, stats_rel_err(
+    notes = [exact_or_rtol(te.batch_self_stats(y.to(dev), 2, BD), te.batch_self_stats(y, 2, BD),
+                           None, "luma")]
+    for name, c in (("cb", cb), ("cr", cr)):
+        notes.append(exact_or_rtol(
             te.batch_self_stats_chroma(c.to(dev), y.to(dev), 2, BD, 1, 1),
-            te.batch_self_stats_chroma(c, y, 2, BD, 1, 1),
-        ))
-    if err > ESTIMATE_RTOL:
-        raise AssertionError(f"estimate statistics on the card vs CPU: rel err {err}")
+            te.batch_self_stats_chroma(c, y, 2, BD, 1, 1), 4, name))
     log(f"[estimate main path] 4K10 4:2:0, 2 batches of 16 through NoiseEstimator.push_batch "
-        f"and finish: {len(tables)} segment(s), table equal to the plain flat-block path's; "
-        f"frames 0-1 blur and flat map equal to the CPU run, statistics within {err:.3g} "
-        f"(rtol {ESTIMATE_RTOL}); luma sigma-curve error vs injected: "
+        f"and finish: {len(tables)} segment(s), table equal to the plain path's (blur, flat-block "
+        f"activity and statistics plain); frames 0-1 blur, residual and flat map equal to the CPU "
+        f"run, statistics {'; '.join(notes)}; luma sigma-curve error vs injected: "
         f"{sigma_curve_error(eff[0], got)}")
+
+    # times: the kernels at the main path's shapes (4K10 4:2:0 B = 16, three
+    # planes, lag 2), beside their plain versions and their bounds
+    planes = (y16, cb16, cr16)
+    blurred = [ek.self_blur(p, BD) for p in planes]
+    lsum = de.pool_sum(blurred[0][1], cb16.shape[1], cb16.shape[2], 1, 1)
+    blocks = [de.flat_blocks(den) for den, _ in blurred]
+    stat_args = [(q, den, bl, None if k == 0 else lsum, 1 if k == 0 else 4)
+                 for k, ((den, q), bl) in enumerate(zip(blurred, blocks))]
+
+    def blur_all(fn):
+        return lambda: [fn(p, BD) for p in planes]
+
+    def stats_all(fn, lag=2):
+        return lambda: [fn(q, den, bl, ls, npool, lag, BD) for q, den, bl, ls, npool in stat_args]
+
+    blur_bytes = sum(nbytes(p, den, q) for p, (den, q) in zip(planes, blurred))
+    floats = [p.to(torch.float32).unsqueeze(1) for p in planes]
+    box = torch.ones((1, 1, ek.BLUR, ek.BLUR), dtype=torch.float32, device=dev)
+    times = {
+        "self_blur": timing(
+            cuda_ms(blur_all(ek.self_blur), 20),
+            cuda_ms(blur_all(ek.self_blur_reference), 3, 1),
+            blur_bytes, BLUR_OPS * sum(p.numel() for p in planes),
+        ),
+        "self_stats": timing(
+            cuda_ms(stats_all(ek.self_stats), 10),
+            cuda_ms(stats_all(ek.self_stats_reference), 2, 1),
+            *self_stats_work(stat_args, 2, stats_all(ek.self_stats)()),
+        ),
+    }
+    # the yardstick: one float32 convolution (cuDNN, TF32 off) of the 9x9
+    # box sum S alone, on float32 copies of the planes
+    times["self_blur"]["library_ms"] = cuda_ms(
+        lambda: [torch.nn.functional.conv2d(x, box, padding=ek.EDGE) for x in floats], 20)
+    del floats
+    for k, t in times.items():
+        t["label"] = "4K10 4:2:0 B=16 (3 planes, lag 2)"
+        log(time_line(k, t["label"], t, card))
+    log(f"[time] library call for self_blur: torch.nn.functional.conv2d of the box sum "
+        f"(float32, cuDNN, TF32 off; den and q not formed): "
+        f"{times['self_blur']['library_ms']:.4f} ms on {card}")
+    lag3 = timing(cuda_ms(stats_all(ek.self_stats, 3), 5), None,
+                  *self_stats_work(stat_args, 3, stats_all(ek.self_stats, 3)()))
+    lag3["label"] = "4K10 4:2:0 B=16 (3 planes, lag 3)"
+    log(time_line("self_stats", lag3["label"], lag3, card))
+    times["self_stats"]["other_cases"] = [lag3]
+    del blurred, stat_args, blocks, lsum
 
     est = te.NoiseEstimator((30, 1), BD, device=dev)
     batch = frames_of(grainy, 0, 16)
-    est.push_batch(batch)
-    reps = 4
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        est.push_batch(batch)
-    dt = time.perf_counter() - t0
-    log(f"[estimate] push_batch 4K10 4:2:0 B=16: {16 * reps / dt:.1f} frames/s (pinned stack, "
-        f"upload, blur, flat map, Gram and moments, one stats download) on {card}")
-    return launches
+    prof = profile_batches(lambda: est.push_batch(batch), 4)
+    fps = frames_per_s(lambda: est.push_batch(batch), 16, 4)
+    log(f"[estimate] push_batch 4K10 4:2:0 B=16: {fps:.1f} frames/s (pinned stack, upload, "
+        f"blur, flat map, pooled luma, statistics, one stats download); per batch host issue "
+        f"{prof['issue_ms']:.3f} ms, wall {prof['wall_ms']:.3f} ms profiled, device busy "
+        f"{prof['busy_ms']:.3f} ms, idle share {prof['idle']:.3f}; on {card}")
+    by_entry = top_device_ops(lambda: est.push_batch(batch), 4)
+    log(f"[estimate] push_batch device time by entry: {by_entry}")
+    return {k: launches[k] for k in ("self_blur", "self_stats")}, times, errs
+
+
+def self_stats_work(stat_args, lag: int, outs):
+    """(bytes, operations) of ``self_stats`` on ``stat_args``: the bytes it
+    must move (q, den, the block map and lsum read once, the outputs
+    written once), its integer operations (per sample the mask test, per
+    masked pixel 4 for the binned moments) and its float64 ones (per masked
+    pixel the n(n+1)/2 multiply-adds of the Gram over its n design values),
+    counted on this run's masked pixels."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    moved = sum(nbytes(q, den, bl, ls) for q, den, bl, ls, _ in stat_args) + sum(
+        nbytes(*out.values()) for out in outs)
+    ops = fp64_ops = 0.0
+    for (q, _, _, ls, _), out in zip(stat_args, outs):
+        n = len(ek.offsets(lag)) + (ls is not None)
+        masked = float(out["n_ar"].sum())
+        ops += 2 * q.numel() + 4 * masked
+        fp64_ops += n * (n + 1) * masked
+    return moved, ops, fp64_ops
 
 
 def frames_per_s(fn, b: int, reps: int) -> float:
@@ -2099,7 +2435,11 @@ def main() -> int:
         times.update(phase_times)
         errs.update(phase_errs)
         torch.cuda.empty_cache()
-    estimate_phase(card, eff, dev, grainy)
+    phase_launches, phase_times, phase_errs = estimate_phase(card, eff, dev, grainy)
+    launches.update(phase_launches)
+    times.update(phase_times)
+    errs.update(phase_errs)
+    torch.cuda.empty_cache()
     phase_launches, phase_times, phase_errs, dev_outs = pattern_phase(card, eff, dev, apply4)
     launches.update(phase_launches)
     times.update(phase_times)
@@ -2123,7 +2463,7 @@ def main() -> int:
                 "bound_ms": times[k]["bound_ms"],
                 "bound_by": times[k]["bound_by"],
                 "share": times[k]["bound_ms"] / times[k]["ms"],
-                "library_ms": None,
+                "library_ms": times[k].get("library_ms"),
                 "library_note": LIBRARY_NOTE[k],
                 # the pattern kernel's chain bound, and a kernel's times at
                 # its other sizes and lags

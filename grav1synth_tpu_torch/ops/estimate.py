@@ -6,20 +6,15 @@ the blurred plane feeds the diff path's statistics: the masked lag-window
 normal equations and 64-bin residual moments, per frame. Chroma planes
 gain the collocated luma-residual average as one more design column.
 
-The device half (``box_blur``, ``batch_self_stats``,
-``batch_self_stats_chroma``) is exact where the JAX package rounds:
-
-- the blur is an integer 9x9 box sum S of the zero-padded plane (prefix
-  sums), so the blurred plane is ``den = (S + 40) // 81`` and the residual
-  ``r = q / 81`` with the integer ``q = 81 f - S``. ``S / 81`` never lies
-  within 0.5/81 of a half-integer, and the float32 blur of the JAX package
-  stays far inside that margin, so this ``den`` equals its
-  ``round(box_blur(f))`` exactly (no convolution, so no TF32 either);
-- the flat map goes through ``diff_estimate.flat_blocks``: the CUDA
-  flat-block kernel on the card;
-- the Gram and the moments are taken in float64 over the integers q (a
-  product of two is exact), the Gram by ``torch.matmul`` over row chunks
-  of the shifted, masked design, the moments by ``bincount``.
+The device half (``batch_self_stats``, ``batch_self_stats_chroma`` and
+``NoiseEstimator.push_batch``) is the JAX package's jitted program as
+three launches a plane, through ``ops.estimate_kernels``: the 9x9 blur
+(``self_blur``, K8: the integer blur ``den`` and residual ``q = 81 f - S``,
+exact where the JAX package rounds), the flat map of ``den``
+(``diff_estimate.flat_blocks``, the flat-block kernel K5) and the masked
+lag-window Gram and 64-bin moments (``self_stats``, K9). Chroma planes take
+``lsum``, the luma ``q`` pooled over each chroma sample's collocated block
+(``pool_sum``, plain PyTorch), made once a batch for Cb and Cr.
 
 The host half, ``NoiseEstimator`` with ``highpass_np``, the lag-0
 fallback and the closed-loop curve calibration, is a copy of the JAX
@@ -31,11 +26,10 @@ uses the fit already copied into ``diff_estimate``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..obu.types import FilmGrainParams, GrainTableSegment
 from ..tables.aggregate import packet_bounds
@@ -50,130 +44,25 @@ from .diff_estimate import (
     pool_sum,
     stage_planes,
 )
-from .diff_kernels import NUM_BINS, _pixel_flat, offsets
-
-BLUR = 9  # pseudo-denoiser box width: wide enough that the high-pass
-# barely touches lags 0..3, where the AR window lives
-EDGE = BLUR // 2  # band on every side that the zero padding biases
-# bytes of one float64 design chunk (B x P x rows x W) of the Gram
-_CHUNK_BYTES = 1 << 28
+from .diff_kernels import offsets
+from .estimate_kernels import BLUR, self_blur, self_stats
 
 
-def box_blur(f: torch.Tensor, bit_depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, W) integer plane -> (den, q): the blurred plane rounded to
-    int16 samples, clip(round(S / 81), 0, max), and the int32 residual
-    times 81, q = 81 f - S. S is the sum over the 9x9 box around each
-    sample, zero outside the plane ("SAME" padding): a prefix sum along
-    each axis, then the difference of its ends, exact in int32 up to
-    (H + 9) x 9 x 4095 < 2^31."""
-    f = f.to(torch.int32)
-    s = F.pad(f, (EDGE + 1, EDGE)).cumsum(2, dtype=torch.int32)
-    s = s[:, :, BLUR:] - s[:, :, :-BLUR]
-    s = F.pad(s, (0, 0, EDGE + 1, EDGE)).cumsum(1, dtype=torch.int32)
-    s = s[:, BLUR:] - s[:, :-BLUR]
-    den = torch.clamp((s + 40) // (BLUR * BLUR), 0, (1 << bit_depth) - 1).to(torch.int16)
-    return den, BLUR * BLUR * f - s
-
-
-def _masked_gram(cols, offs, interior: torch.Tensor, lag: int) -> torch.Tensor:
-    """(B, P, P) float64 Gram of the design whose row k is ``cols[k]``
-    shifted by ``offs[k]`` at every interior pixel (the (H - 2 lag,
-    W - 2 lag) crop), times the 0/1 ``interior`` mask. Built over row
-    chunks so the stacked design stays near _CHUNK_BYTES, as one (P, W)
-    product per image row: B products with a reduction dimension of a
-    whole chunk would leave most of the card's SMs idle."""
-    b, hp, wp = interior.shape
-    p = len(cols)
-    gram = torch.zeros((b, p, p), dtype=torch.float64, device=interior.device)
-    if hp == 0 or wp == 0:
-        return gram
-    m = interior.to(torch.float64)
-    step = max(1, _CHUNK_BYTES // (8 * b * p * wp))
-    x = torch.empty((b, min(step, hp), p, wp), dtype=torch.float64, device=interior.device)
-    for r0 in range(0, hp, step):
-        n = min(step, hp - r0)
-        for k, (c, (dr, dc)) in enumerate(zip(cols, offs)):
-            # the masked shifted slice, written straight into its design row
-            torch.mul(
-                c[:, lag + dr + r0 : lag + dr + r0 + n, lag + dc : lag + dc + wp],
-                m[:, r0 : r0 + n],
-                out=x[:, :n, k],
-            )
-        xn = x[:, :n]
-        gram += (xn @ xn.transpose(2, 3)).sum(1)
-    return gram
-
-
-def _self_stats(
-    den: torch.Tensor,
-    q: torch.Tensor,
-    lag: int,
-    bit_depth: int,
-    lsum: Optional[torch.Tensor] = None,
-    n_pool: int = 1,
-) -> dict:
-    """Per-frame statistics of one plane from its blur (``box_blur``):
-    the lag-window normal equations of r = q / 81 in the flat blocks of
-    ``den`` away from the edge band, plus, for chroma, the column
-    ``lsum / (81 n_pool)`` (the collocated luma-residual average); and
-    the residual's 64-bin moments on ``den``. float64, leading batch dim
-    (the layout of estimate.batch_self_stats)."""
-    b, h, w = q.shape
-    dev = q.device
-    f64 = torch.float64
-    rows = torch.arange(h, device=dev)
-    cols = torch.arange(w, device=dev)
-    band = ((rows >= EDGE) & (rows < h - EDGE))[:, None] & (
-        (cols >= EDGE) & (cols < w - EDGE)
-    )[None, :]
-    mask = _pixel_flat(flat_blocks(den), h, w) & band
-    interior = mask[:, lag : h - lag, lag : w - lag]
-
-    qf = q.to(f64)
-    offs = offsets(lag)  # (0, 0), the residual itself, first
-    design = [qf] * len(offs)
-    scale = [1.0 / (BLUR * BLUR)] * len(offs)
-    if lsum is not None:
-        design.append(lsum.to(f64))
-        offs = offs + [(0, 0)]
-        scale.append(1.0 / (BLUR * BLUR * n_pool))
-    gram = _masked_gram(design, offs, interior, lag)
-    sc = torch.tensor(scale, dtype=f64, device=dev)
-    gram = gram * sc[:, None] * sc[None, :]
-
-    # den is in [0, max], so clip(den * 64 // (max + 1)) is this shift
-    bins = den.to(torch.int64) >> (bit_depth - 6)
-    idx = (bins + NUM_BINS * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
-    mf = mask.reshape(-1).to(f64)
-    qm = qf.reshape(-1) * mf
-
-    def per_bin(weights):
-        return torch.bincount(idx, weights=weights, minlength=b * NUM_BINS).reshape(
-            b, NUM_BINS
-        )
-
-    r81 = float(BLUR * BLUR)
-    return dict(
-        ata=gram[:, 1:, 1:],
-        atb=gram[:, 0, 1:],
-        n_ar=interior.sum((1, 2)).to(f64),
-        bin_cnt=per_bin(mf),
-        bin_sum=per_bin(qm) / r81,
-        bin_sumsq=per_bin(qm * qf.reshape(-1)) / (r81 * r81),
-    )
+def _plane_stats(den, q, lag: int, bit_depth: int, lsum=None, n_pool: int = 1) -> dict:
+    """Per-frame statistics of one plane from its blur: the flat map of
+    ``den`` (the flat-block kernel on the card), then ``self_stats``."""
+    return self_stats(q, den, flat_blocks(den), lsum, n_pool, lag, bit_depth)
 
 
 def batch_self_stats(y: torch.Tensor, lag: int, bit_depth: int) -> dict:
     """(B, H, W) luma -> per-frame statistics (estimate.batch_self_stats)."""
-    den, q = box_blur(y, bit_depth)
-    return _self_stats(den, q, lag, bit_depth)
+    den, q = self_blur(y, bit_depth)
+    return _plane_stats(den, q, lag, bit_depth)
 
 
-def _chroma_stats(c, q_luma, lag: int, bit_depth: int, sub_x: int, sub_y: int) -> dict:
-    den, q = box_blur(c, bit_depth)
-    hc, wc = c.shape[1:]
-    lsum = pool_sum(q_luma, hc, wc, sub_x, sub_y)
-    return _self_stats(den, q, lag, bit_depth, lsum, (1 + sub_x) * (1 + sub_y))
+def _chroma_stats(c, lsum, lag: int, bit_depth: int, sub_x: int, sub_y: int) -> dict:
+    den, q = self_blur(c, bit_depth)
+    return _plane_stats(den, q, lag, bit_depth, lsum, (1 + sub_x) * (1 + sub_y))
 
 
 def batch_self_stats_chroma(
@@ -181,7 +70,8 @@ def batch_self_stats_chroma(
 ) -> dict:
     """(B, Hc, Wc) chroma + (B, H, W) luma -> per-frame statistics
     (estimate.batch_self_stats_chroma)."""
-    return _chroma_stats(c, box_blur(y, bit_depth)[1], lag, bit_depth, sub_x, sub_y)
+    lsum = pool_sum(self_blur(y, bit_depth)[1], c.shape[1], c.shape[2], sub_x, sub_y)
+    return _chroma_stats(c, lsum, lag, bit_depth, sub_x, sub_y)
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +150,8 @@ class NoiseEstimator:
             list(f) if isinstance(f, (list, tuple)) else [f] for f in frames
         ]
         y = stage_planes(self._pinned, self.device, 0, [p[0] for p in planes])
-        den_y, q_y = box_blur(y, self.bit_depth)
-        dicts = [_self_stats(den_y, q_y, self.lag, self.bit_depth)]
+        den_y, q_y = self_blur(y, self.bit_depth)
+        dicts = [_plane_stats(den_y, q_y, self.lag, self.bit_depth)]
         has_chroma = all(
             len(p) >= 3 and p[1] is not None and p[2] is not None
             for p in planes
@@ -272,9 +162,10 @@ class NoiseEstimator:
             sub_y = 1 if hc < h else 0
             sub_x = 1 if wc < w else 0
             self._sub = (sub_x, sub_y)
+            lsum = pool_sum(q_y, hc, wc, sub_x, sub_y)  # once for Cb and Cr
             for k in (1, 2):
                 c = stage_planes(self._pinned, self.device, k, [p[k] for p in planes])
-                dicts.append(_chroma_stats(c, q_y, self.lag, self.bit_depth, sub_x, sub_y))
+                dicts.append(_chroma_stats(c, lsum, self.lag, self.bit_depth, sub_x, sub_y))
         host = _download(dicts)
         per = host[0]
         per_cb, per_cr = (host[1], host[2]) if has_chroma else (None, None)

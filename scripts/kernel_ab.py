@@ -3,8 +3,8 @@ one on one card, in turns.
 
     python scripts/kernel_ab.py SOURCE OLD [--iters N]
 
-SOURCE is ``grain_kernels.cu``, ``pattern_kernels.cu`` or
-``diff_kernels.cu`` (a file of ``grav1synth_tpu_torch/csrc``). OLD is an
+SOURCE is ``grain_kernels.cu``, ``pattern_kernels.cu``, ``diff_kernels.cu``
+or ``estimate_kernels.cu`` (a file of ``grav1synth_tpu_torch/csrc``). OLD is an
 earlier version of it with the same C entry points: a file, or a git
 revision (then ``git show OLD:grav1synth_tpu_torch/csrc/SOURCE`` is taken,
 which needs the checkout's ``.git``). Where the card's host holds a copy
@@ -41,6 +41,11 @@ name and power limit.
   of film-like 4:2:0 frames (``chip_smoke.stats_trip``) at 4K10 B = 16 and
   1080p8 B = 32 with lag 2, and 4K10 B = 16 with lag 3, every int64 sum of
   both builds equal; and the flat-block activity kernel at the same sizes.
+- ``estimate_kernels.cu``: the blur and the self-statistics kernels on the
+  three planes of the same film-like frames with their noise (the
+  estimate path's inputs: the statistics of each plane's blur, its flat
+  blocks and, for chroma, the pooled luma q) at 4K10 B = 16 with lag 2 and
+  3 and 1080p8 B = 32 with lag 2; every output of both builds equal.
 
 Needs one CUDA card; exits 1 without one.
 """
@@ -68,6 +73,7 @@ ENTRY_POINTS = {
     "grain_kernels.cu": ("grain_luma", "grain_chroma_pair", "grain_chroma", "grain_error_string"),
     "pattern_kernels.cu": ("grain_pattern",),
     "diff_kernels.cu": ("diff_flat_block_activity", "diff_plane_stats"),
+    "estimate_kernels.cu": ("estimate_self_blur", "estimate_self_stats"),
 }
 
 
@@ -340,6 +346,71 @@ def diff_ab(libs, card: str, iters: int) -> None:
         torch.cuda.empty_cache()
 
 
+def estimate_ab(libs, card: str, iters: int) -> None:
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, (h, w, bd, b), lags in (
+        ("4K10 B=16", (2160, 3840, 10, 16), (2, 3)), ("1080p8 B=32", (1080, 1920, 8, 32), (2,)),
+    ):
+        src, _, _ = cs.stats_trip(h, w, bd, b, dev)
+        planes = [torch.from_numpy(p).to(dev) for p in src]
+        blurred = {k: [(torch.empty_like(p), torch.empty(p.shape, dtype=torch.int32, device=dev))
+                       for p in planes] for k in libs}
+
+        def launch_blur(k):
+            def run():
+                for p, (den, q) in zip(planes, blurred[k]):
+                    check(libs[k].estimate_self_blur(
+                        p.data_ptr(), 0, den.data_ptr(), q.data_ptr(), b, p.shape[1], p.shape[2],
+                        bd, stream))
+            return run
+
+        runs = {k: launch_blur(k) for k in libs}
+        for run in runs.values():
+            run()
+        if not all(torch.equal(o, n) for bo, bn in zip(blurred["old"], blurred["new"])
+                               for o, n in zip(bo, bn)):
+            raise AssertionError(f"{label}: the builds' blurs differ")
+        blur_work = (sum(cs.nbytes(p, *dq) for p, dq in zip(planes, blurred["new"])),
+                     cs.BLUR_OPS * sum(p.numel() for p in planes))
+        report("self_blur", f"{label} (3 planes)", turns(runs, iters), card, blur_work)
+
+        lsum = de.pool_sum(blurred["new"][0][1], planes[1].shape[1], planes[1].shape[2], 1, 1)
+        stat_args = [(q, den, de.flat_blocks(den), None if k == 0 else lsum, 1 if k == 0 else 4)
+                     for k, (den, q) in enumerate(blurred["new"])]
+        for lag in lags:
+            work = cs.self_stats_work(stat_args, lag, [ek.self_stats(*a[:5], lag, bd)
+                                                       for a in stat_args])
+            sizes = [len(ek.offsets(lag)) + (a[3] is not None) for a in stat_args]
+            outs = {k: [torch.zeros((b, n * (n + 1) // 2 + 1 + 3 * ek.NUM_BINS),
+                                    dtype=torch.int64, device=dev) for n in sizes]
+                    for k in libs}
+
+            def launch(k):
+                def run():
+                    for (q, den, bl, ls, npool), out in zip(stat_args, outs[k]):
+                        out.zero_()
+                        ph, pw = q.shape[1:]
+                        check(libs[k].estimate_self_stats(
+                            q.data_ptr(), den.data_ptr(), bl.data_ptr(),
+                            None if ls is None else ls.data_ptr(), out.data_ptr(), b, ph, pw,
+                            ph // 16, pw // 16, lag, npool, bd, stream))
+                return run
+
+            runs = {k: launch(k) for k in libs}
+            for run in runs.values():
+                run()
+            if not all(torch.equal(o, n) for o, n in zip(outs["old"], outs["new"])):
+                raise AssertionError(f"{label} lag {lag}: the builds' int64 sums differ")
+            report("self_stats", f"{label} (3 planes, lag {lag}; the buffers' zeroing included)",
+                   turns(runs, iters), card, work)
+        del planes, blurred, stat_args, outs, runs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("source", choices=sorted(ENTRY_POINTS),
@@ -356,7 +427,8 @@ def main() -> int:
     print(card, flush=True)
     libs = {"old": build_old(args.source, old_source(args.source, args.old)), "new": _build.load()}
     {"grain_kernels.cu": grain_ab, "pattern_kernels.cu": pattern_ab,
-     "diff_kernels.cu": diff_ab}[args.source](libs, card, args.iters)
+     "diff_kernels.cu": diff_ab, "estimate_kernels.cu": estimate_ab}[args.source](
+        libs, card, args.iters)
     return 0
 
 

@@ -556,6 +556,7 @@ def test_estimate_on_cuda_matches_cpu(cuda):
     the card against the CPU run; NoiseEstimator tables equal."""
     from grav1synth_tpu_torch.ops import diff_kernels as dk
     from grav1synth_tpu_torch.ops import estimate as te
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
     rng = np.random.default_rng(8)
     frames = []
@@ -564,8 +565,8 @@ def test_estimate_on_cuda_matches_cpu(cuda):
         frames.append([sy[0], sc[0], sc[0][::-1].copy()])
     y = torch.from_numpy(np.stack([f[0] for f in frames]))
     c = torch.from_numpy(np.stack([f[1] for f in frames]))
-    den_cpu, q_cpu = te.box_blur(y, 10)
-    den, q = te.box_blur(y.to(cuda), 10)
+    den_cpu, q_cpu = te.self_blur(y, 10)
+    den, q = te.self_blur(y.to(cuda), 10)
     assert torch.equal(den.cpu(), den_cpu) and torch.equal(q.cpu(), q_cpu)
     before = dk.LAUNCHES["flat_block_activity"]
     assert torch.equal(te.flat_blocks(den).cpu(), te.flat_blocks(den_cpu))
@@ -583,9 +584,175 @@ def test_estimate_on_cuda_matches_cpu(cuda):
     tables = []
     for dev in ("cpu", cuda):
         est = te.NoiseEstimator((24, 1), 10, device=dev)
+        ek.reset_launch_counts()
+        before = dk.LAUNCHES["flat_block_activity"]
         est.push_batch(frames)
+        # the card's batch: K8, K5 and K9 once a plane (finish's
+        # calibration pushes a batch of its own)
+        launches = dict(ek.LAUNCHES), dk.LAUNCHES["flat_block_activity"] - before
         tables.append(est.finish())
+    assert launches == ({"self_blur": 3, "self_stats": 3}, 3)
     assert len(tables[0]) == 1 and tables[0][0].params == tables[1][0].params
+
+
+# --- the estimate kernels (K8, K9) -------------------------------------------
+
+
+def _estimate_planes(rng, b, h, w, bd, sub_x, sub_y):
+    """Grainy luma and chroma numpy planes (the sources of _diff_planes):
+    flat on their upper half, textured below."""
+    (sy, _), (sc, _) = _diff_planes(rng, b, h, w, bd, sub_x, sub_y)
+    return sy, sc
+
+
+def checkerboard(h, w, bd):
+    """Two (h, w) frames of 0 / max in a checkerboard, the second mirrored:
+    every block away from the edge has the same activity, so all of them
+    are flat, and |q| reaches 40 max."""
+    i, j = np.mgrid[0:h, 0:w]
+    board = np.where((i + j) % 2, 0, (1 << bd) - 1).astype(np.int16)
+    return np.stack([board, board[:, ::-1].copy()])
+
+
+def _unaligned(t, by: int = 3):
+    """``t`` copied into a view ``by`` elements into a larger storage."""
+    store = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = store[by:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _blur_equal(f, bd, what):
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    before = ek.LAUNCHES["self_blur"]
+    den, q = ek.self_blur(f, bd)
+    assert ek.LAUNCHES["self_blur"] == before + 1
+    want = ek.self_blur_reference(f, bd)
+    assert torch.equal(den, want[0]) and torch.equal(q, want[1]), what
+
+
+def _self_stats_all(q, den, lsum, n_pool, lags, bd, what):
+    """``self_stats`` against its plain version on the same card inputs,
+    luma (no lsum) and with ``lsum``; tolerance 0."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    blocks = de.flat_blocks(den)
+    for lag in lags:
+        for aux in (None,) if lsum is None else (None, lsum):
+            before = ek.LAUNCHES["self_stats"]
+            got = ek.self_stats(q, den, blocks, aux, n_pool, lag, bd)
+            assert ek.LAUNCHES["self_stats"] == before + 1
+            want = ek.self_stats_reference(q, den, blocks, aux, n_pool, lag, bd)
+            _stats_equal(got, want, f"{what} lag {lag} lsum {aux is not None}")
+
+
+BLUR_CARD_SIZES = [(1, 1), (1, 12), (12, 1), (5, 7), (8, 9), (12, 12), (15, 33), (70, 301)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_self_blur_matches_plain_on_cuda(cuda, bd):
+    """Small odd and even planes (under 9 and 16 samples), widths 520-531
+    (every residue of the 4-column lane), uint8 at 8 bits, bases off the
+    16-byte boundary and a batch slice."""
+    rng = np.random.default_rng(300 + bd)
+    maxv = (1 << bd) - 1
+    sizes = BLUR_CARD_SIZES + [((33, 64, 41)[w % 3], w) for w in range(520, 532)]
+    for h, w in sizes:
+        f = torch.from_numpy(rng.integers(0, maxv + 1, (3, h, w)).astype(np.int16)).to(cuda)
+        _blur_equal(f, bd, f"{w}x{h}")
+        if bd == 8:
+            _blur_equal(f.to(torch.uint8), bd, f"uint8 {w}x{h}")
+    f = torch.from_numpy(rng.integers(0, maxv + 1, (4, 40, 528)).astype(np.int16)).to(cuda)
+    _blur_equal(_unaligned(f), bd, "528x40 3 samples into its storage")
+    _blur_equal(f[1:], bd, "batch slice [1:] of 528x40")
+
+
+@pytest.mark.cuda
+def test_self_blur_matches_plain_on_many_ctas_and_int16_extremes_on_cuda(cuda):
+    """More CTAs than the card holds at once (4 x 16000x2600: 41,000), and
+    samples over the whole int16 range, where the box sum is largest."""
+    rng = np.random.default_rng(310)
+    big = torch.from_numpy(rng.integers(0, 4096, (4, 2600, 16000), dtype=np.int16)).to(cuda)
+    _blur_equal(big, 12, "4 x 16000x2600")
+    del big
+    for v in (-32768, 32767):
+        _blur_equal(torch.full((2, 40, 150), v, dtype=torch.int16, device=cuda), 12, f"all {v}")
+    f = rng.integers(-32768, 32768, (2, 70, 301), dtype=np.int16)
+    _blur_equal(torch.from_numpy(f).to(cuda), 12, "int16 range 301x70")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_self_stats_matches_plain_on_cuda(cuda, sub_x, sub_y, bd):
+    """K9 against its plain version, to the last bit, at lags 0-3, luma and
+    chroma (the pooled luma column), on small odd and even planes, one under
+    16 samples and one under 9."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    rng = np.random.default_rng(320 + bd)
+    n_pool = (1 + sub_x) * (1 + sub_y)
+    for h, w in ((64, 64), (70, 100), (41, 301), (150, 260), (33, 17), (12, 40), (40, 8)):
+        sy, sc = (torch.from_numpy(a).to(cuda)
+                  for a in _estimate_planes(rng, 3, h, w, bd, sub_x, sub_y))
+        den_y, q_y = ek.self_blur(sy, bd)
+        _self_stats_all(q_y, den_y, None, 1, (0, 1, 2, 3), bd, f"luma {w}x{h}")
+        den_c, q_c = ek.self_blur(sc, bd)
+        lsum = de.pool_sum(q_y, q_c.shape[1], q_c.shape[2], sub_x, sub_y)
+        _self_stats_all(q_c, den_c, lsum, n_pool, (0, 1, 2, 3), bd, f"chroma {w}x{h}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lag", [0, 1, 2, 3])
+def test_self_stats_matches_plain_at_its_extremes_on_cuda(cuda, lag):
+    """The 12-bit 0/max checkerboard (every block flat, |q| = 40 max, the
+    pooled column of a 4:4:4 plane as large), a plane 10,000 rows tall,
+    q and den off the 16-byte boundary, and a batch of 4K10 4:2:0 chroma
+    planes (more CTAs than the card holds)."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    f = torch.from_numpy(checkerboard(96, 200, 12)).to(cuda)
+    den, q = ek.self_blur(f, 12)
+    assert int(q[:, 4:-4, 4:-4].abs().max()) == 40 * 4095
+    assert float((de.flat_blocks(den) != 0).float().mean()) > 0.5
+    _self_stats_all(q, den, q, 1, (lag,), 12, "12-bit checkerboard")
+    rng = np.random.default_rng(330 + lag)
+    tall = torch.from_numpy(_estimate_planes(rng, 1, 10000, 48, 10, 0, 0)[0]).to(cuda)
+    den, q = ek.self_blur(tall, 10)
+    _self_stats_all(q, den, q, 1, (lag,), 10, "10-bit 48x10000")
+    sy, _ = _estimate_planes(rng, 2, 150, 264, 10, 0, 0)
+    den, q = ek.self_blur(torch.from_numpy(sy).to(cuda), 10)
+    qu, du = _unaligned(q), _unaligned(den)
+    _self_stats_all(qu, du, _unaligned(q, 1), 1, (lag,), 10, "264x150 off the boundary")
+    c = torch.from_numpy(rng.integers(0, 1024, (16, 1080, 1920), dtype=np.int16)).to(cuda)
+    den, q = ek.self_blur(c, 10)
+    _self_stats_all(q, den, (q * 4).contiguous(), 4, (lag,), 10, "16 x 1920x1080")
+
+
+@pytest.mark.cuda
+def test_estimate_wrappers_check_inputs_on_cuda(cuda):
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    f = torch.zeros((2, 32, 48), dtype=torch.int16, device=cuda)
+    den, q = ek.self_blur(f, 10)
+    blocks = torch.zeros((2, 2, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="lag 4"):
+        ek.self_stats(q, den, blocks, None, 1, 4, 10)
+    with pytest.raises(TypeError):
+        ek.self_stats(q.to(torch.int64), den, blocks, None, 1, 2, 10)
+    with pytest.raises(ValueError):
+        ek.self_stats(q, den, blocks, q, 3, 2, 10)
+    with pytest.raises(TypeError):
+        ek.self_blur(f.to(torch.int32), 10)
+    with pytest.raises(ValueError):
+        ek.self_blur(f, 9)
+    with pytest.raises(ValueError):
+        ek.self_stats(q, den.cpu(), blocks, None, 1, 2, 10)
 
 
 # --- grain patterns (K7) and the sharded apply ------------------------------

@@ -2,10 +2,12 @@
 package's, on the CPU (the flat-block kernel's plain version).
 
 - the blurred plane ``den`` and the flat map: identical to the JAX
-  intermediates (``round(_box_blur)``, ``_flat_mask``);
+  intermediates (``round(_box_blur)``, ``_flat_mask``), at 8/10/12 bits on
+  planes 1-12 samples tall or wide, odd and even, and uint8 at 8 bits;
 - per-frame statistics: within rtol 1e-5 (of each array's largest
   magnitude) of ``batch_self_stats`` / ``batch_self_stats_chroma``, the
-  bar the JAX package holds its own two stats backends to;
+  bar the JAX package holds its own two stats backends to, at lags 0-3;
+  all zero on planes with no full 16x16 block or under 9 samples;
 - the copied host code (``highpass_np``, ``_fallback_lag0``): equal;
 - ``NoiseEstimator`` tables (calibration on): identical, per-frame
   sigmas within rtol 1e-5; ``pipelines.estimate`` table and ``--raw``
@@ -53,20 +55,33 @@ def _planes(rng, b, h, w, bd, sub_x, sub_y):
     return out
 
 
-@pytest.mark.parametrize("bd,h,w", [(8, 37, 53), (10, 64, 70), (12, 33, 81)])
+# planes 1-12 samples tall or wide, odd and even sizes
+SMALL_SIZES = [(1, 1), (1, 12), (12, 1), (5, 7), (8, 9), (9, 8), (12, 12)]
+
+
+@pytest.mark.parametrize(
+    "bd,h,w",
+    [(8, 37, 53), (10, 64, 70), (12, 33, 81)] + [(bd, h, w) for bd in (8, 10, 12)
+                                                 for h, w in SMALL_SIZES],
+)
 def test_den_and_flat_map_identical_to_jax(bd, h, w):
     (y,) = _planes(np.random.default_rng(bd), 2, h, w, bd, 0, 0)[:1]
-    den, q = te.box_blur(torch.from_numpy(y), bd)
     maxv = (1 << bd) - 1
-    for i in range(2):
-        sm = je._box_blur(jnp.asarray(y[i], jnp.float32))
-        want = np.clip(np.round(np.asarray(sm)), 0, maxv)
-        assert np.array_equal(den[i].numpy(), want)
-        # r = q / 81 is the JAX residual f - sm up to float32 rounding
-        r = q[i].numpy() / 81.0
-        assert np.abs(r - (y[i] - np.asarray(sm, np.float64))).max() < 1e-3
-        flat = dk._pixel_flat(te.flat_blocks(den[i : i + 1]), h, w)[0]
-        assert np.array_equal(flat.numpy(), np.asarray(jd._flat_mask(jnp.asarray(want))) > 0)
+    inputs = [y] + ([y.astype(np.uint8)] if bd == 8 else [])
+    for f in inputs:
+        den, q = te.self_blur(torch.from_numpy(f), bd)
+        assert den.dtype == torch.int16 and q.dtype == torch.int32
+        for i in range(2):
+            sm = je._box_blur(jnp.asarray(y[i], jnp.float32))
+            want = np.clip(np.round(np.asarray(sm)), 0, maxv)
+            assert np.array_equal(den[i].numpy(), want)
+            # r = q / 81 is the JAX residual f - sm up to float32 rounding
+            r = q[i].numpy() / 81.0
+            assert np.abs(r - (y[i] - np.asarray(sm, np.float64))).max() < 1e-3
+            if h < 16 or w < 16:  # no full block: the JAX flat mask takes a median of none
+                continue
+            flat = dk._pixel_flat(te.flat_blocks(den[i : i + 1]), h, w)[0]
+            assert np.array_equal(flat.numpy(), np.asarray(jd._flat_mask(jnp.asarray(want))) > 0)
 
 
 def _close(got: dict, want: dict, what):
@@ -84,15 +99,25 @@ SIZES = [(37, 53), (49, 70), (33, 81)]  # odd, with full 16x16 blocks
 
 @pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
 @pytest.mark.parametrize("bd", [8, 10, 12])
-@pytest.mark.parametrize("lag", [1, 2, 3])
+@pytest.mark.parametrize("lag", [1, 2, 3, 0])
 def test_self_stats_match_jax(lag, bd, sub_x, sub_y):
+    """At lag 0 the JAX luma statistics raise (an empty design: its lag
+    window has no offset), so luma lag 0 is held to the JAX lag-1 run on
+    what does not depend on the lag (n_ar and the bins), and its Gram is
+    empty."""
     h, w = SIZES[(lag + bd) % 3]
     y, c = _planes(np.random.default_rng(lag * 100 + bd), 2, h, w, bd, sub_x, sub_y)
     ty, tc = torch.from_numpy(y), torch.from_numpy(c)
     jy, jc = jnp.asarray(y, jnp.int32), jnp.asarray(c, jnp.int32)
     got_y = te.batch_self_stats(ty, lag, bd)
     got_c = te.batch_self_stats_chroma(tc, ty, lag, bd, sub_x, sub_y)
-    _close(got_y, je.batch_self_stats(jy, lag, bd), "y")
+    if lag == 0:
+        moments = ("n_ar", "bin_cnt", "bin_sum", "bin_sumsq")
+        want = je.batch_self_stats(jy, 1, bd)
+        assert tuple(got_y["ata"].shape) == (2, 0, 0) and tuple(got_y["atb"].shape) == (2, 0)
+        _close({k: got_y[k] for k in moments}, {k: want[k] for k in moments}, "y")
+    else:
+        _close(got_y, je.batch_self_stats(jy, lag, bd), "y")
     _close(got_c, je.batch_self_stats_chroma(jc, jy, lag, bd, sub_x, sub_y), "chroma")
     # every frame of both planes has flat pixels in the statistics
     for st in (got_y, got_c):
@@ -100,17 +125,22 @@ def test_self_stats_match_jax(lag, bd, sub_x, sub_y):
 
 
 def test_no_full_block_gives_zero_stats():
-    """A 12x40 plane has no full 16x16 block. The port gives zero
-    statistics; the reference's batch_self_stats raises there (a median
-    of an empty block map), a defect of the reference, so there is no
-    JAX comparison."""
-    y = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 12, 40)).astype(np.int16))
-    for st in (
-        te.batch_self_stats(y, 2, 8),
-        te.batch_self_stats_chroma(y[:, :6, :20].contiguous(), y, 2, 8, 1, 1),
-    ):
-        for k, v in st.items():
-            assert float(v.abs().sum()) == 0, k
+    """12x40, 8x64, 40x8 and 16x8 planes have no full 16x16 block (and
+    the last three are under 9 samples in one dimension). The port gives
+    zero statistics at lags 0, 2 and 3; the reference's batch_self_stats
+    raises there (a median of an empty block map), a defect of the
+    reference, so there is no JAX comparison."""
+    for h, w in ((12, 40), (8, 64), (40, 8), (16, 8)):
+        rng = np.random.default_rng(1 if (h, w) == (12, 40) else h + w)
+        y = torch.from_numpy(rng.integers(0, 256, (2, h, w)).astype(np.int16))
+        c = y[:, : (h + 1) // 2, : (w + 1) // 2].contiguous()
+        for lag in (2, 0, 3):
+            for st in (
+                te.batch_self_stats(y, lag, 8),
+                te.batch_self_stats_chroma(c, y, lag, 8, 1, 1),
+            ):
+                for k, v in st.items():
+                    assert float(v.abs().sum()) == 0, (h, w, lag, k)
 
 
 def test_highpass_np_equal_to_original():
