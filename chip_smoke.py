@@ -217,7 +217,7 @@ RANK_GROUP_TIMEOUT = 180.0
 RANK_WAIT = 480.0
 # what a kernel's entry of the summary line may carry beside the common keys
 EXTRA_KEYS = ("label", "chain_bound_ms", "chain_steps", "chain_step_cycles", "sm_clock_mhz",
-              "fp64_core_bound_ms", "other_cases")
+              "fp64_core_bound_ms", "wrapper_ms", "padded_floor_ms", "other_cases")
 # (sub_x, sub_y, monochrome) of the pattern kernel's cases
 PATTERN_LAYOUTS = ((1, 1, False), (1, 0, False), (0, 0, False), (1, 1, True))
 
@@ -279,6 +279,122 @@ extern "C" int chain_cycles(void* out, int iters, int shuffle, void* stream) {
   return (int)cudaGetLastError();
 }
 """
+# The float64 tensor-core MMA shapes (``dmma_rates``): name, M, K (N = 8).
+# In every shape lane l = 4 * gid + tig holds A's elements of rows gid (and
+# gid + 8) and B's of column gid, at k index tig + 4 j in its j-th register
+# pair, so that one register x_g = D[pixel tig + 4 j][8 g + gid] is both
+# A^T's and B's element: the self-statistics kernel's Gram.
+DMMA_SHAPES = (("m8n8k4", 8, 4), ("m16n8k4", 16, 4), ("m16n8k8", 16, 8), ("m16n8k16", 16, 16))
+# the shape K9's Gram uses (csrc/estimate_kernels.cu)
+DMMA_LANDED = "m16n8k4"
+DMMA_SRC = r"""
+#include <cuda_runtime.h>
+template <int S> struct Shape;
+template <> struct Shape<0> { static constexpr int M = 8, K = 4, A = 1, B = 1, C = 2; };
+template <> struct Shape<1> { static constexpr int M = 16, K = 4, A = 2, B = 1, C = 4; };
+template <> struct Shape<2> { static constexpr int M = 16, K = 8, A = 4, B = 2, C = 4; };
+template <> struct Shape<3> { static constexpr int M = 16, K = 16, A = 8, B = 4, C = 4; };
+template <int S> __device__ __forceinline__ void mma(double* d, const double* a, const double* b);
+template <> __device__ __forceinline__ void mma<0>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};"
+               : "+d"(d[0]), "+d"(d[1]) : "d"(a[0]), "d"(b[0]));
+}
+template <> __device__ __forceinline__ void mma<1>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+               "{%0,%1,%2,%3};"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3]) : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+template <> __device__ __forceinline__ void mma<2>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+               "{%8,%9}, {%0,%1,%2,%3};"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+template <> __device__ __forceinline__ void mma<3>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+               "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+                 "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+template <int S, int CHAINS>
+__global__ void rate(double* sink, long long* cycles, int iters) {
+  using F = Shape<S>;
+  double a[F::A], b[F::B], acc[CHAINS][F::C];
+  for (int i = 0; i < F::A; ++i) a[i] = 1e-3 * (threadIdx.x + i);
+  for (int i = 0; i < F::B; ++i) b[i] = 1e-3 * (threadIdx.x - i);
+  for (int c = 0; c < CHAINS; ++c)
+    for (int i = 0; i < F::C; ++i) acc[c][i] = 0.0;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int c = 0; c < CHAINS; ++c) mma<S>(acc[c], a, b);
+  }
+  const long long t1 = clock64();
+  double s = 0.0;
+  for (int c = 0; c < CHAINS; ++c)
+    for (int i = 0; i < F::C; ++i) s += acc[c][i];
+  sink[threadIdx.x] = s;
+  if ((threadIdx.x & 31) == 0) cycles[threadIdx.x / 32] = t1 - t0;
+}
+// The 32 x 32 Gram of D (P x 32, row-major, P a multiple of 16) on one warp.
+template <int S>
+__global__ void gram(const double* D, int P, double* G) {
+  using F = Shape<S>;
+  constexpr int NA = F::M / 8;  // 8-groups in A
+  const int lane = threadIdx.x, gid = lane >> 2, tig = lane & 3;
+  double acc[4 / NA][4][F::C] = {};
+  for (int p0 = 0; p0 < P; p0 += F::K) {
+#pragma unroll
+    for (int ga = 0; ga < 4 / NA; ++ga) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        double a[F::A], b[F::B];
+#pragma unroll
+        for (int j = 0; j < F::K / 4; ++j) {
+          const double* row = D + (p0 + tig + 4 * j) * 32;
+          for (int u = 0; u < NA; ++u) a[NA * j + u] = row[8 * (NA * ga + u) + gid];
+          b[j] = row[8 * h + gid];
+        }
+        mma<S>(acc[ga][h], a, b);
+      }
+    }
+  }
+  for (int ga = 0; ga < 4 / NA; ++ga)
+    for (int h = 0; h < 4; ++h)
+      for (int i = 0; i < F::C; ++i)
+        G[(8 * (NA * ga + i / 2) + gid) * 32 + 8 * h + 2 * tig + (i & 1)] = acc[ga][h][i];
+}
+#define RATE(S) \
+  if (chains == 1) rate<S, 1><<<1, 32 * warps, 0, st>>>(sink, cycles, iters); \
+  else rate<S, 4><<<1, 32 * warps, 0, st>>>(sink, cycles, iters);
+extern "C" int dmma_rate(void* s, void* c, int shape, int warps, int chains, int iters,
+                         void* stream) {
+  double* sink = (double*)s;
+  long long* cycles = (long long*)c;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (shape) {
+    case 0: RATE(0); break;
+    case 1: RATE(1); break;
+    case 2: RATE(2); break;
+    default: RATE(3); break;
+  }
+  return (int)cudaGetLastError();
+}
+extern "C" int dmma_gram(const void* d, int p, void* g, int shape, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const double* D = (const double*)d;
+  double* G = (double*)g;
+  switch (shape) {
+    case 0: gram<0><<<1, 32, 0, st>>>(D, p, G); break;
+    case 1: gram<1><<<1, 32, 0, st>>>(D, p, G); break;
+    case 2: gram<2><<<1, 32, 0, st>>>(D, p, G); break;
+    default: gram<3><<<1, 32, 0, st>>>(D, p, G); break;
+  }
+  return (int)cudaGetLastError();
+}
+"""
 # No PyTorch call computes the function of any kernel but the blur's, whose
 # box sum one convolution computes (timed in phase 8 as its library_ms).
 LIBRARY_NOTE = {
@@ -327,7 +443,11 @@ def time_line(name: str, label: str, t: dict, card: str) -> str:
         ops += f" + {t['fp64_ops'] / 1e9:.3f} G float64 ops"
         core = (f"; outside the tensor cores {t['fp64_core_bound_ms']:.4f} ms, share "
                 f"{t['fp64_core_bound_ms'] / t['ms']:.3f}")
-    return (f"[time] {name} {label}: kernel {t['ms']:.4f} ms, plain PyTorch {plain}"
+    if "padded_floor_ms" in t:
+        core += (f"; padded tensor-core floor {t['padded_floor_ms']:.4f} ms (the MMAs' "
+                 f"8 x 8 blocks, padding included)")
+    wrapper = f", through its wrapper {t['wrapper_ms']:.4f} ms" if "wrapper_ms" in t else ""
+    return (f"[time] {name} {label}: kernel {t['ms']:.4f} ms{wrapper}, plain PyTorch {plain}"
             f"; bound {t['bound_ms']:.4f} ms by {t['bound_by']} ({t['bytes'] / 1e6:.1f} MB, "
             f"{ops}), share {t['bound_ms'] / t['ms']:.3f}{core}; library "
             f"call {LIBRARY_NOTE[name]} on {card}")
@@ -1205,6 +1325,33 @@ def estimate_planes_equal(planes, bd, sub_x, sub_y, lags, dev, errs, what):
                                f"{what} chroma"))
 
 
+def textured_plate(rng, b, h, w, bd):
+    """(b, h, w) int16 planes where only some blocks are flat (as
+    tests/test_torch_cuda.py): a smooth gradient with grain, textured
+    (random levels on 8 x 8 cells) on every 2 x 8-block tile of every
+    fourth tile diagonal, so that whole statistics tiles hold no flat
+    block, and on about one block in seven elsewhere; smooth blocks along
+    the sides are flat and touch the 4-sample band."""
+    maxv = (1 << bd) - 1
+    hb, wb = h // 16, w // 16
+    by, bx = np.mgrid[0:hb, 0:wb]
+    tex = ((by // 2 + bx // 8) % 4 == 1)[None] | (rng.random((b, hb, wb)) < 0.15)
+    tex = np.pad(tex.repeat(16, 1).repeat(16, 2), ((0, 0), (0, h - 16 * hb), (0, w - 16 * wb)))
+    cells = rng.integers(0, maxv + 1, (b, (h + 7) // 8, (w + 7) // 8), dtype=np.int32)
+    cells = cells.repeat(8, 1).repeat(8, 2)[:, :h, :w]
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = ((0.2 + 0.5 * xx / w + 0.1 * yy / h) * maxv).astype(np.float32)
+    plate = np.where(tex, cells, smooth[None]) + rng.normal(0, 0.02 * maxv, (b, h, w))
+    return np.clip(np.round(plate), 0, maxv).astype(np.int16)
+
+
+def textured_4k(dev, b=16):
+    """The textured plate at 3840x2160 10-bit 4:2:0: luma, Cb and Cr."""
+    rng = np.random.default_rng(77)
+    return [torch.from_numpy(textured_plate(rng, b, h, w, 10)).to(dev)
+            for h, w in ((2160, 3840), (1080, 1920), (1080, 1920))]
+
+
 def checkerboard(b, h, w, bd):
     """0 / max in a checkerboard (mirrored in odd frames): every block away
     from the edge has the same activity, so all of them are flat, and |q|
@@ -1433,8 +1580,26 @@ def estimate_phase(card, eff, dev, grainy):
     def blur_all(fn):
         return lambda: [fn(p, BD) for p in planes]
 
-    def stats_all(fn, lag=2):
-        return lambda: [fn(q, den, bl, ls, npool, lag, BD) for q, den, bl, ls, npool in stat_args]
+    def stats_all(fn, lag=2, args=None):
+        return lambda: [fn(q, den, bl, ls, npool, lag, BD)
+                        for q, den, bl, ls, npool in args or stat_args]
+
+    def stats_time(lag, plain_iters=0, args=None, iters=10):
+        """K9 on ``args`` (default: the main path's): the kernel alone (CUDA
+        events around its C launches), beside its wrapper's time, its bound,
+        its padded tensor-core floor and (where ``plain_iters``) its plain
+        version's time."""
+        args = args or stat_args
+        outs = stats_all(ek.self_stats, lag, args)()
+        t = timing(
+            cuda_ms(self_stats_launches(args, lag, BD), iters),
+            cuda_ms(stats_all(ek.self_stats_reference, lag, args), plain_iters, 1)
+            if plain_iters else None,
+            *self_stats_work(args, lag, outs),
+        )
+        t["wrapper_ms"] = cuda_ms(stats_all(ek.self_stats, lag, args), iters)
+        t["padded_floor_ms"] = self_stats_padded_floor(args, lag, outs)
+        return t
 
     blur_bytes = sum(nbytes(p, den, q) for p, (den, q) in zip(planes, blurred))
     floats = [p.to(torch.float32).unsqueeze(1) for p in planes]
@@ -1445,11 +1610,7 @@ def estimate_phase(card, eff, dev, grainy):
             cuda_ms(blur_all(ek.self_blur_reference), 3, 1),
             blur_bytes, BLUR_OPS * sum(p.numel() for p in planes),
         ),
-        "self_stats": timing(
-            cuda_ms(stats_all(ek.self_stats), 10),
-            cuda_ms(stats_all(ek.self_stats_reference), 2, 1),
-            *self_stats_work(stat_args, 2, stats_all(ek.self_stats)()),
-        ),
+        "self_stats": stats_time(2, plain_iters=2),
     }
     # the yardstick: one float32 convolution (cuDNN, TF32 off) of the 9x9
     # box sum S alone, on float32 copies of the planes
@@ -1462,11 +1623,37 @@ def estimate_phase(card, eff, dev, grainy):
     log(f"[time] library call for self_blur: torch.nn.functional.conv2d of the box sum "
         f"(float32, cuDNN, TF32 off; den and q not formed): "
         f"{times['self_blur']['library_ms']:.4f} ms on {card}")
-    lag3 = timing(cuda_ms(stats_all(ek.self_stats, 3), 5), None,
-                  *self_stats_work(stat_args, 3, stats_all(ek.self_stats, 3)()))
+    lag3 = stats_time(3, iters=5)
     lag3["label"] = "4K10 4:2:0 B=16 (3 planes, lag 3)"
     log(time_line("self_stats", lag3["label"], lag3, card))
-    times["self_stats"]["other_cases"] = [lag3]
+    # the textured plate: K9 against its plain version at lags 0-3, then timed
+    tex = textured_4k(dev)
+    tex_blur = [ek.self_blur(p, BD) for p in tex]
+    tex_lsum = de.pool_sum(tex_blur[0][1], tex[1].shape[1], tex[1].shape[2], 1, 1)
+    tex_args = [(q, den, de.flat_blocks(den), None if k == 0 else tex_lsum, 1 if k == 0 else 4)
+                for k, (den, q) in enumerate(tex_blur)]
+    n_tex = 0
+    for k, (q, den, _, _, _) in enumerate(tex_args):
+        n_tex += self_stats_equal(q, den, None if k == 0 else tex_lsum, 1 if k == 0 else 4,
+                                  (0, 1, 2, 3), BD, errs, f"textured 4K10 plane {k}")
+    flat = sum(int((a[2] != 0).sum()) for a in tex_args) / sum(a[2].numel() for a in tex_args)
+    textured = stats_time(2, args=tex_args)
+    textured["label"] = "4K10 4:2:0 B=16 textured plate (3 planes, lag 2)"
+    log(f"[estimate kernels] textured plate 4K10 4:2:0 B=16: {flat:.3f} of the blocks flat; "
+        f"{n_tex} statistics comparisons at lags 0-3 equal to the plain version (max |err| "
+        f"{errs['self_stats']})")
+    log(time_line("self_stats", textured["label"], textured, card))
+    times["self_stats"]["other_cases"] = [lag3, textured]
+    del tex, tex_blur, tex_lsum, tex_args
+    probe = dmma_rates()
+    log("[dmma] float64 tensor-core MMA on one SM (16 warps x 4 independent MMAs, clock64): " +
+        "; ".join(f"{k} {v['fma_per_clk']:.1f} multiply-adds a clock ({v['tflops']:.2f} TFLOP/s "
+                  f"over {torch.cuda.get_device_properties(0).multi_processor_count} SMs at "
+                  f"{v['mhz']:.0f} MHz), latency {v['latency']:.1f} cycles, Gram through the "
+                  f"fragments {'exact' if v['gram_ok'] else 'WRONG'}" for k, v in probe.items())
+        + f" on {card}")
+    if not probe[DMMA_LANDED]["gram_ok"]:
+        raise AssertionError(f"{DMMA_LANDED}: the fragment layout K9 rests on gives a wrong Gram")
     del blurred, stat_args, blocks, lsum
 
     est = te.NoiseEstimator((30, 1), BD, device=dev)
@@ -1500,6 +1687,47 @@ def self_stats_work(stat_args, lag: int, outs):
         ops += 2 * q.numel() + 4 * masked
         fp64_ops += n * (n + 1) * masked
     return moved, ops, fp64_ops
+
+
+def self_stats_launches(stat_args, lag: int, bd: int):
+    """A zero-argument run of K9's C launches on ``stat_args`` through the
+    package's library, into buffers made once and not zeroed (the kernel
+    alone: no allocation, zeroing or unpacking; no launch counted)."""
+    from grav1synth_tpu_torch import _build
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for q, _, _, ls, _ in stat_args:
+        n = len(ek.offsets(lag)) + (ls is not None)
+        outs.append(torch.zeros((q.shape[0], n * (n + 1) // 2 + 1 + 3 * ek.NUM_BINS),
+                                dtype=torch.int64, device=q.device))
+
+    def run():
+        for (q, den, bl, ls, npool), out in zip(stat_args, outs):
+            b, h, w = q.shape
+            err = lib.estimate_self_stats(
+                q.data_ptr(), den.data_ptr(), bl.data_ptr(), None if ls is None else ls.data_ptr(),
+                out.data_ptr(), b, h, w, h // 16, w // 16, lag, npool, bd, stream)
+            if err != 0:
+                raise RuntimeError(f"estimate_self_stats: CUDA error {err}")
+    return run
+
+
+def self_stats_padded_floor(stat_args, lag: int, outs) -> float:
+    """K9's least time on the tensor cores with its padding: per masked
+    pixel the multiply-adds of the m16n8k4 MMAs its Gram takes (the design
+    values in groups of 8; 1, 2 or 5 MMAs of 16 x 8 x 4 a k-step of 4
+    pixels for 1, 2 or 4 groups) over the float64 tensor-core peak."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    fma = 0.0
+    for (_, _, _, ls, _), out in zip(stat_args, outs):
+        groups = -(-(len(ek.offsets(lag)) + (ls is not None)) // 8)
+        mmas = {1: 1, 2: 2, 4: 5}[groups]
+        fma += float(out["n_ar"].sum()) * mmas * 16 * 8
+    return 2 * fma / FP64_OPS_PER_S * 1e3
 
 
 def frames_per_s(fn, b: int, reps: int) -> float:
@@ -1634,6 +1862,58 @@ def chain_step_cycles(iters: int = 100000) -> dict:
         ms = cuda_ms(launch, 5)
         cycles = float(out[0])
         got[shuffle] = (cycles / iters, cycles / ms / 1e3)
+    return got
+
+
+def dmma_rates(iters: int = 20000) -> dict:
+    """The float64 tensor-core (DMMA) shapes on one SM: ``{shape: {"fma_per_clk":
+    multiply-adds a clock on the SM, "tflops": that rate over every SM at the
+    clock the loop ran at, "latency": cycles of one MMA that waits for the last,
+    "mhz": SM clock, "gram_ok": the Gram of a random integer matrix through the
+    shape's fragments, one register per design value and pixel serving as A
+    and B, equal to D^T D}}``. The rate is 16 warps of one CTA, each issuing 4
+    independent MMAs ``iters`` times, by clock64 (the slowest warp); the
+    latency one warp with one chain; the clock those cycles over the launch's
+    time by CUDA events."""
+    from grav1synth_tpu_torch import _build
+
+    src = os.path.join(_build.build_dir(), "ab", "dmma.cu")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    with open(src, "w") as fh:
+        fh.write(DMMA_SRC)
+    lib = ctypes.CDLL(nvcc_shared(src, "dmma"))
+    lib.dmma_rate.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.dmma_gram.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p]
+    lib.dmma_rate.restype = lib.dmma_gram.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(16 * 32, dtype=torch.float64, device="cuda")
+    cyc = torch.zeros(16, dtype=torch.int64, device="cuda")
+    rng = np.random.default_rng(5)
+    d = torch.from_numpy(rng.integers(-1326780, 1326781, (64, 32)).astype(np.float64)).cuda()
+    want = d.T @ d
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    got = {}
+    for shape, (name, m, k) in enumerate(DMMA_SHAPES):
+        def run(warps, chains, n):
+            err = lib.dmma_rate(sink.data_ptr(), cyc.data_ptr(), shape, warps, chains, n, stream)
+            if err != 0:
+                raise RuntimeError(f"dmma probe {name}: CUDA error {err}")
+
+        ms = cuda_ms(lambda: run(16, 4, iters), 3)
+        cycles = float(cyc.max())
+        mhz = cycles / ms / 1e3
+        fma_clk = 16 * 4 * iters * m * 8 * k / cycles
+        run(1, 1, iters)
+        torch.cuda.synchronize()
+        latency = float(cyc[0]) / iters
+        gram = torch.zeros((32, 32), dtype=torch.float64, device="cuda")
+        err = lib.dmma_gram(d.data_ptr(), d.shape[0], gram.data_ptr(), shape, stream)
+        if err != 0:
+            raise RuntimeError(f"dmma gram {name}: CUDA error {err}")
+        got[name] = {"fma_per_clk": fma_clk, "tflops": 2 * fma_clk * n_sm * mhz * 1e6 / 1e12,
+                     "latency": latency, "mhz": mhz, "gram_ok": bool(torch.equal(gram, want))}
     return got
 
 

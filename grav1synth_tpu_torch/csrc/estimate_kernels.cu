@@ -129,19 +129,6 @@ __device__ __forceinline__ void stage(int n, int t, Load load, Store store) {
   }
 }
 
-// Four neighbouring samples from one aligned load (8 or 16 bytes).
-__device__ __forceinline__ int4 load4(const int16_t* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return make_int4((int16_t)(v.x & 0xffffu), (int16_t)(v.x >> 16), (int16_t)(v.y & 0xffffu),
-                   (int16_t)(v.y >> 16));
-}
-__device__ __forceinline__ int4 load4(const int* p) { return *reinterpret_cast<const int4*>(p); }
-
-// what a staging load of den and lsum returns
-struct Int4Pair {
-  int4 a, b;
-};
-
 // ---------------------------------------------------------------------------
 // 9x9 blur
 
@@ -253,21 +240,20 @@ int launch_blur(const void* f, void* den, void* q, int B, int H, int W, int bit_
 // ---------------------------------------------------------------------------
 // Self-statistics
 
-constexpr int ST_TW = 128;            // tile columns, one thread each
-constexpr int ST_THREADS = ST_TW;
+constexpr int ST_TW = 128;            // tile columns
+constexpr int ST_TR = 2 * FB;         // tile rows: two block rows
 constexpr int ST_BX = ST_TW / FB;     // block columns in a tile
+constexpr int ST_SEGS = ST_TR / FB;   // block rows in a tile
+constexpr int ST_THREADS = 256;       // a thread owns one column of one block row
+constexpr int ST_WARPS = ST_THREADS / 32;
 constexpr int ST_HALO = 4;            // halo columns staged on each side (>= lag)
-constexpr int ST_SW = ST_TW + 2 * ST_HALO;
-constexpr int ST_CTAS_PER_SM = 2;     // the register budget: 255 a thread
+constexpr int ST_SW = ST_TW + 2 * ST_HALO;  // staged row stride, in samples
 constexpr int MAX_LAG = 3;
-constexpr int BIN_NONE = 255;         // a staged bin outside 0..NUM_BINS-1
 static_assert(ST_HALO >= MAX_LAG, "the halo holds every lag");
 static_assert(EDGE > MAX_LAG, "the band keeps every shifted read inside the plane");
-
-// Tile rows: two block rows. (Four took 20% longer at lag 2 on the card
-// and 5% less at lag 3.)
-constexpr int ST_TR = 2 * FB;
-constexpr int ST_SEGS = ST_TR / FB;   // block rows in a tile
+static_assert(ST_THREADS == ST_TW * ST_SEGS, "a thread a column of a block row");
+static_assert(ST_SEGS * ST_BX <= 16, "a tile's block map fits half a warp's ballot");
+static_assert(ST_SW % 4 == 0 && ST_HALO % 4 == 0, "staged rows and tiles stay 16-byte aligned");
 
 // The ranges the sums rest on (the C entry point refuses deeper samples
 // and larger pools).
@@ -276,16 +262,15 @@ constexpr long long MAX_Q = (long long)AREA * ((1LL << MAX_BIT_DEPTH) - 1);
 constexpr int MAX_POOL = 4;
 constexpr long long MAX_DESIGN = MAX_POOL * MAX_Q;  // lsum; q is smaller
 constexpr long long EXACT_F64 = 1LL << 53;
-// a warp's float64 sums of products over its tile columns stay exact
-// integers: a thread's over its column, and their sum over the warp
-static_assert(32LL * ST_TR * MAX_DESIGN * MAX_DESIGN < EXACT_F64,
+// a warp's float64 sums of products over its block-row columns stay exact
+// integers: a thread's over its 16 rows, and their sum over the warp
+static_assert(32LL * FB * MAX_DESIGN * MAX_DESIGN < EXACT_F64,
               "a warp's float64 sum of products leaves the exact integers");
-// a CTA's int64 sums in shared memory
-static_assert((long long)ST_TR * ST_TW * MAX_DESIGN * MAX_DESIGN <= 9223372036854775807LL,
-              "a tile's sum of products overflows int64");
 // A tile's bin moments in 32-bit shared sums: the count and the sum of q
 // in int32; the sum of q^2 as the sums of each run's low SQ_LO_BITS bits
-// (at most one run a pixel) and of its high bits.
+// (at most one run a pixel) and of its high bits. After each tile they are
+// added to the CTA's 64-bit sums, so these bounds hold for any number of
+// tiles.
 constexpr int SQ_LO_BITS = 19;
 constexpr long long SQ_LO_MASK = (1LL << SQ_LO_BITS) - 1;
 static_assert((long long)ST_TR * ST_TW * MAX_Q <= 2147483647LL,
@@ -312,25 +297,134 @@ struct SelfShape {
   // per-frame output: pair sums (row-major, i <= j), n_ar, then the bin
   // counts, sums and sums of squares
   static constexpr int OUT_LEN = NPAIR + 1 + 3 * NUM_BINS;
-  static constexpr int TR = ST_TR, SEGS = ST_SEGS;
-  // dynamic shared memory: q (float64) with its halo, the pooled luma
-  // column (int32, chroma only), the bins of den (uint8)
-  static constexpr size_t SQ = (size_t)(TR + LAG) * ST_SW;
-  static constexpr size_t SMEM =
-      SQ * sizeof(double) + (AUX ? (size_t)TR * ST_TW * sizeof(int) : 0) + (size_t)TR * ST_TW;
+  // One staging buffer, in 32-bit words: q (int32) at rows y0 - LAG ..
+  // y0 + ST_TR - 1 and columns x0 - ST_HALO .. x0 + ST_TW + ST_HALO - 1;
+  // for chroma lsum (int32) at the tile's rows, with q's row stride and
+  // column origin; den (int16) at the tile's pixels.
+  static constexpr int QW = (ST_TR + LAG) * ST_SW;
+  static constexpr int LW = AUX ? ST_TR * ST_SW : 0;
+  static constexpr int DW = ST_TR * ST_TW / 2;
+  static constexpr int BUF = QW + LW + DW;
+  static constexpr size_t SMEM = 2 * (size_t)BUF * sizeof(int);  // double-buffered
+  static_assert(QW % 4 == 0 && LW % 4 == 0 && BUF % 4 == 0, "16-byte aligned parts");
 };
 
-// float64 accumulators a thread holds in one pass, a multiple of the warp
-// (lag 0-1: every pair in one pass; lag 2 three or four passes, lag 3 eleven
-// or twelve). Passes of 64 took 12% longer at lag 2 on the card: more
-// registers, fewer CTAs an SM.
-constexpr int PAIR_CHUNK = 32;
+// cp.async: ``bytes`` (4, 8 or 16) from global to shared memory, or zeros
+// where ``valid`` is false (source size 0: nothing is read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(gmem),
+                 "n"(BYTES), "r"(valid ? BYTES : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
+
+// What a CTA needs to know of the plane.
+struct Plane {
+  const int* q;
+  const int16_t* den;
+  const uint8_t* blocks;
+  const int* lsum;
+  unsigned long long* out;
+  int H, W, HB, WB, TX, TY, bin_shift;
+  int ntiles;  // B * TY * TX, frame-major
+  bool wide;   // rows of q, den and lsum start on 4-sample boundaries
+};
+
+// The first tile at or after ``k`` in steps of ``stride`` that holds a flat
+// block, or p.ntiles; ``mask`` gets its block map (bit by * ST_BX + bx).
+// The lanes read two candidates' 2 x 8 block-map bytes at a time, and every
+// warp of the CTA finds the same tile without a barrier.
+__device__ __forceinline__ int next_tile(const Plane& p, int k, int stride, int lane,
+                                         unsigned& mask) {
+  for (; k < p.ntiles; k += 2 * stride) {
+    const int kk = k + (lane >> 4) * stride, bit = lane & 15;
+    bool fl = false;
+    if (kk < p.ntiles && bit < ST_SEGS * ST_BX) {
+      const int per = p.TX * p.TY, b = kk / per, r = kk - b * per;
+      const int by = (r / p.TX) * ST_SEGS + bit / ST_BX, bx = (r % p.TX) * ST_BX + bit % ST_BX;
+      if (by < p.HB && bx < p.WB) fl = p.blocks[((int64_t)b * p.HB + by) * p.WB + bx] != 0;
+    }
+    const unsigned m = __ballot_sync(FULL, fl);
+    if (m & 0xffffu) {
+      mask = m & 0xffffu;
+      return k;
+    }
+    if (m >> 16) {
+      mask = m >> 16;
+      return k + stride;
+    }
+  }
+  mask = 0;
+  return p.ntiles;
+}
+
+// Issues the copies of tile ``k`` into ``buf`` (one cp.async group is
+// committed by the caller): 16-byte copies of q and lsum and 8-byte copies
+// of den where rows are aligned, 4-byte ones of q and lsum and plain loads
+// of den elsewhere; zeros outside the plane.
+template <int LAG, bool AUX>
+__device__ __forceinline__ void stage_tile(const Plane& p, int k, int* buf, int t) {
+  using S = SelfShape<LAG, AUX>;
+  const int per = p.TX * p.TY, b = k / per, r = k - b * per;
+  const int y0 = (r / p.TX) * ST_TR, x0 = (r % p.TX) * ST_TW;
+  const int64_t fo = (int64_t)b * p.H * p.W;
+  int* sq = buf;
+  int* sl = buf + S::QW;
+  int16_t* sd = reinterpret_cast<int16_t*>(buf + S::QW + S::LW);
+  if (p.wide) {
+    constexpr int QCH = ST_SW / 4, CH = ST_TW / 4;
+    for (int i = t; i < (ST_TR + LAG) * QCH; i += ST_THREADS) {
+      const int rr = i / QCH, c = 4 * (i - rr * QCH);
+      const int y = y0 - LAG + rr, x = x0 - ST_HALO + c;
+      const bool ok = y >= 0 && y < p.H && x >= 0 && x < p.W;
+      cp_async<16>(sq + rr * ST_SW + c, ok ? p.q + fo + (int64_t)y * p.W + x : p.q, ok);
+    }
+    for (int i = t; i < ST_TR * CH; i += ST_THREADS) {
+      const int rr = i / CH, c = 4 * (i - rr * CH);
+      const int y = y0 + rr, x = x0 + c;
+      const bool ok = y < p.H && x < p.W;
+      const int64_t o = ok ? fo + (int64_t)y * p.W + x : 0;
+      cp_async<8>(sd + rr * ST_TW + c, p.den + o, ok);
+      if constexpr (AUX) cp_async<16>(sl + rr * ST_SW + ST_HALO + c, p.lsum + o, ok);
+    }
+  } else {
+    for (int i = t; i < (ST_TR + LAG) * ST_SW; i += ST_THREADS) {
+      const int rr = i / ST_SW, c = i - rr * ST_SW;
+      const int y = y0 - LAG + rr, x = x0 - ST_HALO + c;
+      const bool ok = y >= 0 && y < p.H && x >= 0 && x < p.W;
+      cp_async<4>(sq + i, ok ? p.q + fo + (int64_t)y * p.W + x : p.q, ok);
+    }
+    for (int i = t; i < ST_TR * ST_TW; i += ST_THREADS) {
+      const int rr = i / ST_TW, c = i - rr * ST_TW;
+      const int y = y0 + rr, x = x0 + c;
+      const bool ok = y < p.H && x < p.W;
+      const int64_t o = ok ? fo + (int64_t)y * p.W + x : 0;
+      sd[i] = ok ? p.den[o] : (int16_t)0;
+      if constexpr (AUX) cp_async<4>(sl + rr * ST_SW + ST_HALO + c, p.lsum + o, ok);
+    }
+  }
+}
+
+// float64 accumulators a thread holds in one pass, a multiple of the warp
+// (lag 0-1: every pair in one pass; lag 2 three or four passes, lag 3 eleven
+// or twelve). Passes of 64 took 12% longer at lag 2 on the card: more
+// registers, fewer CTAs an SM.
+constexpr int PAIR_CHUNK = 32;
 
 // Sums each of a lane's N values over the warp, N a multiple of 32, by
 // recursive halving: at each of five steps a lane adds its partner's copy of
@@ -356,35 +450,32 @@ __device__ __forceinline__ void warp_reduce_scatter(double (&a)[N], int lane) {
   if constexpr (STEP < 4) warp_reduce_scatter<N, STEP + 1>(a, lane);
 }
 
-// One pass over this thread's column for pairs P0 .. P0+CHUNK-1 of the
-// upper triangle (row-major, i <= j), then the next pass. The thread's
-// rows are the flat segments in seg_mask, cut to [row_lo, row_hi).
+// One pass over this thread's masked rows [lo, hi) of its column for pairs
+// P0 .. P0+CHUNK-1 of the upper triangle (row-major, i <= j), then the next
+// pass. ``px`` is the staged index of the column at tile row 0; a design
+// value is read as int32 and converted where it is used.
 template <int LAG, bool AUX, int P0>
-__device__ __forceinline__ void self_gram_pass(const double* __restrict__ sq,
-                                               const int* __restrict__ slsum,
-                                               unsigned long long* spair, int c, int lane,
-                                               int seg_mask, int row_lo, int row_hi) {
+__device__ __forceinline__ void self_gram_pass(const int* __restrict__ sq,
+                                               const int* __restrict__ sl,
+                                               unsigned long long* spair, int px, int lane,
+                                               int lo, int hi) {
   using S = SelfShape<LAG, AUX>;
   constexpr int K = S::K, NP = S::NP, NPAIR = S::NPAIR, CHUNK = PAIR_CHUNK;
   double acc[CHUNK];
 #pragma unroll
   for (int p = 0; p < CHUNK; ++p) acc[p] = 0.0;
-  for (int seg = 0; seg < S::SEGS; ++seg) {
-    if (!((seg_mask >> seg) & 1)) continue;
-    const int lo = max(seg * FB, row_lo), hi = min(seg * FB + FB, row_hi);
-    for (int rr = lo; rr < hi; ++rr) {
-      double v[NP];
+  for (int rr = lo; rr < hi; ++rr) {
+    const int o = px + (rr + LAG) * ST_SW;
+    double v[NP];
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        v[k] = sq[(rr + LAG + off_dr<LAG>(k)) * ST_SW + c + ST_HALO + off_dc<LAG>(k)];
-      if constexpr (AUX) v[NP - 1] = (double)slsum[rr * ST_TW + c];
-      int p = 0;
+    for (int k = 0; k < K; ++k) v[k] = (double)sq[o + off_dr<LAG>(k) * ST_SW + off_dc<LAG>(k)];
+    if constexpr (AUX) v[NP - 1] = (double)sl[o - LAG * ST_SW];
+    int p = 0;
 #pragma unroll
-      for (int i = 0; i < NP; ++i) {
+    for (int i = 0; i < NP; ++i) {
 #pragma unroll
-        for (int j = i; j < NP; ++j, ++p) {
-          if (p >= P0 && p < P0 + CHUNK) acc[p - P0] = fma(v[i], v[j], acc[p - P0]);
-        }
+      for (int j = i; j < NP; ++j, ++p) {
+        if (p >= P0 && p < P0 + CHUNK) acc[p - P0] = fma(v[i], v[j], acc[p - P0]);
       }
     }
   }
@@ -396,169 +487,93 @@ __device__ __forceinline__ void self_gram_pass(const double* __restrict__ sq,
     if (p < NPAIR && a) atomicAdd(&spair[p], (unsigned long long)a);
   }
   if constexpr (P0 + CHUNK < NPAIR)
-    self_gram_pass<LAG, AUX, P0 + CHUNK>(sq, slsum, spair, c, lane, seg_mask, row_lo, row_hi);
+    self_gram_pass<LAG, AUX, P0 + CHUNK>(sq, sl, spair, px, lane, lo, hi);
 }
 
-// Grid (max(1, ceil(WB*16 / 128)), max(1, ceil(HB*16 / TR)), B): only
-// pixels inside the full blocks can be flat. The grid is never empty, so a
-// plane with no full block still launches and adds nothing to its zeroed
-// outputs. Dynamic shared memory: SelfShape::SMEM. wide: every row of q,
-// den and lsum starts on a boundary of four samples (W % 4 == 0 and
-// aligned bases).
+// Persistent: CTA c takes tiles c, c + gridDim.x, ... of the frame-major
+// tile order, skipping those without a flat block, and stages the next
+// tile's q, den and lsum with cp.async while it sums the current one. The
+// pair sums, n_ar and the bin sums stay in shared memory over the CTA's
+// tiles of one frame, and go to the frame's outputs by one global atomic
+// each when the frame changes and at the end. Dynamic shared memory:
+// SelfShape::SMEM.
 template <int LAG, bool AUX>
-__global__ void __launch_bounds__(ST_THREADS, ST_CTAS_PER_SM)
-self_stats_kernel(const int* __restrict__ q, const int16_t* __restrict__ den,
-                  const uint8_t* __restrict__ blocks, const int* __restrict__ lsum,
-                  unsigned long long* __restrict__ out, int H, int W, int HB, int WB,
-                  int bin_shift, bool wide) {
+__global__ void __launch_bounds__(ST_THREADS)
+self_stats_kernel(Plane p) {
   using S = SelfShape<LAG, AUX>;
-  constexpr int NPAIR = S::NPAIR, OUT_LEN = S::OUT_LEN, TR = S::TR, SEGS = S::SEGS;
-  // q at rows y0-LAG.., columns x0-ST_HALO..; lsum and the bins at the
-  // tile's rows and columns
-  extern __shared__ __align__(16) double sq[];
-  int* slsum = reinterpret_cast<int*>(sq + S::SQ);
-  uint8_t* sbin = reinterpret_cast<uint8_t*>(slsum + (AUX ? TR * ST_TW : 0));
+  constexpr int NPAIR = S::NPAIR, OUT_LEN = S::OUT_LEN;
+  extern __shared__ __align__(16) int smem[];
   __shared__ unsigned long long spair[NPAIR];
   __shared__ unsigned long long sn_ar;
-  // per bin: the count, the sum of q, and the sum of q^2 as the sums of its
-  // runs' low SQ_LO_BITS bits and of their high bits
+  __shared__ int sn_tile;
+  // per bin and tile: the count, the sum of q, and the sum of q^2 as the sums
+  // of its runs' low SQ_LO_BITS bits and of their high bits; then the CTA's
+  // 64-bit sums over the frame
   __shared__ int sbin_cnt[NUM_BINS], sbin_sum[NUM_BINS];
   __shared__ unsigned sbin_sq[2][NUM_BINS];
-  __shared__ uint8_t sflat[ST_SEGS][ST_BX];
+  __shared__ long long sbin64[3][NUM_BINS];
 
-  const int b = blockIdx.z, y0 = blockIdx.y * TR, x0 = blockIdx.x * ST_TW;
-  const int t = threadIdx.x, lane = t & 31;
-  const int64_t fo = (int64_t)b * H * W;
-
-  int fl = 0;
-  if (t < SEGS * ST_BX) {
-    const int by = y0 / FB + t / ST_BX, bx = x0 / FB + t % ST_BX;
-    if (by < HB && bx < WB) fl = blocks[((int64_t)b * HB + by) * WB + bx] != 0;
-    sflat[t / ST_BX][t % ST_BX] = (uint8_t)fl;
-  }
+  const int t = threadIdx.x, lane = t & 31, stride = gridDim.x;
+  unsigned mask;
+  int cur = next_tile(p, blockIdx.x, stride, lane, mask);
+  if (cur >= p.ntiles) return;
   for (int i = t; i < NPAIR; i += ST_THREADS) spair[i] = 0ull;
-  for (int i = t; i < NUM_BINS; i += ST_THREADS) {
-    sbin_cnt[i] = sbin_sum[i] = 0;
-    sbin_sq[0][i] = sbin_sq[1][i] = 0u;
+  if (t < NUM_BINS) {
+    sbin_cnt[t] = sbin_sum[t] = 0;
+    sbin_sq[0][t] = sbin_sq[1][t] = 0u;
+    sbin64[0][t] = sbin64[1][t] = sbin64[2][t] = 0;
   }
-  if (t == 0) sn_ar = 0ull;
-  if (!__syncthreads_or(fl)) return;  // no flat block: nothing to add
+  if (t == 0) sn_ar = 0ull, sn_tile = 0;
+  stage_tile<LAG, AUX>(p, cur, smem, t);
+  cp_async_commit();
 
-  auto put_bin = [&](int i, int d) {
-    const int bin = d >> bin_shift;
-    sbin[i] = (uint8_t)(bin >= 0 && bin < NUM_BINS ? bin : BIN_NONE);
-  };
-  if (wide) {
-    // four samples a load: a chunk starts at a column that is a multiple of
-    // 4, so it lies in the plane whole or not at all
-    constexpr int QCH = ST_SW / 4, CH = ST_TW / 4;
-    stage<ST_THREADS>(
-        (TR + LAG) * QCH, t,
-        [&](int i) {
-          const int r = i / QCH, y = y0 - LAG + r, x = x0 - ST_HALO + 4 * (i - r * QCH);
-          return (y >= 0 && y < H && x >= 0 && x < W) ? load4(q + fo + (int64_t)y * W + x)
-                                                      : make_int4(0, 0, 0, 0);
-        },
-        [&](int i, int4 v) {
-          double* d = sq + 4 * i;
-          d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
-        });
-    // (den, lsum) at the tile's pixels -> the bin of den, and lsum
-    stage<ST_THREADS>(
-        TR * CH, t,
-        [&](int i) {
-          const int r = i / CH, y = y0 + r, x = x0 + 4 * (i - r * CH);
-          int4 d = make_int4(-1, -1, -1, -1), l = make_int4(0, 0, 0, 0);
-          if (y < H && x < W) {
-            const int64_t o = fo + (int64_t)y * W + x;
-            d = load4(den + o);
-            if constexpr (AUX) l = load4(lsum + o);
-          }
-          return Int4Pair{d, l};
-        },
-        [&](int i, Int4Pair v) {
-          put_bin(4 * i, v.a.x);
-          put_bin(4 * i + 1, v.a.y);
-          put_bin(4 * i + 2, v.a.z);
-          put_bin(4 * i + 3, v.a.w);
-          if constexpr (AUX) {
-            int* l = slsum + 4 * i;
-            l[0] = v.b.x, l[1] = v.b.y, l[2] = v.b.z, l[3] = v.b.w;
-          }
-        });
-  } else {
-    stage<ST_THREADS>(
-        (TR + LAG) * ST_SW, t,
-        [&](int i) {
-          const int r = i / ST_SW, cc = i - r * ST_SW;
-          const int y = y0 - LAG + r, x = x0 - ST_HALO + cc;
-          return (y >= 0 && y < H && x >= 0 && x < W) ? q[fo + (int64_t)y * W + x] : 0;
-        },
-        [&](int i, int v) { sq[i] = (double)v; });
-    stage<ST_THREADS>(
-        TR * ST_TW, t,
-        [&](int i) {
-          const int r = i / ST_TW, cc = i - r * ST_TW;
-          const int y = y0 + r, x = x0 + cc;
-          int2 v = make_int2(-1, 0);
-          if (y < H && x < W) {
-            const int64_t o = fo + (int64_t)y * W + x;
-            v.x = den[o];
-            if constexpr (AUX) v.y = lsum[o];
-          }
-          return v;
-        },
-        [&](int i, int2 v) {
-          put_bin(i, v.x);
-          if constexpr (AUX) slsum[i] = v.y;
-        });
-  }
-  __syncthreads();
+  const int per = p.TX * p.TY;
+  const int c = t % ST_TW, seg = t / ST_TW;
+  for (int buf = 0; cur < p.ntiles; buf ^= 1) {
+    unsigned next_mask;
+    const int nxt = next_tile(p, cur + stride, stride, lane, next_mask);
+    if (nxt < p.ntiles) stage_tile<LAG, AUX>(p, nxt, smem + (buf ^ 1) * S::BUF, t);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
 
-  // this column's masked rows: flat segments, cut to the band
-  const int c = t, x = x0 + c;
-  const bool col_in = x >= EDGE && x < W - EDGE;
-  const int row_lo = max(EDGE - y0, 0), row_hi = min(H - EDGE - y0, TR);
-  int seg_mask = 0;
-  long long n_ar = 0;
-  for (int seg = 0; seg < SEGS; ++seg) {
-    if (col_in && sflat[seg][c / FB]) {
-      const int n = min(seg * FB + FB, row_hi) - max(seg * FB, row_lo);
-      if (n > 0) {
-        seg_mask |= 1 << seg;
-        n_ar += n;
-      }
-    }
-  }
-  n_ar = warp_sum(n_ar);
-  if (lane == 0 && n_ar) atomicAdd(&sn_ar, (unsigned long long)n_ar);
+    const int* sq = smem + buf * S::BUF;
+    const int* sl = sq + S::QW;
+    const int16_t* sd = reinterpret_cast<const int16_t*>(sq + S::QW + S::LW);
+    const int b = cur / per, r = cur - b * per;
+    const int y0 = (r / p.TX) * ST_TR, x0 = (r % p.TX) * ST_TW;
+    // this thread's masked rows: its block-row segment if the block is flat
+    // and the column in the band, cut to the band's rows
+    const int x = x0 + c;
+    int lo = max(max(seg * FB, EDGE - y0), 0), hi = min(seg * FB + FB, p.H - EDGE - y0);
+    if (!((mask >> (seg * ST_BX + c / FB)) & 1) || x < EDGE || x >= p.W - EDGE) hi = lo;
+    const int n = max(hi - lo, 0);
+    const int wn = (int)warp_sum((long long)n);
+    if (lane == 0 && wn) atomicAdd(&sn_tile, wn);
 
-  // 64-bin moments over the masked rows, summed in runs of equal bins down
-  // the column, each run added to the CTA's bin by native 32-bit shared
-  // atomics: neighbouring lanes often end runs of one bin together, and a
-  // 64-bit shared atomic is a compare-and-swap loop that they would repeat
-  // in turn. (Grouping each row's lanes by bin with __match_any_sync and
-  // hardware reductions took 14% longer on the card.)
-  {
-    int cur = BIN_NONE, cnt = 0, sum = 0;
-    long long sq2 = 0;
-    auto flush = [&]() {
-      if (cnt > 0 && cur < NUM_BINS) {
-        atomicAdd(&sbin_cnt[cur], cnt);
-        atomicAdd(&sbin_sum[cur], sum);
-        atomicAdd(&sbin_sq[0][cur], (unsigned)(sq2 & SQ_LO_MASK));
-        atomicAdd(&sbin_sq[1][cur], (unsigned)(sq2 >> SQ_LO_BITS));
-      }
-    };
-    for (int seg = 0; seg < SEGS; ++seg) {
-      if (!((seg_mask >> seg) & 1)) continue;
-      const int lo = max(seg * FB, row_lo), hi = min(seg * FB + FB, row_hi);
+    // 64-bin moments over the masked rows, summed in runs of equal bins down
+    // the column, each run added to the tile's bin by native 32-bit shared
+    // atomics: neighbouring lanes often end runs of one bin together, and a
+    // 64-bit shared atomic is a compare-and-swap loop that they would repeat
+    // in turn. (Grouping each row's lanes by bin with __match_any_sync and
+    // hardware reductions took 14% longer on the card.)
+    {
+      int run_bin = -1, cnt = 0, sum = 0;
+      long long sq2 = 0;
+      auto flush = [&]() {
+        if (cnt > 0 && run_bin >= 0 && run_bin < NUM_BINS) {
+          atomicAdd(&sbin_cnt[run_bin], cnt);
+          atomicAdd(&sbin_sum[run_bin], sum);
+          atomicAdd(&sbin_sq[0][run_bin], (unsigned)(sq2 & SQ_LO_MASK));
+          atomicAdd(&sbin_sq[1][run_bin], (unsigned)(sq2 >> SQ_LO_BITS));
+        }
+      };
       for (int rr = lo; rr < hi; ++rr) {
-        const int bin = sbin[rr * ST_TW + c];
-        const int v = (int)sq[(rr + LAG) * ST_SW + c + ST_HALO];
-        if (bin != cur) {
+        const int bin = sd[rr * ST_TW + c] >> p.bin_shift;
+        const int v = sq[(rr + LAG) * ST_SW + ST_HALO + c];
+        if (bin != run_bin) {
           flush();
-          cur = bin;
+          run_bin = bin;
           cnt = sum = 0;
           sq2 = 0;
         }
@@ -566,30 +581,45 @@ self_stats_kernel(const int* __restrict__ q, const int16_t* __restrict__ den,
         sum += v;
         sq2 += (long long)v * v;
       }
+      flush();
     }
-    flush();
-  }
+    self_gram_pass<LAG, AUX, 0>(sq, sl, spair, ST_HALO + c, lane, lo, hi);
+    __syncthreads();
 
-  self_gram_pass<LAG, AUX, 0>(sq, slsum, spair, c, lane, seg_mask, row_lo, row_hi);
-  __syncthreads();
-
-  // the CTA's sums into the frame's: pairs, n_ar, then the bins' counts,
-  // sums and sums of squares
-  unsigned long long* o = out + (int64_t)b * OUT_LEN;
-  for (int i = t; i < OUT_LEN; i += ST_THREADS) {
-    unsigned long long v;
-    if (i < NPAIR) {
-      v = spair[i];
-    } else if (i == NPAIR) {
-      v = sn_ar;
-    } else {
-      const int k = i - NPAIR - 1, bin = k % NUM_BINS;
-      v = k < NUM_BINS       ? (unsigned long long)sbin_cnt[bin]
-          : k < 2 * NUM_BINS ? (unsigned long long)(long long)sbin_sum[bin]
-                             : ((unsigned long long)sbin_sq[1][bin] << SQ_LO_BITS) +
-                                   sbin_sq[0][bin];
+    // the tile's bins into the CTA's 64-bit sums; at the frame's last tile
+    // of this CTA, the CTA's sums into the frame's outputs
+    const bool flush = nxt >= p.ntiles || nxt / per != b;
+    unsigned long long* o = p.out + (int64_t)b * OUT_LEN;
+    if (t < NUM_BINS) {
+      sbin64[0][t] += sbin_cnt[t];
+      sbin64[1][t] += sbin_sum[t];
+      sbin64[2][t] += ((long long)sbin_sq[1][t] << SQ_LO_BITS) + sbin_sq[0][t];
+      sbin_cnt[t] = sbin_sum[t] = 0;
+      sbin_sq[0][t] = sbin_sq[1][t] = 0u;
+      if (flush) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          if (sbin64[m][t]) atomicAdd(&o[NPAIR + 1 + m * NUM_BINS + t], (unsigned long long)sbin64[m][t]);
+          sbin64[m][t] = 0;
+        }
+      }
     }
-    if (v) atomicAdd(&o[i], v);
+    if (t == ST_THREADS - 1) {
+      sn_ar += (unsigned long long)sn_tile;
+      sn_tile = 0;
+      if (flush) {
+        if (sn_ar) atomicAdd(&o[NPAIR], sn_ar);
+        sn_ar = 0ull;
+      }
+    }
+    if (flush) {
+      for (int i = t; i < NPAIR; i += ST_THREADS) {
+        if (spair[i]) atomicAdd(&o[i], spair[i]);
+        spair[i] = 0ull;
+      }
+    }
+    cur = nxt;
+    mask = next_mask;
   }
 }
 
@@ -604,13 +634,27 @@ int launch_self_stats(const void* q, const void* den, const void* blocks, const 
       (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)S::SMEM)) != cudaSuccess)
     return (int)err;
-  const dim3 grid(max(1, (WB * FB + ST_TW - 1) / ST_TW), max(1, (HB * FB + S::TR - 1) / S::TR),
-                  B);
-  const bool wide = W % 4 == 0 && ((uintptr_t)q | (uintptr_t)lsum) % 16 == 0 &&
-                    (uintptr_t)den % 8 == 0;
-  kernel<<<grid, ST_THREADS, S::SMEM, stream>>>(
-      (const int*)q, (const int16_t*)den, (const uint8_t*)blocks, (const int*)lsum,
-      (unsigned long long*)out, H, W, HB, WB, bit_depth - 6, wide);
+  Plane p;
+  p.q = (const int*)q;
+  p.den = (const int16_t*)den;
+  p.blocks = (const uint8_t*)blocks;
+  p.lsum = (const int*)lsum;
+  p.out = (unsigned long long*)out;
+  p.H = H, p.W = W, p.HB = HB, p.WB = WB;
+  p.TX = (WB + ST_BX - 1) / ST_BX;
+  p.TY = (HB + ST_SEGS - 1) / ST_SEGS;
+  p.bin_shift = bit_depth - 6;
+  p.ntiles = B * p.TX * p.TY;
+  p.wide = W % 4 == 0 && ((uintptr_t)q | (uintptr_t)lsum) % 16 == 0 && (uintptr_t)den % 8 == 0;
+  // one wave of resident CTAs, at most one a tile
+  int dev, sms, per_sm;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, ST_THREADS,
+                                                           S::SMEM)) != cudaSuccess)
+    return (int)err;
+  const int grid = max(1, min(max(per_sm, 1) * sms, p.ntiles));
+  kernel<<<grid, ST_THREADS, S::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -644,6 +688,9 @@ int estimate_self_stats(const void* q, const void* den, const void* blocks, cons
   const long long max_q = (long long)AREA * ((1LL << bit_depth) - 1);
   const long long max_design = (lsum ? n_pool : 1) * max_q;
   if ((long long)H * W > 9223372036854775807LL / (max_design * max_design))
+    return (int)cudaErrorInvalidValue;
+  // the tiles, frame-major, are counted in int
+  if ((long long)B * ((HB + ST_SEGS - 1) / ST_SEGS) * ((WB + ST_BX - 1) / ST_BX) > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define SELF_STATS(L)                                                                      \

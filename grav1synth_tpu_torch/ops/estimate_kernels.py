@@ -250,8 +250,7 @@ def self_stats(
     if bit_depth not in (8, 10, 12):
         raise ValueError(f"bit depth {bit_depth} not in (8, 10, 12)")
     p = _n_design(lag, lsum is not None)
-    npair = p * (p + 1) // 2
-    out = torch.zeros((b, npair + 1 + 3 * NUM_BINS), dtype=torch.int64, device=q.device)
+    out = torch.zeros((b, p * (p + 1) // 2 + 1 + 3 * NUM_BINS), dtype=torch.int64, device=q.device)
     if b > 0 and h > 0 and w > 0:
         lib = _build.load()
         with torch.cuda.device(q.device):
@@ -262,13 +261,33 @@ def self_stats(
             )
         _raise_on(err, "estimate_self_stats launch")
         LAUNCHES["self_stats"] += 1
+    return _unpack_self_stats(out, p, None if lsum is None else n_pool)
+
+
+# (p, device) -> for each entry of a (p, p) Gram, the index of its pair in
+# the kernel's row-major upper triangle
+_PAIR_INDEX: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def _pair_index(p: int, device) -> torch.Tensor:
+    key = (p, str(device))
+    idx = _PAIR_INDEX.get(key)
+    if idx is None:
+        i = torch.arange(p)
+        lo, hi = torch.minimum(i[:, None], i[None, :]), torch.maximum(i[:, None], i[None, :])
+        # pairs (r, c), r <= c, row-major: row r starts at r p - r (r - 1) / 2
+        idx = (lo * p - lo * (lo - 1) // 2 + hi - lo).reshape(-1).to(device)
+        _PAIR_INDEX[key] = idx
+    return idx
+
+
+def _unpack_self_stats(out: torch.Tensor, p: int, n_pool: Optional[int]) -> dict:
+    """The kernel's (B, P(P+1)/2 + 1 + 3 x 64) int64 sums (the row-major
+    upper triangle of the Gram, n_ar, then the bins' counts, sums and sums
+    of squares) -> the statistics (``_finish``; ``n_pool`` None for luma)."""
+    b = out.shape[0]
+    npair = p * (p + 1) // 2
     sums = out.to(torch.float64)
-    iu = torch.triu_indices(p, p, device=q.device)
-    gram = torch.zeros((b, p, p), dtype=torch.float64, device=q.device)
-    gram[:, iu[0], iu[1]] = sums[:, :npair]
-    gram[:, iu[1], iu[0]] = sums[:, :npair]
+    gram = sums[:, _pair_index(p, out.device)].reshape(b, p, p)
     mom = sums[:, npair + 1 :].reshape(b, 3, NUM_BINS)
-    return _finish(
-        gram, sums[:, npair], mom[:, 0], mom[:, 1], mom[:, 2],
-        None if lsum is None else n_pool,
-    )
+    return _finish(gram, sums[:, npair], mom[:, 0], mom[:, 1], mom[:, 2], n_pool)

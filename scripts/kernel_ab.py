@@ -45,7 +45,12 @@ name and power limit.
   three planes of the same film-like frames with their noise (the
   estimate path's inputs: the statistics of each plane's blur, its flat
   blocks and, for chroma, the pooled luma q) at 4K10 B = 16 with lag 2 and
-  3 and 1080p8 B = 32 with lag 2; every output of both builds equal.
+  3 and 1080p8 B = 32 with lag 2, and on a textured plate at 4K10 B = 16
+  with lag 2 (``chip_smoke.textured_4k``: about a third of the blocks
+  textured, whole tiles without a flat block); every output of both builds
+  equal. The statistics kernel is timed alone (CUDA events around its C
+  launches) and through its wrapper ``ops.estimate_kernels.self_stats``
+  (zeroing, launch, unpacking) with each build loaded.
 
 Needs one CUDA card; exits 1 without one.
 """
@@ -346,6 +351,24 @@ def diff_ab(libs, card: str, iters: int) -> None:
         torch.cuda.empty_cache()
 
 
+def self_stats_launcher(lib, stat_args, outs, lag: int, bd: int, zero: bool):
+    """A zero-argument launch of ``lib``'s self-statistics kernel on each
+    of ``stat_args`` into ``outs`` (zeroed first where ``zero``): the C
+    launch alone, without the wrapper's allocation and unpacking."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        for (q, den, bl, ls, npool), out in zip(stat_args, outs):
+            if zero:
+                out.zero_()
+            b, ph, pw = q.shape
+            check(lib.estimate_self_stats(
+                q.data_ptr(), den.data_ptr(), bl.data_ptr(),
+                None if ls is None else ls.data_ptr(), out.data_ptr(), b, ph, pw,
+                ph // 16, pw // 16, lag, npool, bd, stream))
+    return run
+
+
 def estimate_ab(libs, card: str, iters: int) -> None:
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import estimate_kernels as ek
@@ -354,9 +377,12 @@ def estimate_ab(libs, card: str, iters: int) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     for label, (h, w, bd, b), lags in (
         ("4K10 B=16", (2160, 3840, 10, 16), (2, 3)), ("1080p8 B=32", (1080, 1920, 8, 32), (2,)),
+        ("4K10 B=16 textured", (2160, 3840, 10, 16), (2,)),
     ):
-        src, _, _ = cs.stats_trip(h, w, bd, b, dev)
-        planes = [torch.from_numpy(p).to(dev) for p in src]
+        if "textured" in label:
+            planes = cs.textured_4k(dev, b)
+        else:
+            planes = [torch.from_numpy(p).to(dev) for p in cs.stats_trip(h, w, bd, b, dev)[0]]
         blurred = {k: [(torch.empty_like(p), torch.empty(p.shape, dtype=torch.int32, device=dev))
                        for p in planes] for k in libs}
 
@@ -381,6 +407,9 @@ def estimate_ab(libs, card: str, iters: int) -> None:
         lsum = de.pool_sum(blurred["new"][0][1], planes[1].shape[1], planes[1].shape[2], 1, 1)
         stat_args = [(q, den, de.flat_blocks(den), None if k == 0 else lsum, 1 if k == 0 else 4)
                      for k, (den, q) in enumerate(blurred["new"])]
+        blocks = sum(int((a[2] != 0).sum()) for a in stat_args)
+        print(f"[ab] {label}: {blocks / sum(a[2].numel() for a in stat_args):.3f} of the blocks "
+              f"flat", flush=True)
         for lag in lags:
             work = cs.self_stats_work(stat_args, lag, [ek.self_stats(*a[:5], lag, bd)
                                                        for a in stat_args])
@@ -388,25 +417,23 @@ def estimate_ab(libs, card: str, iters: int) -> None:
             outs = {k: [torch.zeros((b, n * (n + 1) // 2 + 1 + 3 * ek.NUM_BINS),
                                     dtype=torch.int64, device=dev) for n in sizes]
                     for k in libs}
-
-            def launch(k):
-                def run():
-                    for (q, den, bl, ls, npool), out in zip(stat_args, outs[k]):
-                        out.zero_()
-                        ph, pw = q.shape[1:]
-                        check(libs[k].estimate_self_stats(
-                            q.data_ptr(), den.data_ptr(), bl.data_ptr(),
-                            None if ls is None else ls.data_ptr(), out.data_ptr(), b, ph, pw,
-                            ph // 16, pw // 16, lag, npool, bd, stream))
-                return run
-
-            runs = {k: launch(k) for k in libs}
-            for run in runs.values():
-                run()
+            for k in libs:
+                self_stats_launcher(libs[k], stat_args, outs[k], lag, bd, True)()
             if not all(torch.equal(o, n) for o, n in zip(outs["old"], outs["new"])):
                 raise AssertionError(f"{label} lag {lag}: the builds' int64 sums differ")
-            report("self_stats", f"{label} (3 planes, lag {lag}; the buffers' zeroing included)",
+            # the kernel alone (CUDA events around the C launches, the sums
+            # left to grow), then the wrapper (zeroing, launch, unpacking)
+            runs = {k: self_stats_launcher(libs[k], stat_args, outs[k], lag, bd, False)
+                    for k in libs}
+            report("self_stats", f"{label} (3 planes, lag {lag}; kernel alone)",
                    turns(runs, iters), card, work)
+            wrapped = []
+            for k in ("old", "new", "new", "old"):
+                with loaded(libs[k]):
+                    wrapped.append((k, cs.cuda_ms(
+                        lambda: [ek.self_stats(*a[:5], lag, bd) for a in stat_args], iters)))
+            report("self_stats", f"{label} (3 planes, lag {lag}; the wrapper ek.self_stats)",
+                   wrapped, card)
         del planes, blurred, stat_args, outs, runs
         torch.cuda.empty_cache()
 

@@ -614,6 +614,29 @@ def checkerboard(h, w, bd):
     return np.stack([board, board[:, ::-1].copy()])
 
 
+def textured_plate(rng, b, h, w, bd):
+    """(b, h, w) int16 planes where only some blocks are flat: a smooth
+    gradient with grain, textured (random levels on 8 x 8 cells, which the
+    9 x 9 blur does not smooth away) on every 2 x 8-block tile of every
+    fourth tile diagonal, so that whole statistics tiles hold no flat block,
+    and on about one block in seven elsewhere. Smooth blocks along the
+    plane's sides are flat and touch the 4-sample band; where h or w is not
+    a multiple of 16 the partial last block row and column are never flat.
+    About a third of the blocks are textured, so the median activity that
+    sets the flat threshold is a smooth block's."""
+    maxv = (1 << bd) - 1
+    hb, wb = h // 16, w // 16
+    by, bx = np.mgrid[0:hb, 0:wb]
+    tex = ((by // 2 + bx // 8) % 4 == 1)[None] | (rng.random((b, hb, wb)) < 0.15)
+    tex = np.pad(tex.repeat(16, 1).repeat(16, 2), ((0, 0), (0, h - 16 * hb), (0, w - 16 * wb)))
+    cells = rng.integers(0, maxv + 1, (b, (h + 7) // 8, (w + 7) // 8), dtype=np.int32)
+    cells = cells.repeat(8, 1).repeat(8, 2)[:, :h, :w]
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = ((0.2 + 0.5 * xx / w + 0.1 * yy / h) * maxv).astype(np.float32)
+    plate = np.where(tex, cells, smooth[None]) + rng.normal(0, 0.02 * maxv, (b, h, w))
+    return np.clip(np.round(plate), 0, maxv).astype(np.int16)
+
+
 def _unaligned(t, by: int = 3):
     """``t`` copied into a view ``by`` elements into a larger storage."""
     store = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
@@ -732,6 +755,90 @@ def test_self_stats_matches_plain_at_its_extremes_on_cuda(cuda, lag):
     c = torch.from_numpy(rng.integers(0, 1024, (16, 1080, 1920), dtype=np.int16)).to(cuda)
     den, q = ek.self_blur(c, 10)
     _self_stats_all(q, den, (q * 4).contiguous(), 4, (lag,), 10, "16 x 1920x1080")
+
+
+def _self_stats_lags(q, den, lsum, n_pool, bd, what):
+    """``_self_stats_all`` at lags 0-3 (with and without ``lsum``)."""
+    _self_stats_all(q, den, lsum, n_pool, (0, 1, 2, 3), bd, what)
+
+
+@pytest.mark.cuda
+def test_self_stats_persistent_grid_crosses_frames_on_cuda(cuda):
+    """K9's persistent grid: 1100 frames of one tile each (more frames than
+    resident CTAs, so every CTA's tiles cross frames and its sums are added
+    to each frame's outputs as the frame changes), and 24 frames of a
+    textured plate with 12 tiles each, whole tiles without a flat block
+    among them; lags 0-3, luma and chroma."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    rng = np.random.default_rng(340)
+    f = torch.from_numpy(rng.integers(500, 540, (1100, 40, 136), dtype=np.int16)).to(cuda)
+    den, q = ek.self_blur(f, 10)
+    _self_stats_lags(q, den, (q * 2).contiguous(), 2, 10, "1100 frames of 136x40")
+    plate = torch.from_numpy(textured_plate(rng, 24, 103, 517, 10)).to(cuda)
+    den, q = ek.self_blur(plate, 10)
+    _self_stats_lags(q, den, (q * 4).contiguous(), 4, 10, "24 textured 517x103")
+
+
+@pytest.mark.cuda
+def test_self_stats_single_tile_and_no_full_block_on_cuda(cuda):
+    """B = 1 with a single tile (one CTA), and planes with no full 16 x 16
+    block (every output zero)."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    rng = np.random.default_rng(341)
+    f = torch.from_numpy(rng.integers(200, 230, (1, 32, 128), dtype=np.int16)).to(cuda)
+    den, q = ek.self_blur(f, 8)
+    assert int(de.flat_blocks(den).sum()) > 0
+    _self_stats_lags(q, den, q, 1, 8, "one 128x32 tile")
+    for h, w in ((12, 40), (40, 8), (15, 300)):
+        f = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.int16)).to(cuda)
+        den, q = ek.self_blur(f, 8)
+        blocks = torch.zeros((2, h // 16, w // 16), dtype=torch.uint8, device=cuda)
+        for lag in (0, 2, 3):
+            for aux in (None, q):
+                got = ek.self_stats(q, den, blocks, aux, 1, lag, 8)
+                assert all(float(v.abs().sum()) == 0 for v in got.values()), (h, w, lag)
+
+
+@pytest.mark.cuda
+def test_self_stats_unaligned_and_textured_on_cuda(cuda):
+    """q, den and lsum off the 16-byte boundary (the 4-byte cp.async and
+    plain-load staging), each alone and together, on a textured plate at
+    lags 0-3."""
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    rng = np.random.default_rng(342)
+    plate = torch.from_numpy(textured_plate(rng, 3, 150, 264, 12)).to(cuda)
+    den, q = ek.self_blur(plate, 12)
+    _self_stats_lags(q, den, q.flip(2).contiguous(), 1, 12, "aligned 264x150")
+    _self_stats_lags(_unaligned(q), den, q, 1, 12, "q off the boundary")
+    _self_stats_lags(q, _unaligned(den, 1), q, 1, 12, "den off the boundary")
+    _self_stats_lags(q, den, _unaligned(q, 2), 1, 12, "lsum off the boundary")
+    # an odd width: every row off the boundary
+    plate = torch.from_numpy(textured_plate(rng, 2, 97, 263, 12)).to(cuda)
+    den, q = ek.self_blur(plate, 12)
+    _self_stats_lags(q, den, q, 1, 12, "263x97")
+
+
+@pytest.mark.cuda
+def test_self_stats_checkerboard_over_many_tiles_a_cta_on_cuda(cuda):
+    """The 12-bit 0/max checkerboard (every block flat, |q| = 40 max) with
+    lsum = 4 q and n_pool 4 (the largest design values) on a plane of 1197
+    tiles (2400 x 2000, near the largest frame whose int64 sums the C entry
+    point takes at this depth and pool), more than the card holds CTAs:
+    every CTA sums more than 4096 flat pixels of one frame, so its shared
+    sums carry several tiles' worth of the largest products before they are
+    flushed."""
+    from grav1synth_tpu_torch.ops import diff_estimate as de
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    f = torch.from_numpy(checkerboard(2000, 2400, 12)[:1]).to(cuda)
+    den, q = ek.self_blur(f, 12)
+    assert int(q[:, 4:-4, 4:-4].abs().max()) == 40 * 4095
+    assert float((de.flat_blocks(den) != 0).float().mean()) > 0.9
+    _self_stats_lags(q, den, (q * 4).contiguous(), 4, 12, "12-bit checkerboard 2400x2000")
 
 
 @pytest.mark.cuda

@@ -6,7 +6,8 @@ package's, on the CPU (the flat-block kernel's plain version).
   planes 1-12 samples tall or wide, odd and even, and uint8 at 8 bits;
 - per-frame statistics: within rtol 1e-5 (of each array's largest
   magnitude) of ``batch_self_stats`` / ``batch_self_stats_chroma``, the
-  bar the JAX package holds its own two stats backends to, at lags 0-3;
+  bar the JAX package holds its own two stats backends to, at lags 0-3,
+  also on a textured plate where only some blocks are flat;
   all zero on planes with no full 16x16 block or under 9 samples;
 - the copied host code (``highpass_np``, ``_fallback_lag0``): equal;
 - ``NoiseEstimator`` tables (calibration on): identical, per-frame
@@ -37,6 +38,7 @@ from test_estimate_quality import (
     true_params,
     true_params_chroma,
 )
+from test_torch_cuda import textured_plate
 from test_torch_diff import _segments
 
 
@@ -122,6 +124,39 @@ def test_self_stats_match_jax(lag, bd, sub_x, sub_y):
     # every frame of both planes has flat pixels in the statistics
     for st in (got_y, got_c):
         assert float(st["n_ar"].min()) > 0 and float(st["bin_cnt"].sum(1).min()) > 0
+
+
+@pytest.mark.parametrize("bd,sub_x,sub_y", [(10, 1, 1), (12, 0, 0)], ids=["10-bit 420", "12-bit 444"])
+@pytest.mark.parametrize("lag", [0, 1, 2, 3])
+def test_self_stats_match_jax_on_textured_plate(lag, bd, sub_x, sub_y):
+    """A textured plate (``textured_plate``): flat blocks on the band's
+    edge, whole statistics tiles without a flat block, a partial last block
+    row and column. Luma lag 0 as in test_self_stats_match_jax."""
+    rng = np.random.default_rng(60 + lag + bd)
+    h, w = 103, 517
+    y = textured_plate(rng, 2, h, w, bd)
+    c = textured_plate(rng, 2, (h + sub_y) >> sub_y, (w + sub_x) >> sub_x, bd)
+    ty, tc = torch.from_numpy(y), torch.from_numpy(c)
+    jy, jc = jnp.asarray(y, jnp.int32), jnp.asarray(c, jnp.int32)
+    got_y = te.batch_self_stats(ty, lag, bd)
+    got_c = te.batch_self_stats_chroma(tc, ty, lag, bd, sub_x, sub_y)
+    if lag == 0:
+        moments = ("n_ar", "bin_cnt", "bin_sum", "bin_sumsq")
+        want = je.batch_self_stats(jy, 1, bd)
+        _close({k: got_y[k] for k in moments}, {k: want[k] for k in moments}, "y")
+    else:
+        _close(got_y, je.batch_self_stats(jy, lag, bd), "y")
+    _close(got_c, je.batch_self_stats_chroma(jc, jy, lag, bd, sub_x, sub_y), "chroma")
+    # some blocks are flat, some are not; in luma whole 2 x 8-block tiles
+    # (the card kernel's) have none
+    for plane in (ty, tc):
+        flat = te.flat_blocks(te.self_blur(plane, bd)[0])
+        assert 0 < float(flat.float().mean()) < 1
+    flat_y = te.flat_blocks(te.self_blur(ty, bd)[0])[:, :6, :32]
+    tiles = flat_y.reshape(2, 3, 2, 4, 8).amax((2, 4))
+    assert int((tiles == 0).sum()) > 0
+    for st in (got_y, got_c):
+        assert float(st["n_ar"].min()) > 0
 
 
 def test_no_full_block_gives_zero_stats():

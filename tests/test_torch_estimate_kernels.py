@@ -5,6 +5,9 @@ where each wrapper runs its plain PyTorch version.
   Gram and moments, tolerance 0, lags 0-3, on small planes and the 12-bit
   0/max checkerboard: the reference the card comparison of chip_smoke.py
   and tests/test_torch_cuda.py rests on;
+- ``_unpack_self_stats``, which turns the card kernel's int64 sums into the
+  statistics, against a direct construction of the Gram from the same
+  synthetic buffer (lags 0-3, luma and chroma), tolerance 0;
 - ``NoiseEstimator.push_batch`` pools the luma once a batch for Cb and Cr.
 
 The blur (K8) against the JAX blur and ``self_stats`` (K9) against the JAX
@@ -96,6 +99,34 @@ def test_self_stats_reference_equals_int64_recount(lag, name, h, w, bd, sub_x, s
         for k in want:
             assert got[k].shape == want[k].shape, k
             assert torch.equal(got[k], want[k]), (name, k)
+
+
+@pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+@pytest.mark.parametrize("lag", [0, 1, 2, 3])
+def test_unpack_self_stats_equals_direct_construction(lag, chroma):
+    """The kernel's output layout: per frame the Gram's upper triangle row by
+    row (i <= j), n_ar, then 64 bin counts, sums of q and sums of q^2."""
+    rng = np.random.default_rng(40 + lag + 4 * chroma)
+    p = len(offsets(lag)) + chroma
+    npair = p * (p + 1) // 2
+    b = 3
+    buf = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, (b, npair + 1 + 3 * NUM_BINS)))
+    n_pool = 4 if chroma else None
+    got = ek._unpack_self_stats(buf, p, n_pool)
+    gram = torch.zeros((b, p, p), dtype=torch.float64)
+    k = 0
+    for i in range(p):
+        for j in range(i, p):
+            gram[:, i, j] = gram[:, j, i] = buf[:, k].to(torch.float64)
+            k += 1
+    rest = buf[:, npair:].to(torch.float64)
+    want = ek._finish(gram, rest[:, 0], rest[:, 1:65], rest[:, 65:129], rest[:, 129:193], n_pool)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].shape == want[key].shape, key
+        assert torch.equal(got[key], want[key]), key
+    # the index map is made once per size and device
+    assert ek._pair_index(p, "cpu") is ek._pair_index(p, torch.device("cpu"))
 
 
 def test_push_batch_pools_the_luma_once_a_batch(monkeypatch):
