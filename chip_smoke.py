@@ -74,7 +74,16 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    rtol 1e-9); the recovered luma sigma curve is scored against the
    injected one; then both kernels' times (CUDA events) beside their plain
    versions' and bounds (the blur also beside one cuDNN convolution of
-   its box sum), and push_batch frames/s with the upload and the
+   its box sum; the statistics kernel alone, around its C launches, beside
+   its wrapper's time and its padded tensor-core floor, at lag 2 and 3);
+   the statistics kernel on a textured plate at 3840x2160 10-bit 4:2:0
+   B = 16 (a third of the blocks textured, whole tiles without a flat
+   block, flat blocks on the band's edge), equal to its plain version at
+   lags 0-3 and timed at lag 2; the "[dmma]" line: the float64
+   tensor-core MMA shapes m8n8k4, m16n8k4, m16n8k8 and m16n8k16 on one SM
+   (multiply-adds a clock and latency by clock64, and a Gram through each
+   shape's fragments held to D^T D; the shape K9 uses must hold); and
+   push_batch frames/s with the upload and the
    statistics download, its device busy and idle share and its device
    time by entry under torch.profiler;
 9. the grain-pattern kernel against its plain version on the card, equal

@@ -28,14 +28,12 @@
 // samples in [0, 2^bit_depth) with bit_depth <= 12, so |q| <= 81 max (80
 // max, in fact), and lsum a sum of n_pool <= 4 such q. A product reaches
 // 1.8e12 and a frame's sum about 1e19, past int32 and past float64's 2^53,
-// so K6's int32 runs (diff_kernels.cu) cannot be reused. A thread adds its
-// products with float64 fused multiply-adds of exact integers over its
-// tile column (32 rows), and the warp adds its 32 threads' sums in
-// float64, which keeps every partial sum an integer below 2^53
-// (static_asserts below); each warp sum is converted exactly to int64
-// (__double2ll_rn) and added over the CTA by 64-bit shared atomics (one
-// lane a sum), and the CTA's sums into the frame's int64 by one global
-// atomic per sum. The C
+// so K6's int32 runs (diff_kernels.cu) cannot be reused. The tensor cores
+// add products of exact integers in float64 over at most 4096 pixels, which
+// keeps every partial sum an integer below 2^53 in any order of summation
+// (static_asserts below); each accumulator is converted exactly to int64
+// (__double2ll_rn) and added over the CTA by 64-bit shared atomics, and the
+// CTA's sums into the frame's int64 by one global atomic per sum. The C
 // entry point refuses a frame whose int64 sums could overflow. The host
 // unpacks the int64 sums to float64.
 //
@@ -59,41 +57,50 @@
 //
 // The statistics are bound by operations: at lag 2 a luma pixel has 13
 // design values and 91 pair products, a chroma pixel 14 and 105, while it
-// reads 6-10 bytes. One float64 FMA per pair and masked pixel is the least
-// a plain (non-tensor-core) kernel can do; Hopper's FP64 pipe issues them at
-// 33.5 T op/s, half the card's float64 peak of 67 TFLOP/s on the tensor
-// cores (DMMA), which chip_smoke.py's bound takes. What the design does
-// about it:
+// reads 6-10 bytes. The card's float64 peak, 67 TFLOP/s, is on its tensor
+// cores, and only the m16n8k4/k8/k16 shapes reach it (m8n8k4 issues at half
+// of it; chip_smoke.py's "[dmma]" line). The MMAs work on 8 x 8 blocks of
+// the Gram, so they do more multiply-adds than the 91-105 a pixel needs:
+// 256 at lag 0-2 (the blocks of two groups of 8 design values), 640 at lag
+// 3 (325-351 needed). What the design does about it:
 //
-// - A CTA stages a 32 x 128 tile of q, with lag halo rows above and 4 halo
-//   columns on both sides, in shared memory as float64 (the conversion is
-//   done once a sample, not once a pair), so each shifted read is a plain
-//   shared load. The bins of den and, for chroma, lsum (int32, converted
-//   once a row and pass) are staged beside it, so no global load waits
-//   inside the row loops. A thread has 16 staging loads in flight
-//   (``stage``), of four samples each where rows are aligned: one sample at
-//   a time, the staging's latency took longer than the arithmetic.
-// - One thread owns one tile column. Its column crosses its flat blocks
-//   whole, so the flat test is per 16-row segment and the band a row range:
-//   the inner loop has no per-pixel mask. Tiles without a flat block leave
-//   after the block map is read.
-// - The pairs go in passes of PAIR_CHUNK accumulators, each a template
-//   instance whose every pair index is a compile-time constant, so that the
-//   accumulators stay in registers (lag 0-1 one pass, lag 2 three or four,
-//   lag 3 eleven or twelve); each pass reads its design values from shared
-//   memory again. (Carrying the lag window in registers from row to row, so
-//   that a row read only its own 2 lag + 1 values, took 1.4% longer at lag
-//   2 on the card and 5% less at lag 3.)
-// - A pass ends with one reduce-scatter over the warp (recursive halving:
-//   about two shuffles per accumulator instead of five), after which each
-//   lane adds its share of the warp's sums to the CTA's.
-// - The bins are summed in runs of equal bins down the column, so that
-//   smooth areas cost few shared atomics, and those 32-bit (a 64-bit shared
-//   atomic is a compare-and-swap loop, which neighbouring lanes ending runs
-//   of one bin together would repeat in turn).
+// - Persistent: one wave of resident CTAs (the occupancy API times the SM
+//   count, at most one a tile) walks the 32 x 128 tiles in frame-major
+//   order, CTA c taking tiles c, c + grid, ... A warp reads a candidate
+//   tile's 2 x 8 block-map bytes, two candidates a ballot, and skips a tile
+//   without a flat block before anything is staged; every warp finds the
+//   same tile, so the search needs no barrier, and the search for the tile
+//   after next is read before the Gram and looked at after it.
+// - Staging by cp.async under the Gram: while a tile's Gram runs, the next
+//   tile's q (int32, with its lag rows above and 4 columns on each side),
+//   den and lsum land in shared memory, 16 bytes (den 8) a copy where rows
+//   are aligned, with zeros outside the plane, 4 bytes (den by plain loads)
+//   elsewhere. q is then converted to float64 once a sample (not once a
+//   fragment: converting every fragment value cost more than the staged
+//   float64's shared-memory bytes); den and lsum, which the bins and the
+//   Gram read while the next copies land, have two buffers.
+// - The Gram on the tensor cores (``tile_gram``): mma.sync m16n8k4 float64,
+//   one register per group of 8 design values and 4 pixels serving as both
+//   A = D^T and B = D, loaded straight from the float64 tile (the pooled
+//   column from a row the warp converts); pixels outside the band and design
+//   values past NP are zero. The 8 warps take the rows of every flat block
+//   in turn. A warp's accumulators carry up to 4096 pixels (8 tiles) before
+//   they go to the CTA's int64 pair sums: every partial sum stays an exact
+//   integer (static_assert), and the compare-and-swap loops of the 64-bit
+//   shared atomics run once in 8 tiles.
+// - The bins: a thread owns one column of one block row and sums its masked
+//   rows in runs of equal bins, each run added to the tile's bin by native
+//   32-bit shared atomics (a 64-bit shared atomic is a compare-and-swap
+//   loop, which neighbouring lanes ending runs of one bin together would
+//   repeat in turn), after its Gram rows; after the tile they go to the
+//   CTA's 64-bit sums.
+// - The CTA's pair, n_ar and bin sums stay in shared memory over its tiles
+//   of one frame and go to the frame's outputs by one global atomic each
+//   when the frame changes and at the end.
 //
-// Tensor-core (DMMA) Gram products and a persistent grid that stages the
-// next tile under the current one's arithmetic are later work.
+// The Gram's 8 warps a CTA, two CTAs an SM (registers), are what holds it
+// below the MMA rate: with 6 warps on the Gram and 2 on the bins beside it,
+// the Gram took a third longer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -262,10 +269,15 @@ constexpr long long MAX_Q = (long long)AREA * ((1LL << MAX_BIT_DEPTH) - 1);
 constexpr int MAX_POOL = 4;
 constexpr long long MAX_DESIGN = MAX_POOL * MAX_Q;  // lsum; q is smaller
 constexpr long long EXACT_F64 = 1LL << 53;
-// a warp's float64 sums of products over its block-row columns stay exact
-// integers: a thread's over its 16 rows, and their sum over the warp
-static_assert(32LL * FB * MAX_DESIGN * MAX_DESIGN < EXACT_F64,
-              "a warp's float64 sum of products leaves the exact integers");
+// A warp's MMA accumulators sum at most ACC_PIXELS pixels before they are
+// converted to int64: every product and every partial sum is then an integer
+// below 2^53, exact in float64 in any order of summation (4096 x
+// (4 x 81 x 4095)^2 < 2^53). A warp takes at most ST_TR * ST_TW / ST_WARPS
+// pixels of a tile.
+constexpr int ACC_PIXELS = 4096;
+static_assert((long long)ACC_PIXELS * MAX_DESIGN * MAX_DESIGN < EXACT_F64,
+              "a float64 sum of products leaves the exact integers");
+static_assert(ST_TR * ST_TW / ST_WARPS <= ACC_PIXELS, "a warp's share of a tile fits");
 // A tile's bin moments in 32-bit shared sums: the count and the sum of q
 // in int32; the sum of q^2 as the sums of each run's low SQ_LO_BITS bits
 // (at most one run a pixel) and of its high bits. After each tile they are
@@ -294,19 +306,24 @@ struct SelfShape {
   static constexpr int K = 2 * LAG * LAG + 2 * LAG + 1;  // shifted copies of q
   static constexpr int NP = K + (AUX ? 1 : 0);           // design values
   static constexpr int NPAIR = NP * (NP + 1) / 2;        // upper triangle
+  static constexpr int G = NP <= 8 ? 1 : NP <= 16 ? 2 : 4;  // groups of 8 (tensor cores)
   // per-frame output: pair sums (row-major, i <= j), n_ar, then the bin
   // counts, sums and sums of squares
   static constexpr int OUT_LEN = NPAIR + 1 + 3 * NUM_BINS;
-  // One staging buffer, in 32-bit words: q (int32) at rows y0 - LAG ..
-  // y0 + ST_TR - 1 and columns x0 - ST_HALO .. x0 + ST_TW + ST_HALO - 1;
-  // for chroma lsum (int32) at the tile's rows, with q's row stride and
-  // column origin; den (int16) at the tile's pixels.
+  // Shared memory, in 32-bit words: q as float64 at rows y0 - LAG ..
+  // y0 + ST_TR - 1 and columns x0 - ST_HALO .. x0 + ST_TW + ST_HALO - 1
+  // (converted once a tile); the staging of q (int32, the same layout) and
+  // den (int16, the tile's pixels), one buffer; for chroma lsum (int32, the
+  // tile's rows with q's row stride and column origin), two buffers, since
+  // the Gram reads it while the next tile's copies land.
   static constexpr int QW = (ST_TR + LAG) * ST_SW;
   static constexpr int LW = AUX ? ST_TR * ST_SW : 0;
   static constexpr int DW = ST_TR * ST_TW / 2;
-  static constexpr int BUF = QW + LW + DW;
-  static constexpr size_t SMEM = 2 * (size_t)BUF * sizeof(int);  // double-buffered
-  static_assert(QW % 4 == 0 && LW % 4 == 0 && BUF % 4 == 0, "16-byte aligned parts");
+  // (then each warp's row of the pooled column and 16 zeros, as float64)
+  static constexpr int AUXD = QW, ZEROD = AUXD + ST_WARPS * FB;  // in doubles
+  static constexpr int F64 = 0, QI = 2 * (ZEROD + FB), DEN = QI + QW, LS = DEN + 2 * DW;
+  static constexpr size_t SMEM = (size_t)(LS + 2 * LW) * sizeof(int);
+  static_assert(QW % 4 == 0 && LW % 4 == 0 && DW % 4 == 0, "16-byte aligned parts");
 };
 
 // cp.async: ``bytes`` (4, 8 or 16) from global to shared memory, or zeros
@@ -373,19 +390,26 @@ __device__ __forceinline__ int next_tile(const Plane& p, int k, int stride, int 
   return p.ntiles;
 }
 
+// The flags behind next_tile, read now and looked at later: lane l's is
+// block (l & 15) of tile k + (l >> 4) * stride.
+__device__ __forceinline__ bool candidate_flat(const Plane& p, int k, int stride, int lane) {
+  const int kk = k + (lane >> 4) * stride, bit = lane & 15;
+  if (kk >= p.ntiles || bit >= ST_SEGS * ST_BX) return false;
+  const int per = p.TX * p.TY, b = kk / per, r = kk - b * per;
+  const int by = (r / p.TX) * ST_SEGS + bit / ST_BX, bx = (r % p.TX) * ST_BX + bit % ST_BX;
+  return by < p.HB && bx < p.WB && p.blocks[((int64_t)b * p.HB + by) * p.WB + bx] != 0;
+}
+
 // Issues the copies of tile ``k`` into ``buf`` (one cp.async group is
 // committed by the caller): 16-byte copies of q and lsum and 8-byte copies
 // of den where rows are aligned, 4-byte ones of q and lsum and plain loads
 // of den elsewhere; zeros outside the plane.
 template <int LAG, bool AUX>
-__device__ __forceinline__ void stage_tile(const Plane& p, int k, int* buf, int t) {
-  using S = SelfShape<LAG, AUX>;
+__device__ __forceinline__ void stage_tile(const Plane& p, int k, int* sq, int16_t* sd, int* sl,
+                                           int t) {
   const int per = p.TX * p.TY, b = k / per, r = k - b * per;
   const int y0 = (r / p.TX) * ST_TR, x0 = (r % p.TX) * ST_TW;
   const int64_t fo = (int64_t)b * p.H * p.W;
-  int* sq = buf;
-  int* sl = buf + S::QW;
-  int16_t* sd = reinterpret_cast<int16_t*>(buf + S::QW + S::LW);
   if (p.wide) {
     constexpr int QCH = ST_SW / 4, CH = ST_TW / 4;
     for (int i = t; i < (ST_TR + LAG) * QCH; i += ST_THREADS) {
@@ -420,89 +444,155 @@ __device__ __forceinline__ void stage_tile(const Plane& p, int k, int* buf, int 
   }
 }
 
-// float64 accumulators a thread holds in one pass, a multiple of the warp
-// (lag 0-1: every pair in one pass; lag 2 three or four passes, lag 3 eleven
-// or twelve). Passes of 64 took 12% longer at lag 2 on the card: more
-// registers, fewer CTAs an SM.
-constexpr int PAIR_CHUNK = 32;
-
-// Sums each of a lane's N values over the warp, N a multiple of 32, by
-// recursive halving: at each of five steps a lane adds its partner's copy of
-// the half of its values that it keeps, so the warp moves N * 31/16 values
-// instead of 5 N. (Both halves cross, and each lane selects between the two
-// sums it formed: a select between two elements of ``a`` would let the
-// compiler index ``a`` at run time and move it to local memory.) Afterwards
-// lane L holds in a[i], i < N / 32, the warp's sum of value L * N / 32 + i.
-// (A template per step, so that every index of ``a`` is a compile-time
-// constant: with a loop over the steps the inner loops' bounds were not,
-// and ``a`` went to local memory.)
-template <int N, int STEP = 0>
-__device__ __forceinline__ void warp_reduce_scatter(double (&a)[N], int lane) {
-  static_assert(N % 32 == 0, "a multiple of the warp");
-  constexpr int o = 16 >> STEP, n = N >> STEP;
-  const bool upper = lane & o;
-#pragma unroll
-  for (int i = 0; i < n / 2; ++i) {
-    const double lo = a[i] + __shfl_xor_sync(FULL, a[i], o);
-    const double hi = a[i + n / 2] + __shfl_xor_sync(FULL, a[i + n / 2], o);
-    a[i] = upper ? hi : lo;
-  }
-  if constexpr (STEP < 4) warp_reduce_scatter<N, STEP + 1>(a, lane);
+// The Gram on the float64 tensor cores (mma.sync m16n8k4; Hopper's float64
+// shapes m16n8k4/k8/k16 issue at the card's 67 TFLOP/s, m8n8k4 at half of
+// it: chip_smoke.py's [dmma] line; k8 and k16 took 1-3% longer here). D is
+// the (pixels x design) matrix of a tile's masked pixels, A = D^T and B = D.
+// Lane l = 4 gid + tig holds A's rows gid and gid + 8 and B's column gid at
+// k index tig, so with the design values in groups of 8 one register, x_g =
+// D[pixel tig][8 g + gid], is both operands: one MMA sums the 8 x 8 blocks
+// (a, h) and (a', h) of the Gram over 4 pixels with A = (x_a, x_a') and B =
+// x_h. A block below the diagonal is the transpose of one above it, so the
+// ten blocks g <= h of four groups take five MMAs, the three of two groups
+// two.
+__device__ __forceinline__ void mma_16x8x4(double (&d)[4], double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-// One pass over this thread's masked rows [lo, hi) of its column for pairs
-// P0 .. P0+CHUNK-1 of the upper triangle (row-major, i <= j), then the next
-// pass. ``px`` is the staged index of the column at tile row 0; a design
-// value is read as int32 and converted where it is used.
-template <int LAG, bool AUX, int P0>
-__device__ __forceinline__ void self_gram_pass(const int* __restrict__ sq,
-                                               const int* __restrict__ sl,
-                                               unsigned long long* spair, int px, int lane,
-                                               int lo, int hi) {
-  using S = SelfShape<LAG, AUX>;
-  constexpr int K = S::K, NP = S::NP, NPAIR = S::NPAIR, CHUNK = PAIR_CHUNK;
-  double acc[CHUNK];
+// The plan for G groups (1, 2 or 4): MMA m takes A = (x_top, x_bot) and
+// B = x_b; its lower block is added only where take_bot. Two groups share
+// one A, (x_1, x_0), so that no register is copied into a second pair: B =
+// x_0 gives (1, 0) = (0, 1)^T and (0, 0), B = x_1 gives (1, 1) and (0, 1)
+// again.
+__host__ __device__ constexpr int plan_mmas(int g) { return g == 1 ? 1 : g == 2 ? 2 : 5; }
+__host__ __device__ constexpr int plan_top(int g, int m) {
+  return g == 4 ? (m == 4 ? 1 : m) : g == 2 ? 1 : 0;
+}
+__host__ __device__ constexpr int plan_bot(int g, int m) {
+  return g == 4 ? (m == 0 ? 2 : m == 1 ? 3 : m == 2 ? 1 : m == 3 ? 2 : 3) : 0;
+}
+__host__ __device__ constexpr int plan_b(int g, int m) {
+  return g == 4 ? (m == 4 ? 0 : m) : g == 2 ? m : 0;
+}
+__host__ __device__ constexpr bool plan_take_bot(int g, int m) {
+  return g == 4 || (g == 2 && m == 0);
+}
+
+// A warp's MMA accumulators: the plan's NM 16 x 8 C fragments.
+template <int LAG, bool AUX>
+struct GramAcc {
+  static constexpr int NM = plan_mmas(SelfShape<LAG, AUX>::G);
+  double c[NM][4];
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int p = 0; p < CHUNK; ++p) acc[p] = 0.0;
-  for (int rr = lo; rr < hi; ++rr) {
-    const int o = px + (rr + LAG) * ST_SW;
-    double v[NP];
+    for (int m = 0; m < NM; ++m) c[m][0] = c[m][1] = c[m][2] = c[m][3] = 0.0;
+  }
+};
+
+// This warp's share of the tile's Gram: rows warp and warp + 8 of every flat
+// block in ``mask``, each row 4 k-steps of 4 neighbouring pixels, added to
+// the warp's accumulators. Design values past NP are zero, and so are
+// pixels outside the band (in a block that the band cuts; elsewhere the
+// fragments are plain loads). Lane (gid, tig)'s design value of group g at
+// tile row rr and column c is s64[off[g] + rr * ST_SW + c] for q (bit g of
+// qmask) and s64[off[g] + c - c0] otherwise: the pooled column from this
+// warp's float64 row of it (``aux``, converted a row at a time), or zeros.
+template <int LAG, bool AUX>
+__device__ __forceinline__ void tile_gram(const int* __restrict__ sl,
+                                          const double* __restrict__ s64, double* __restrict__ aux,
+                                          GramAcc<LAG, AUX>& acc, unsigned mask, int y0,
+                                          int x0, int H, int W, int warp, int lane,
+                                          const int (&off)[SelfShape<LAG, AUX>::G], unsigned qmask) {
+  constexpr int G = SelfShape<LAG, AUX>::G, NM = plan_mmas(G);
+  const int tig = lane & 3;
+  // one row of the block at tile column c0; ``cut``: the band cuts its columns
+  auto row = [&](int rr, int c0, bool cut) {
+    if constexpr (AUX) {
+      __syncwarp();  // the last row's fragments are read
+      if (lane < FB) aux[lane] = (double)sl[rr * ST_SW + ST_HALO + c0 + lane];
+      __syncwarp();
+    }
+    const int rowoff = rr * ST_SW + c0;
+    int at[G];
 #pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = (double)sq[o + off_dr<LAG>(k) * ST_SW + off_dc<LAG>(k)];
-    if constexpr (AUX) v[NP - 1] = (double)sl[o - LAG * ST_SW];
-    int p = 0;
+    for (int g = 0; g < G; ++g) at[g] = off[g] + ((qmask >> g) & 1 ? rowoff : 0) + tig;
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
+    for (int s = 0; s < FB / 4; ++s) {
+      const int xx = x0 + c0 + 4 * s + tig;
+      const bool in = !cut || (xx >= EDGE && xx < W - EDGE);
+      double x[G];
 #pragma unroll
-      for (int j = i; j < NP; ++j, ++p) {
-        if (p >= P0 && p < P0 + CHUNK) acc[p - P0] = fma(v[i], v[j], acc[p - P0]);
+      for (int g = 0; g < G; ++g) {
+        const double v = s64[at[g] + 4 * s];
+        x[g] = in ? v : 0.0;
       }
+#pragma unroll
+      for (int m = 0; m < NM; ++m)
+        mma_16x8x4(acc.c[m], x[plan_top(G, m)], x[plan_bot(G, m)], x[plan_b(G, m)]);
+    }
+  };
+  for (unsigned mm = mask; mm; mm &= mm - 1) {
+    const int blk = __ffs(mm) - 1, by = blk / ST_BX, c0 = (blk % ST_BX) * FB;
+    const bool cut = x0 + c0 < EDGE || x0 + c0 + FB > W - EDGE;
+#pragma unroll
+    for (int k = 0; k < FB / ST_WARPS; ++k) {
+      const int rr = by * FB + warp + k * ST_WARPS, y = y0 + rr;
+      if (y < EDGE || y >= H - EDGE) continue;  // the same for the whole warp
+      if (cut)
+        row(rr, c0, true);
+      else
+        row(rr, c0, false);
     }
   }
-  warp_reduce_scatter(acc, lane);
+}
+
+// The warp's accumulators into the CTA's int64 pair sums, and zeroed: C's rows
+// gid (c0, c1) and gid + 8 (c2, c3), columns 2 tig and 2 tig + 1, are block
+// (a, h)'s element (8 a + row, 8 h + column), the pair of its lower and
+// higher index; a diagonal block gives its upper half. Each pair comes from
+// one lane.
+template <int LAG, bool AUX>
+__device__ __forceinline__ void gram_to_shared(GramAcc<LAG, AUX>& acc, unsigned long long* spair,
+                                               int lane) {
+  using S = SelfShape<LAG, AUX>;
+  constexpr int NP = S::NP, G = S::G, NM = plan_mmas(G);
+  const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < CHUNK / 32; ++i) {
-    const int p = P0 + lane * (CHUNK / 32) + i;
-    const long long a = __double2ll_rn(acc[i]);
-    if (p < NPAIR && a) atomicAdd(&spair[p], (unsigned long long)a);
+  for (int m = 0; m < NM; ++m) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i >= 2 && !plan_take_bot(G, m)) continue;
+      const int a = i < 2 ? plan_top(G, m) : plan_bot(G, m), h = plan_b(G, m);
+      const int r = 8 * a + gid, c = 8 * h + 2 * tig + (i & 1);
+      const int lo = min(r, c), hi = max(r, c);
+      if (hi >= NP || (a == h && r > c)) continue;
+      const long long v = __double2ll_rn(acc.c[m][i]);
+      if (v) atomicAdd(&spair[lo * NP - lo * (lo - 1) / 2 + hi - lo], (unsigned long long)v);
+    }
   }
-  if constexpr (P0 + CHUNK < NPAIR)
-    self_gram_pass<LAG, AUX, P0 + CHUNK>(sq, sl, spair, px, lane, lo, hi);
+  acc.zero();
 }
 
 // Persistent: CTA c takes tiles c, c + gridDim.x, ... of the frame-major
-// tile order, skipping those without a flat block, and stages the next
-// tile's q, den and lsum with cp.async while it sums the current one. The
-// pair sums, n_ar and the bin sums stay in shared memory over the CTA's
-// tiles of one frame, and go to the frame's outputs by one global atomic
-// each when the frame changes and at the end. Dynamic shared memory:
-// SelfShape::SMEM.
+// tile order, skipping those without a flat block. A tile's int32 q, den
+// and lsum land by cp.async while the last tile's Gram runs; then q is
+// converted to float64, the next tile's copies are issued, and this tile's
+// Gram and bins run. The pair sums, n_ar and the bin sums stay in shared
+// memory over the CTA's tiles of one frame, and go to the frame's outputs by
+// one global atomic each when the frame changes and at the end. Dynamic
+// shared memory: SelfShape::SMEM.
 template <int LAG, bool AUX>
-__global__ void __launch_bounds__(ST_THREADS)
+__global__ void __launch_bounds__(ST_THREADS, 2)
 self_stats_kernel(Plane p) {
   using S = SelfShape<LAG, AUX>;
   constexpr int NPAIR = S::NPAIR, OUT_LEN = S::OUT_LEN;
   extern __shared__ __align__(16) int smem[];
+  double* s64 = reinterpret_cast<double*>(smem + S::F64);
+  int* sq = smem + S::QI;
+  int16_t* sd = reinterpret_cast<int16_t*>(smem + S::DEN);
   __shared__ unsigned long long spair[NPAIR];
   __shared__ unsigned long long sn_ar;
   __shared__ int sn_tile;
@@ -513,7 +603,21 @@ self_stats_kernel(Plane p) {
   __shared__ unsigned sbin_sq[2][NUM_BINS];
   __shared__ long long sbin64[3][NUM_BINS];
 
-  const int t = threadIdx.x, lane = t & 31, stride = gridDim.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t / 32, stride = gridDim.x;
+  double* saux = s64 + S::AUXD + warp * FB;  // this warp's row of the pooled column
+  // where this lane's design value of each group (8 g + lane / 4) lies
+  int off[S::G];
+  unsigned qmask = 0;
+#pragma unroll
+  for (int g = 0; g < S::G; ++g) {
+    const int d = 8 * g + lane / 4;
+    if (d < S::K) qmask |= 1u << g;
+    off[g] = d < S::K ? (LAG + off_dr<LAG>(d)) * ST_SW + ST_HALO + off_dc<LAG>(d)
+                      : AUX && d == S::K ? S::AUXD + warp * FB : S::ZEROD;
+  }
+  GramAcc<LAG, AUX> acc;
+  acc.zero();
+  int acc_px = 0;  // pixels a warp's accumulators may hold, at most
   unsigned mask;
   int cur = next_tile(p, blockIdx.x, stride, lane, mask);
   if (cur >= p.ntiles) return;
@@ -523,25 +627,28 @@ self_stats_kernel(Plane p) {
     sbin_sq[0][t] = sbin_sq[1][t] = 0u;
     sbin64[0][t] = sbin64[1][t] = sbin64[2][t] = 0;
   }
+  if (t < FB) s64[S::ZEROD + t] = 0.0;
   if (t == 0) sn_ar = 0ull, sn_tile = 0;
-  stage_tile<LAG, AUX>(p, cur, smem, t);
+  stage_tile<LAG, AUX>(p, cur, sq, sd, smem + S::LS, t);
   cp_async_commit();
+  unsigned next_mask;
+  int nxt = next_tile(p, cur + stride, stride, lane, next_mask);
 
   const int per = p.TX * p.TY;
   const int c = t % ST_TW, seg = t / ST_TW;
-  for (int buf = 0; cur < p.ntiles; buf ^= 1) {
-    unsigned next_mask;
-    const int nxt = next_tile(p, cur + stride, stride, lane, next_mask);
-    if (nxt < p.ntiles) stage_tile<LAG, AUX>(p, nxt, smem + (buf ^ 1) * S::BUF, t);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies have landed
+  for (int lb = 0; cur < p.ntiles; lb ^= 1) {
+    cp_async_wait<0>();  // this tile's copies have landed
     __syncthreads();
-
-    const int* sq = smem + buf * S::BUF;
-    const int* sl = sq + S::QW;
-    const int16_t* sd = reinterpret_cast<const int16_t*>(sq + S::QW + S::LW);
     const int b = cur / per, r = cur - b * per;
     const int y0 = (r / p.TX) * ST_TR, x0 = (r % p.TX) * ST_TW;
+
+    // q to float64, once a tile
+    for (int i = t; i < S::QW / 4; i += ST_THREADS) {
+      const int4 v = reinterpret_cast<const int4*>(sq)[i];
+      double2* d = reinterpret_cast<double2*>(s64 + 4 * i);
+      d[0] = make_double2(v.x, v.y);
+      d[1] = make_double2(v.z, v.w);
+    }
     // this thread's masked rows: its block-row segment if the block is flat
     // and the column in the band, cut to the band's rows
     const int x = x0 + c;
@@ -551,6 +658,18 @@ self_stats_kernel(Plane p) {
     const int wn = (int)warp_sum((long long)n);
     if (lane == 0 && wn) atomicAdd(&sn_tile, wn);
 
+    __syncthreads();  // the float64 tile is whole; the int32 staging is free
+
+    if (nxt < p.ntiles)
+      stage_tile<LAG, AUX>(p, nxt, sq, sd + (lb ^ 1) * 2 * S::DW, smem + S::LS + (lb ^ 1) * S::LW,
+                           t);
+    cp_async_commit();
+    // the search for the tile after next: its block-map bytes are read now
+    // and looked at after the Gram
+    const bool pre = nxt < p.ntiles && candidate_flat(p, nxt + stride, stride, lane);
+    tile_gram<LAG, AUX>(smem + S::LS + lb * S::LW, s64, saux, acc, mask, y0, x0, p.H, p.W, warp,
+                        lane, off, qmask);
+    acc_px += ST_TR * ST_TW / ST_WARPS;  // a warp's rows of a tile
     // 64-bin moments over the masked rows, summed in runs of equal bins down
     // the column, each run added to the tile's bin by native 32-bit shared
     // atomics: neighbouring lanes often end runs of one bin together, and a
@@ -560,7 +679,7 @@ self_stats_kernel(Plane p) {
     {
       int run_bin = -1, cnt = 0, sum = 0;
       long long sq2 = 0;
-      auto flush = [&]() {
+      auto run_end = [&]() {
         if (cnt > 0 && run_bin >= 0 && run_bin < NUM_BINS) {
           atomicAdd(&sbin_cnt[run_bin], cnt);
           atomicAdd(&sbin_sum[run_bin], sum);
@@ -569,10 +688,10 @@ self_stats_kernel(Plane p) {
         }
       };
       for (int rr = lo; rr < hi; ++rr) {
-        const int bin = sd[rr * ST_TW + c] >> p.bin_shift;
-        const int v = sq[(rr + LAG) * ST_SW + ST_HALO + c];
+        const int bin = sd[lb * 2 * S::DW + rr * ST_TW + c] >> p.bin_shift;
+        const int v = (int)s64[(rr + LAG) * ST_SW + ST_HALO + c];
         if (bin != run_bin) {
-          flush();
+          run_end();
           run_bin = bin;
           cnt = sum = 0;
           sq2 = 0;
@@ -581,14 +700,29 @@ self_stats_kernel(Plane p) {
         sum += v;
         sq2 += (long long)v * v;
       }
-      flush();
+      run_end();
     }
-    self_gram_pass<LAG, AUX, 0>(sq, sl, spair, ST_HALO + c, lane, lo, hi);
+    // the frame's last tile of this CTA
+    const bool flush = nxt >= p.ntiles || nxt / per != b;
+    if (flush || acc_px + ST_TR * ST_TW / ST_WARPS > ACC_PIXELS) {
+      gram_to_shared<LAG, AUX>(acc, spair, lane);
+      acc_px = 0;
+    }
+    unsigned nn_mask = 0;
+    int nn = p.ntiles;
+    if (nxt < p.ntiles) {
+      const unsigned m = __ballot_sync(FULL, pre);
+      if (m & 0xffffu)
+        nn = nxt + stride, nn_mask = m & 0xffffu;
+      else if (m >> 16)
+        nn = nxt + 2 * stride, nn_mask = m >> 16;
+      else
+        nn = next_tile(p, nxt + 3 * stride, stride, lane, nn_mask);
+    }
     __syncthreads();
 
     // the tile's bins into the CTA's 64-bit sums; at the frame's last tile
     // of this CTA, the CTA's sums into the frame's outputs
-    const bool flush = nxt >= p.ntiles || nxt / per != b;
     unsigned long long* o = p.out + (int64_t)b * OUT_LEN;
     if (t < NUM_BINS) {
       sbin64[0][t] += sbin_cnt[t];
@@ -599,7 +733,8 @@ self_stats_kernel(Plane p) {
       if (flush) {
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
-          if (sbin64[m][t]) atomicAdd(&o[NPAIR + 1 + m * NUM_BINS + t], (unsigned long long)sbin64[m][t]);
+          if (sbin64[m][t])
+            atomicAdd(&o[NPAIR + 1 + m * NUM_BINS + t], (unsigned long long)sbin64[m][t]);
           sbin64[m][t] = 0;
         }
       }
@@ -620,6 +755,8 @@ self_stats_kernel(Plane p) {
     }
     cur = nxt;
     mask = next_mask;
+    nxt = nn;
+    next_mask = nn_mask;
   }
 }
 

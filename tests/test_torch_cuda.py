@@ -822,6 +822,35 @@ def test_self_stats_unaligned_and_textured_on_cuda(cuda):
     _self_stats_lags(q, den, q, 1, 12, "263x97")
 
 
+def _self_stats_int64(q, den, blocks, lsum, lag, bd):
+    """K9's int64 output recounted with int64 tensor arithmetic on the
+    card: per frame the Gram's upper triangle of the masked, shifted design
+    row by row, n_ar, then the bins' counts, sums of q and sums of q^2. Exact
+    where the plain version's float64 sums are not (a frame's sum past
+    2^53)."""
+    from grav1synth_tpu_torch.ops import diff_kernels as dk
+    from grav1synth_tpu_torch.ops import estimate_kernels as ek
+
+    b, h, w = q.shape
+    mask = dk._pixel_flat(blocks, h, w) & ek._band(h, w, q.device)
+    m = mask[:, lag : h - lag, lag : w - lag].to(torch.int64)
+    design = [q[:, lag + dr : h - lag + dr, lag + dc : w - lag + dc].to(torch.int64) * m
+              for dr, dc in dk.offsets(lag)]
+    if lsum is not None:
+        design.append(lsum[:, lag : h - lag, lag : w - lag].to(torch.int64) * m)
+    sums = [(design[i] * design[j]).sum((1, 2)) for i in range(len(design))
+            for j in range(i, len(design))]
+    sums.append(m.sum((1, 2)))
+    bins = (den.to(torch.int64) >> (bd - 6)) + ek.NUM_BINS * torch.arange(
+        b, device=q.device)[:, None, None]
+    qm = q.to(torch.int64) * mask
+    for v in (mask.to(torch.int64), qm, qm * q):
+        mom = torch.zeros(b * ek.NUM_BINS, dtype=torch.int64, device=q.device)
+        mom.index_add_(0, bins.reshape(-1), v.reshape(-1))
+        sums.extend(mom.reshape(b, ek.NUM_BINS).T)
+    return torch.stack(sums, 1)
+
+
 @pytest.mark.cuda
 def test_self_stats_checkerboard_over_many_tiles_a_cta_on_cuda(cuda):
     """The 12-bit 0/max checkerboard (every block flat, |q| = 40 max) with
@@ -830,15 +859,26 @@ def test_self_stats_checkerboard_over_many_tiles_a_cta_on_cuda(cuda):
     point takes at this depth and pool), more than the card holds CTAs:
     every CTA sums more than 4096 flat pixels of one frame, so its shared
     sums carry several tiles' worth of the largest products before they are
-    flushed."""
+    flushed. A frame's sums pass 2^53 here, where the plain version's
+    float64 sums round, so the kernel is held to an int64 recount on the
+    card, unpacked as its own sums are (tolerance 0); the 96 x 200
+    checkerboard of the test above holds it to the plain version."""
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
     f = torch.from_numpy(checkerboard(2000, 2400, 12)[:1]).to(cuda)
     den, q = ek.self_blur(f, 12)
     assert int(q[:, 4:-4, 4:-4].abs().max()) == 40 * 4095
-    assert float((de.flat_blocks(den) != 0).float().mean()) > 0.9
-    _self_stats_lags(q, den, (q * 4).contiguous(), 4, 12, "12-bit checkerboard 2400x2000")
+    blocks = de.flat_blocks(den)
+    assert float((blocks != 0).float().mean()) > 0.9
+    lsum = (q * 4).contiguous()
+    for lag in (0, 1, 2, 3):
+        for aux in (None, lsum):
+            got = ek.self_stats(q, den, blocks, aux, 4, lag, 12)
+            p = len(ek.offsets(lag)) + (aux is not None)
+            want = ek._unpack_self_stats(_self_stats_int64(q, den, blocks, aux, lag, 12), p,
+                                         None if aux is None else 4)
+            _stats_equal(got, want, f"checkerboard lag {lag} lsum {aux is not None}")
 
 
 @pytest.mark.cuda
