@@ -1698,23 +1698,27 @@ def self_stats_work(stat_args, lag: int, outs):
     return moved, ops, fp64_ops
 
 
-def self_stats_launches(stat_args, lag: int, bd: int):
-    """A zero-argument run of K9's C launches on ``stat_args`` through the
-    package's library, into buffers made once and not zeroed (the kernel
-    alone: no allocation, zeroing or unpacking; no launch counted)."""
+def self_stats_launches(stat_args, lag: int, bd: int, lib=None, outs=None, zero=False):
+    """A zero-argument run of K9's C launches on ``stat_args`` through
+    ``lib`` (default: the package's library) into ``outs`` (default:
+    buffers made once), zeroed first only where ``zero``: the kernel alone,
+    without the wrapper's allocation and unpacking, and no launch counted."""
     from grav1synth_tpu_torch import _build
     from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
-    lib = _build.load()
+    lib = lib or _build.load()
     stream = torch.cuda.current_stream().cuda_stream
-    outs = []
-    for q, _, _, ls, _ in stat_args:
-        n = len(ek.offsets(lag)) + (ls is not None)
-        outs.append(torch.zeros((q.shape[0], n * (n + 1) // 2 + 1 + 3 * ek.NUM_BINS),
-                                dtype=torch.int64, device=q.device))
+    if outs is None:
+        outs = []
+        for q, _, _, ls, _ in stat_args:
+            n = len(ek.offsets(lag)) + (ls is not None)
+            outs.append(torch.zeros((q.shape[0], n * (n + 1) // 2 + 1 + 3 * ek.NUM_BINS),
+                                    dtype=torch.int64, device=q.device))
 
     def run():
         for (q, den, bl, ls, npool), out in zip(stat_args, outs):
+            if zero:
+                out.zero_()
             b, h, w = q.shape
             err = lib.estimate_self_stats(
                 q.data_ptr(), den.data_ptr(), bl.data_ptr(), None if ls is None else ls.data_ptr(),

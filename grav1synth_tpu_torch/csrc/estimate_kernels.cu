@@ -362,21 +362,24 @@ struct Plane {
   bool wide;   // rows of q, den and lsum start on 4-sample boundaries
 };
 
+// Lane l's flag in the search for a tile with a flat block: block (l & 15)
+// of tile k + (l >> 4) * stride (bit by * ST_BX + bx of the tile's map), so
+// that a ballot looks at two candidates' 2 x 8 block-map bytes at a time.
+__device__ __forceinline__ bool candidate_flat(const Plane& p, int k, int stride, int lane) {
+  const int kk = k + (lane >> 4) * stride, bit = lane & 15;
+  if (kk >= p.ntiles || bit >= ST_SEGS * ST_BX) return false;
+  const int per = p.TX * p.TY, b = kk / per, r = kk - b * per;
+  const int by = (r / p.TX) * ST_SEGS + bit / ST_BX, bx = (r % p.TX) * ST_BX + bit % ST_BX;
+  return by < p.HB && bx < p.WB && p.blocks[((int64_t)b * p.HB + by) * p.WB + bx] != 0;
+}
+
 // The first tile at or after ``k`` in steps of ``stride`` that holds a flat
-// block, or p.ntiles; ``mask`` gets its block map (bit by * ST_BX + bx).
-// The lanes read two candidates' 2 x 8 block-map bytes at a time, and every
-// warp of the CTA finds the same tile without a barrier.
+// block, or p.ntiles; ``mask`` gets its block map. Every warp of the CTA
+// finds the same tile without a barrier.
 __device__ __forceinline__ int next_tile(const Plane& p, int k, int stride, int lane,
                                          unsigned& mask) {
   for (; k < p.ntiles; k += 2 * stride) {
-    const int kk = k + (lane >> 4) * stride, bit = lane & 15;
-    bool fl = false;
-    if (kk < p.ntiles && bit < ST_SEGS * ST_BX) {
-      const int per = p.TX * p.TY, b = kk / per, r = kk - b * per;
-      const int by = (r / p.TX) * ST_SEGS + bit / ST_BX, bx = (r % p.TX) * ST_BX + bit % ST_BX;
-      if (by < p.HB && bx < p.WB) fl = p.blocks[((int64_t)b * p.HB + by) * p.WB + bx] != 0;
-    }
-    const unsigned m = __ballot_sync(FULL, fl);
+    const unsigned m = __ballot_sync(FULL, candidate_flat(p, k, stride, lane));
     if (m & 0xffffu) {
       mask = m & 0xffffu;
       return k;
@@ -388,16 +391,6 @@ __device__ __forceinline__ int next_tile(const Plane& p, int k, int stride, int 
   }
   mask = 0;
   return p.ntiles;
-}
-
-// The flags behind next_tile, read now and looked at later: lane l's is
-// block (l & 15) of tile k + (l >> 4) * stride.
-__device__ __forceinline__ bool candidate_flat(const Plane& p, int k, int stride, int lane) {
-  const int kk = k + (lane >> 4) * stride, bit = lane & 15;
-  if (kk >= p.ntiles || bit >= ST_SEGS * ST_BX) return false;
-  const int per = p.TX * p.TY, b = kk / per, r = kk - b * per;
-  const int by = (r / p.TX) * ST_SEGS + bit / ST_BX, bx = (r % p.TX) * ST_BX + bit % ST_BX;
-  return by < p.HB && bx < p.WB && p.blocks[((int64_t)b * p.HB + by) * p.WB + bx] != 0;
 }
 
 // Issues the copies of tile ``k`` into ``buf`` (one cp.async group is

@@ -351,24 +351,6 @@ def diff_ab(libs, card: str, iters: int) -> None:
         torch.cuda.empty_cache()
 
 
-def self_stats_launcher(lib, stat_args, outs, lag: int, bd: int, zero: bool):
-    """A zero-argument launch of ``lib``'s self-statistics kernel on each
-    of ``stat_args`` into ``outs`` (zeroed first where ``zero``): the C
-    launch alone, without the wrapper's allocation and unpacking."""
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run():
-        for (q, den, bl, ls, npool), out in zip(stat_args, outs):
-            if zero:
-                out.zero_()
-            b, ph, pw = q.shape
-            check(lib.estimate_self_stats(
-                q.data_ptr(), den.data_ptr(), bl.data_ptr(),
-                None if ls is None else ls.data_ptr(), out.data_ptr(), b, ph, pw,
-                ph // 16, pw // 16, lag, npool, bd, stream))
-    return run
-
-
 def estimate_ab(libs, card: str, iters: int) -> None:
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import estimate_kernels as ek
@@ -418,12 +400,12 @@ def estimate_ab(libs, card: str, iters: int) -> None:
                                     dtype=torch.int64, device=dev) for n in sizes]
                     for k in libs}
             for k in libs:
-                self_stats_launcher(libs[k], stat_args, outs[k], lag, bd, True)()
+                cs.self_stats_launches(stat_args, lag, bd, libs[k], outs[k], zero=True)()
             if not all(torch.equal(o, n) for o, n in zip(outs["old"], outs["new"])):
                 raise AssertionError(f"{label} lag {lag}: the builds' int64 sums differ")
             # the kernel alone (CUDA events around the C launches, the sums
             # left to grow), then the wrapper (zeroing, launch, unpacking)
-            runs = {k: self_stats_launcher(libs[k], stat_args, outs[k], lag, bd, False)
+            runs = {k: cs.self_stats_launches(stat_args, lag, bd, libs[k], outs[k])
                     for k in libs}
             report("self_stats", f"{label} (3 planes, lag {lag}; kernel alone)",
                    turns(runs, iters), card, work)

@@ -757,11 +757,6 @@ def test_self_stats_matches_plain_at_its_extremes_on_cuda(cuda, lag):
     _self_stats_all(q, den, (q * 4).contiguous(), 4, (lag,), 10, "16 x 1920x1080")
 
 
-def _self_stats_lags(q, den, lsum, n_pool, bd, what):
-    """``_self_stats_all`` at lags 0-3 (with and without ``lsum``)."""
-    _self_stats_all(q, den, lsum, n_pool, (0, 1, 2, 3), bd, what)
-
-
 @pytest.mark.cuda
 def test_self_stats_persistent_grid_crosses_frames_on_cuda(cuda):
     """K9's persistent grid: 1100 frames of one tile each (more frames than
@@ -774,10 +769,10 @@ def test_self_stats_persistent_grid_crosses_frames_on_cuda(cuda):
     rng = np.random.default_rng(340)
     f = torch.from_numpy(rng.integers(500, 540, (1100, 40, 136), dtype=np.int16)).to(cuda)
     den, q = ek.self_blur(f, 10)
-    _self_stats_lags(q, den, (q * 2).contiguous(), 2, 10, "1100 frames of 136x40")
+    _self_stats_all(q, den, (q * 2).contiguous(), 2, (0, 1, 2, 3), 10, "1100 frames of 136x40")
     plate = torch.from_numpy(textured_plate(rng, 24, 103, 517, 10)).to(cuda)
     den, q = ek.self_blur(plate, 10)
-    _self_stats_lags(q, den, (q * 4).contiguous(), 4, 10, "24 textured 517x103")
+    _self_stats_all(q, den, (q * 4).contiguous(), 4, (0, 1, 2, 3), 10, "24 textured 517x103")
 
 
 @pytest.mark.cuda
@@ -791,7 +786,7 @@ def test_self_stats_single_tile_and_no_full_block_on_cuda(cuda):
     f = torch.from_numpy(rng.integers(200, 230, (1, 32, 128), dtype=np.int16)).to(cuda)
     den, q = ek.self_blur(f, 8)
     assert int(de.flat_blocks(den).sum()) > 0
-    _self_stats_lags(q, den, q, 1, 8, "one 128x32 tile")
+    _self_stats_all(q, den, q, 1, (0, 1, 2, 3), 8, "one 128x32 tile")
     for h, w in ((12, 40), (40, 8), (15, 300)):
         f = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.int16)).to(cuda)
         den, q = ek.self_blur(f, 8)
@@ -812,14 +807,14 @@ def test_self_stats_unaligned_and_textured_on_cuda(cuda):
     rng = np.random.default_rng(342)
     plate = torch.from_numpy(textured_plate(rng, 3, 150, 264, 12)).to(cuda)
     den, q = ek.self_blur(plate, 12)
-    _self_stats_lags(q, den, q.flip(2).contiguous(), 1, 12, "aligned 264x150")
-    _self_stats_lags(_unaligned(q), den, q, 1, 12, "q off the boundary")
-    _self_stats_lags(q, _unaligned(den, 1), q, 1, 12, "den off the boundary")
-    _self_stats_lags(q, den, _unaligned(q, 2), 1, 12, "lsum off the boundary")
+    _self_stats_all(q, den, q.flip(2).contiguous(), 1, (0, 1, 2, 3), 12, "aligned 264x150")
+    _self_stats_all(_unaligned(q), den, q, 1, (0, 1, 2, 3), 12, "q off the boundary")
+    _self_stats_all(q, _unaligned(den, 1), q, 1, (0, 1, 2, 3), 12, "den off the boundary")
+    _self_stats_all(q, den, _unaligned(q, 2), 1, (0, 1, 2, 3), 12, "lsum off the boundary")
     # an odd width: every row off the boundary
     plate = torch.from_numpy(textured_plate(rng, 2, 97, 263, 12)).to(cuda)
     den, q = ek.self_blur(plate, 12)
-    _self_stats_lags(q, den, q, 1, 12, "263x97")
+    _self_stats_all(q, den, q, 1, (0, 1, 2, 3), 12, "263x97")
 
 
 def _self_stats_int64(q, den, blocks, lsum, lag, bd):
