@@ -393,7 +393,7 @@ __device__ __forceinline__ int next_tile(const Plane& p, int k, int stride, int 
   return p.ntiles;
 }
 
-// Issues the copies of tile ``k`` into ``buf`` (one cp.async group is
+// Issues the copies of tile ``k`` into ``sq``, ``sd`` and ``sl`` (one cp.async group is
 // committed by the caller): 16-byte copies of q and lsum and 8-byte copies
 // of den where rows are aligned, 4-byte ones of q and lsum and plain loads
 // of den elsewhere; zeros outside the plane.
