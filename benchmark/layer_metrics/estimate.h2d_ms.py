@@ -1,0 +1,8 @@
+"""estimate.h2d_ms: device ms of host-to-device copies that one
+``push_batch`` launched, mean over the traced batches."""
+
+from yardstick import copy_ms
+
+
+def read(ctx):
+    return copy_ms(ctx, "estimate.batch", "HtoD")
