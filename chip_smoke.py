@@ -168,6 +168,7 @@ import ctypes
 import dataclasses
 import hashlib
 import json
+import logging
 import multiprocessing
 import multiprocessing.connection
 import os
@@ -179,6 +180,8 @@ import time
 
 import numpy as np
 import torch
+
+from grav1synth_tpu_torch.utils import spans
 
 IVF = ".bench_cache/bench_4k10_grainy.ivf"
 SOURCES = {
@@ -422,6 +425,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def launch_counts(*kernels) -> dict:
+    """Launches of each kernel counted since the last ``spans.reset()``."""
+    return {k: spans.counter("launch." + k) for k in kernels}
+
+
+def program_counts() -> dict:
+    """Parameter-program captures and replays since the last
+    ``spans.reset()``."""
+    return {k: spans.counter("program." + k) for k in ("captures", "replays")}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -521,13 +535,13 @@ def pattern_work(params, packed, rows, sub_x: int, sub_y: int):
 def device_busy(prof) -> float:
     """ms of the union of the device intervals (kernels and copies) that
     ``prof`` recorded."""
-    spans = sorted(
+    intervals = sorted(
         (e.time_range.start, e.time_range.end)
         for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     busy, end = 0.0, float("-inf")
-    for a, b in spans:
+    for a, b in intervals:
         if b > end:
             busy += b - max(a, end)
             end = b
@@ -1058,10 +1072,10 @@ def diff_phases(card, eff, dev, clean, grainy):
         return est.finish()
 
     torch.cuda.synchronize()
-    dk.reset_launch_counts()
+    spans.reset()
     tables = estimate(dev)
     torch.cuda.synchronize()
-    launches = dict(dk.LAUNCHES)
+    launches = launch_counts("flat_block_activity", "plane_stats")
     log(f"[diff main path] launches {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a diff kernel of the main path never launched: {launches}")
@@ -1244,10 +1258,10 @@ def chroma_phase(card, eff, dev):
     luma_args, pair_args = kernel_inputs(params, planes, BD, 1, 1, dev)
     cargs = chroma_args(pair_args)
     torch.cuda.synchronize()
-    gk.reset_launch_counts()
+    spans.reset()
     outs = [gk.apply_plane_chroma(*a) for a in cargs]
     torch.cuda.synchronize()
-    launches = gk.LAUNCHES["grain_chroma"]
+    launches = launch_counts("grain_chroma")["grain_chroma"]
     log(f"[chroma main path] launches {{'grain_chroma': {launches}}}")
     if launches < 1:
         raise AssertionError("the chroma kernel never launched on its main path")
@@ -1440,10 +1454,7 @@ class plain_estimate_path:
 
 
 def estimate_launches():
-    from grav1synth_tpu_torch.ops import diff_kernels as dk
-    from grav1synth_tpu_torch.ops import estimate_kernels as ek
-
-    return {**ek.LAUNCHES, "flat_block_activity": dk.LAUNCHES["flat_block_activity"]}
+    return launch_counts("self_blur", "self_stats", "flat_block_activity")
 
 
 def exact_or_rtol(got: dict, want: dict, n_pool, what: str) -> str:
@@ -1494,7 +1505,6 @@ def estimate_phase(card, eff, dev, grainy):
     the estimate main path at full size; returns K8's and K9's launches,
     times and errors for the summary."""
     from grav1synth_tpu_torch.ops import diff_estimate as de
-    from grav1synth_tpu_torch.ops import diff_kernels as dk
     from grav1synth_tpu_torch.ops import estimate as te
     from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
@@ -1534,8 +1544,7 @@ def estimate_phase(card, eff, dev, grainy):
         return est.finish()
 
     torch.cuda.synchronize()
-    ek.reset_launch_counts()
-    dk.reset_launch_counts()
+    spans.reset()
     pushed = []
     tables = estimate(dev, pushed)
     torch.cuda.synchronize()
@@ -1965,7 +1974,6 @@ def pattern_phase(card, eff, dev, apply4):
     the summary, and the device-pattern outputs of the main path."""
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
-    from grav1synth_tpu_torch.ops import program as pg
 
     BD, SX, SY = 10, 1, 1
     err = 0
@@ -2023,14 +2031,14 @@ def pattern_phase(card, eff, dev, apply4):
     for b, key in ((16, 16), (112, 112)):
         run(b, key)
     torch.cuda.synchronize()
-    gk.reset_launch_counts()
-    pg.reset_counts()
+    spans.reset()
     dev_outs = {key: run(b, key) for b, key in ((16, 16), (112, 112), (16, "luma16"))}
     torch.cuda.synchronize()
-    launches = {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")}
-    log(f"[pattern main path] launches {launches}, parameter programs {pg.COUNTS}")
-    if set(launches.values()) != {3} or pg.COUNTS != {"captures": 0, "replays": 3}:
-        raise AssertionError(f"device-pattern path: launches {launches}, programs {pg.COUNTS}")
+    launches = launch_counts("grain_pattern", "grain_luma", "grain_chroma_pair")
+    programs = program_counts()
+    log(f"[pattern main path] launches {launches}, parameter programs {programs}")
+    if set(launches.values()) != {3} or programs != {"captures": 0, "replays": 3}:
+        raise AssertionError(f"device-pattern path: launches {launches}, programs {programs}")
     for key, got in dev_outs.items():
         for k, (g, w) in enumerate(zip(got, outs[key])):
             if not torch.equal(g, w):
@@ -2100,8 +2108,6 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
     apply's frames/s."""
     from grav1synth_tpu_torch.ops import diff_estimate as de
     from grav1synth_tpu_torch.ops import grain as tg
-    from grav1synth_tpu_torch.ops import grain_kernels as gk
-    from grav1synth_tpu_torch.ops import program as pg
     from grav1synth_tpu_torch.parallel import DeviceMesh, make_mesh, sharded_apply_with_stats
 
     BD = 10
@@ -2114,15 +2120,15 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
     for name, mesh in (("make_mesh()", make_mesh()), ("two shards on one card", DeviceMesh([dev, dev]))):
         sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)  # captures the shards' programs
         torch.cuda.synchronize()
-        gk.reset_launch_counts()
-        pg.reset_counts()
+        spans.reset()
         out = sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)
         torch.cuda.synchronize()
-        launches = {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")}
-        if set(launches.values()) != {len(mesh)} or pg.COUNTS != {"captures": 0,
-                                                                  "replays": len(mesh)}:
+        launches = launch_counts("grain_pattern", "grain_luma", "grain_chroma_pair")
+        programs = program_counts()
+        if set(launches.values()) != {len(mesh)} or programs != {"captures": 0,
+                                                                 "replays": len(mesh)}:
             raise AssertionError(f"sharded apply over {name}: launches {launches}, "
-                                 f"programs {pg.COUNTS}")
+                                 f"programs {programs}")
         for k in range(3):
             if not torch.equal(out[k], want[k]):
                 raise AssertionError(f"sharded apply over {name}: plane {k} differs from unsharded")
@@ -2178,10 +2184,7 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     os.dup2(log_fd, 1)
     os.dup2(log_fd, 2)
     from grav1synth_tpu_torch.ops import diff_estimate as de
-    from grav1synth_tpu_torch.ops import diff_kernels as dk
     from grav1synth_tpu_torch.ops import grain as tg
-    from grav1synth_tpu_torch.ops import grain_kernels as gk
-    from grav1synth_tpu_torch.ops import program as pg
     from grav1synth_tpu_torch.parallel import (
         DeviceMesh, initialize, process_allgather, sharded_apply_with_stats, shutdown,
         sync_global_devices,
@@ -2201,13 +2204,13 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     # first)
     sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
     torch.cuda.synchronize()
-    gk.reset_launch_counts()
-    pg.reset_counts()
+    spans.reset()
     out = sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
     torch.cuda.synchronize()
-    launches = {k: gk.LAUNCHES[k] for k in DIST_KERNELS[:3]}
-    if set(launches.values()) != {1} or pg.COUNTS != {"captures": 0, "replays": 1}:
-        raise AssertionError(f"rank {rank}: sharded apply launches {launches}, programs {pg.COUNTS}")
+    launches = launch_counts(*DIST_KERNELS[:3])
+    programs = program_counts()
+    if set(launches.values()) != {1} or programs != {"captures": 0, "replays": 1}:
+        raise AssertionError(f"rank {rank}: sharded apply launches {launches}, programs {programs}")
     for k in range(3):
         for i in range(b - a):
             if frame_digest(out[k][i]) != digests[k][a + i]:
@@ -2230,13 +2233,14 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     # the sharded per-frame diff statistics
     planes = [torch.from_numpy(p).to(dev) for p in diff_mine]
     torch.cuda.synchronize()
-    dk.reset_launch_counts()
+    spans.reset()
     stats = de.mesh_pair_stats_per_frame(pm, *planes, lag=2, bit_depth=BD, sub_x=1, sub_y=1,
                                          has_chroma=True)
     torch.cuda.synchronize()
-    launches.update(dk.LAUNCHES)
-    if min(dk.LAUNCHES.values()) < 3:
-        raise AssertionError(f"rank {rank}: diff kernels launched {dict(dk.LAUNCHES)}")
+    diff_launches = launch_counts(*DIST_KERNELS[3:])
+    launches.update(diff_launches)
+    if min(diff_launches.values()) < 3:
+        raise AssertionError(f"rank {rank}: diff kernels launched {diff_launches}")
     for name, got, want in zip(("y", "cb", "cr"), stats, diff_want):
         for key, w in want.items():
             g = got[key].cpu().numpy()
@@ -2426,7 +2430,6 @@ def program_phase(card, dev, apply4):
     batch the host issue ms, device busy ms and idle share of both paths;
     frames/s of both in turns (eager, graph, graph, eager)."""
     from grav1synth_tpu_torch.ops import grain as tg
-    from grav1synth_tpu_torch.ops import grain_kernels as gk
     from grav1synth_tpu_torch.ops import grain_ref
     from grav1synth_tpu_torch.ops import program as pg
 
@@ -2445,10 +2448,12 @@ def program_phase(card, dev, apply4):
         paths = [program_paths(c, frames[b], apply4["pats"][b] if c[1] == "3-plane"
                                else lum_pats[b], dev) for c in cells]
         # first pass: the graph path (capturing each key's program) against
-        # the eager body with the same kernels, frame 0 against grain_ref
+        # the eager body with the same kernels, frame 0 against grain_ref;
+        # the spans summed, for the captures' time
         torch.cuda.synchronize()
-        gk.reset_launch_counts()
-        pg.reset_counts()
+        spans.reset()
+        level = spans.log.level
+        spans.log.setLevel(logging.DEBUG)
         for (_, kind, source, _, _), (graph, eager, _) in zip(cells, paths):
             got, want = graph(), eager()
             for k in range(3):
@@ -2460,8 +2465,10 @@ def program_phase(card, dev, apply4):
                     raise AssertionError(f"B={b} {kind} {source}: frame 0 plane {k} differs "
                                          "from grain_ref")
         torch.cuda.synchronize()
+        spans.log.setLevel(level)
+        capture = spans.snapshot()["spans"]["program.capture"]
         keys = list(dict.fromkeys(key for _, _, key in paths))
-        first = {**pg.COUNTS, **{k: gk.LAUNCHES[k] for k in kernels}}
+        first = {**program_counts(), **launch_counts(*kernels)}
         if first["captures"] != len(keys) or first["replays"] != len(cells):
             raise AssertionError(f"B={b} first pass: {first}, {len(keys)} keys, {len(cells)} cells")
         # second pass, every program captured: one replay a batch, and the
@@ -2473,19 +2480,20 @@ def program_phase(card, dev, apply4):
             "grain_chroma_pair": sum(c[1] == "3-plane" or c[2] == "card patterns" for c in cells),
         }
         torch.cuda.synchronize()
-        gk.reset_launch_counts()
-        pg.reset_counts()
+        spans.reset()
         for graph, _, _ in paths:
             graph()
         torch.cuda.synchronize()
-        counts = {**pg.COUNTS, **{k: gk.LAUNCHES[k] for k in kernels}}
+        counts = {**program_counts(), **launch_counts(*kernels)}
         if counts != want_counts:
             raise AssertionError(f"B={b} second pass: counts {counts}, expected {want_counts}")
         log(f"[program] 4K10 4:2:0 B={b}, {len(cells)} cells (3-plane and luma-only; host "
             f"patterns, card patterns, card patterns with the host's facts): every frame of the "
             f"graph path equal to the eager body's, frame 0 to grain_ref; first pass "
-            f"{first}, {len(keys)} programs; then one batch a cell: {counts}")
-        # each program alone: graph nodes, capture ms, device ms per replay
+            f"{first}, {len(keys)} programs, their captures (with the eager warm-up; span "
+            f"program.capture) {capture['total_ms'] / capture['count']:.1f} ms on average, "
+            f"{capture['max_ms']:.1f} at most; then one batch a cell: {counts}")
+        # each program alone: graph nodes, device ms per replay
         for (_, kind, source, params, _), (_, _, key) in zip(cells, paths):
             if key not in keys:
                 continue
@@ -2497,8 +2505,8 @@ def program_phase(card, dev, apply4):
             log(f"[program] B={b} (made at {key.batch}), chroma "
                 f"{'on' if key.chroma_static else 'off'},"
                 f" patterns {key.patterns} ({kind}, {source}): graph {graph_nodes(prog.graph)}, "
-                f"kernels recorded {prog.kernels}; capture (with the eager warm-up) "
-                f"{prog.capture_ms:.1f} ms; replay {replay_ms:.4f} ms back to back (CUDA events), "
+                f"kernels recorded {prog.kernels}; "
+                f"replay {replay_ms:.4f} ms back to back (CUDA events), "
                 f"device busy {alone['busy_ms']:.4f} ms a replay (torch.profiler) on {card}")
         # the host's two pieces of a batch left outside the program
         params = apply4["batches"][b]
@@ -2548,7 +2556,6 @@ def main() -> int:
     from grav1synth_tpu_torch import _build
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
-    from grav1synth_tpu_torch.ops import program as pg
 
     card = card_identity()
     log(card)
@@ -2640,18 +2647,18 @@ def main() -> int:
         return tg.apply_grain(*frames[b], tg.pack_params(params, dev), BD, SX, SY, prepared=prep)
 
     torch.cuda.synchronize()
-    gk.reset_launch_counts()
-    pg.reset_counts()
+    spans.reset()
     out16 = run(16, batches[16], 16)
     out112 = run(112, batches[112], 112)
     outl = run(16, lum16, "luma16")
     torch.cuda.synchronize()
-    launches = {k: gk.LAUNCHES[k] for k in ("grain_luma", "grain_chroma_pair")}
-    log(f"[main path] launches {launches}, parameter programs {pg.COUNTS}")
+    launches = launch_counts("grain_luma", "grain_chroma_pair")
+    programs = program_counts()
+    log(f"[main path] launches {launches}, parameter programs {programs}")
     # one program replay and one luma kernel a batch, the chroma-pair
     # kernel but for the luma-only batch (each program captured here)
-    if launches != {"grain_luma": 3, "grain_chroma_pair": 2} or pg.COUNTS["replays"] != 3:
-        raise AssertionError(f"main path: launches {launches}, programs {pg.COUNTS}")
+    if launches != {"grain_luma": 3, "grain_chroma_pair": 2} or programs["replays"] != 3:
+        raise AssertionError(f"main path: launches {launches}, programs {programs}")
     for o, b in ((out16, 16), (out112, 112)):
         for k, t in enumerate(o):
             if tuple(t.shape) != tuple(frames[b][k].shape) or t.dtype != torch.int16:

@@ -32,6 +32,7 @@ from ..parallel.distributed import (
 )
 from ..parallel.mesh import shard_slices
 from ..tables.aggregate import packet_bounds
+from ..utils import spans
 from . import grain_ref
 from .diff_kernels import FLAT_BLOCK, NUM_BINS, flat_block_activity, offsets, plane_stats
 
@@ -481,31 +482,32 @@ def stage_planes(
     straight into a pinned buffer kept in ``pinned`` per slot: the
     estimators end every batch in a download that waits for the stream,
     so the previous upload from a buffer has finished before the buffer
-    is written again."""
-    first = np.asarray(planes[0])
-    shape = (len(planes),) + first.shape
-    dtype = torch.uint8 if first.dtype == np.uint8 and nshift == 0 else torch.int16
-    if device.type == "cuda":
-        buf = pinned.get(slot)
-        if buf is None or buf.dtype != dtype or tuple(buf.shape[1:]) != shape[1:] \
-                or buf.shape[0] < shape[0]:
-            buf = torch.empty(shape, dtype=dtype, pin_memory=True)
-            pinned[slot] = buf
-        buf = buf[: shape[0]]
-    else:
-        buf = torch.empty(shape, dtype=dtype)
-    # torch's copy_ spreads a large copy (and a cast) over the host's
-    # cores, where numpy's stack runs on one
-    for i, a in enumerate(planes):
-        a = np.asarray(a)
-        buf[i].copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
-    if nshift > 0:
-        buf.bitwise_left_shift_(nshift)
-    elif nshift < 0:
-        buf.bitwise_right_shift_(-nshift)
-    if device.type == "cuda":
-        return buf.to(device, non_blocking=True)
-    return buf
+    is written again. The whole of it is the span ``stage.planes``."""
+    with spans.span("stage.planes"):
+        first = np.asarray(planes[0])
+        shape = (len(planes),) + first.shape
+        dtype = torch.uint8 if first.dtype == np.uint8 and nshift == 0 else torch.int16
+        if device.type == "cuda":
+            buf = pinned.get(slot)
+            if buf is None or buf.dtype != dtype or tuple(buf.shape[1:]) != shape[1:] \
+                    or buf.shape[0] < shape[0]:
+                buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+                pinned[slot] = buf
+            buf = buf[: shape[0]]
+        else:
+            buf = torch.empty(shape, dtype=dtype)
+        # torch's copy_ spreads a large copy (and a cast) over the host's
+        # cores, where numpy's stack runs on one
+        for i, a in enumerate(planes):
+            a = np.asarray(a)
+            buf[i].copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
+        if nshift > 0:
+            buf.bitwise_left_shift_(nshift)
+        elif nshift < 0:
+            buf.bitwise_right_shift_(-nshift)
+        if device.type == "cuda":
+            return buf.to(device, non_blocking=True)
+        return buf
 
 
 class DiffEstimator:
@@ -572,21 +574,22 @@ class DiffEstimator:
     def _add_frames(self, y_st, cb_st=None, cr_st=None) -> None:
         """Run per-frame host statistics through scene-cut detection and
         chunking, in frame order."""
-        for i in range(next(iter(y_st.values())).shape[0]):
-            stats = {k: v[i] for k, v in y_st.items()}
-            sigma = _frame_sigma(stats)
-            if self._scene_cut(sigma):
-                self._flush_chunk()
-            self._chunk_sigmas.append(sigma)
-            self._chunk.y.add(stats)
-            if cb_st is not None:
-                self._chunk.cb.add({k: v[i] for k, v in cb_st.items()})
-            if cr_st is not None:
-                self._chunk.cr.add({k: v[i] for k, v in cr_st.items()})
-            self._chunk.frames += 1
-            self._frame_idx += 1
-            if self._frame_idx - self._chunk_start >= self.chunk_frames:
-                self._flush_chunk()
+        with spans.span("diff.chunk"):
+            for i in range(next(iter(y_st.values())).shape[0]):
+                stats = {k: v[i] for k, v in y_st.items()}
+                sigma = _frame_sigma(stats)
+                if self._scene_cut(sigma):
+                    self._flush_chunk()
+                self._chunk_sigmas.append(sigma)
+                self._chunk.y.add(stats)
+                if cb_st is not None:
+                    self._chunk.cb.add({k: v[i] for k, v in cb_st.items()})
+                if cr_st is not None:
+                    self._chunk.cr.add({k: v[i] for k, v in cr_st.items()})
+                self._chunk.frames += 1
+                self._frame_idx += 1
+                if self._frame_idx - self._chunk_start >= self.chunk_frames:
+                    self._flush_chunk()
 
     def diff_frame(self, src_planes, den_planes) -> None:
         """One frame pair, as a batch of one through the same kernels. A
@@ -599,7 +602,8 @@ class DiffEstimator:
             )
         ty = self._stage(0, src_planes[:1], False)
         tdy = self._stage(1, den_planes[:1], True)
-        dicts = [pair_plane_stats(ty, tdy, None, self.lag, self.src_bd)]
+        with spans.span("diff.launch"):
+            dicts = [pair_plane_stats(ty, tdy, None, self.lag, self.src_bd)]
         planes = []
         if len(src_planes) >= 3 and len(den_planes) >= 3:
             hc, wc = np.shape(src_planes[1])
@@ -611,12 +615,15 @@ class DiffEstimator:
                     planes.append(False)
                     continue
                 if lavg4 is None:
-                    lavg4 = chroma_lavg4(ty, tdy, hc, wc, sub_x, sub_y)
+                    with spans.span("diff.launch"):
+                        lavg4 = chroma_lavg4(ty, tdy, hc, wc, sub_x, sub_y)
                 tc = self._stage(2 * idx, src_planes[idx : idx + 1], False)
                 tdc = self._stage(2 * idx + 1, den_planes[idx : idx + 1], True)
-                dicts.append(pair_plane_stats(tc, tdc, lavg4, self.lag, self.src_bd))
+                with spans.span("diff.launch"):
+                    dicts.append(pair_plane_stats(tc, tdc, lavg4, self.lag, self.src_bd))
                 planes.append(True)
-        host = iter(_download(dicts))
+        with spans.span("diff.download"):
+            host = iter(_download(dicts))
         y_st = next(host)
         cb_st = next(host) if planes and planes[0] else None
         cr_st = next(host) if len(planes) > 1 and planes[1] else None
@@ -677,9 +684,11 @@ class DiffEstimator:
             ]
             for i, (dev, sl) in enumerate(zip(mesh, shard_slices(b + pad, len(mesh))))
         ]
-        outs = _shard_stats(shards, self.lag, self.src_bd, sub_x, sub_y, has_chroma)
-        y_st, cb_st, cr_st = _concat_on(mesh[0], outs)
-        host = _download([y_st] + ([cb_st, cr_st] if has_chroma else []))
+        with spans.span("diff.launch"):
+            outs = _shard_stats(shards, self.lag, self.src_bd, sub_x, sub_y, has_chroma)
+            y_st, cb_st, cr_st = _concat_on(mesh[0], outs)
+        with spans.span("diff.download"):
+            host = _download([y_st] + ([cb_st, cr_st] if has_chroma else []))
         self._add_frames(*({k: v[:b] for k, v in d.items()} for d in host))
 
     def add_stats(
@@ -701,7 +710,8 @@ class DiffEstimator:
     def _flush_chunk(self) -> None:
         if self._chunk.frames == 0:
             return
-        params = _fit_params(self._chunk, self.lag, self.src_bd, self.seed)
+        with spans.span("diff.fit"):
+            params = _fit_params(self._chunk, self.lag, self.src_bd, self.seed)
         start, _ = packet_bounds(self._chunk_start, *self.fps)
         _, end = packet_bounds(self._frame_idx - 1, *self.fps)
         if params is not None:

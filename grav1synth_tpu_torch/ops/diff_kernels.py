@@ -16,29 +16,23 @@ batch dim) in float64.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper.
+kernel or raises, and counts the launch in ``utils.spans``'
+``launch.<kernel>`` counter.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils import spans
 from .grain_kernels import _check, _on_cpu, _raise_on, _stream
 
 FLAT_BLOCK = 16
 NUM_BINS = 64
-
-LAUNCHES: Dict[str, int] = {"flat_block_activity": 0, "plane_stats": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def offsets(lag: int) -> List[Tuple[int, int]]:
     """(0,0) first, then the causal lag window (diff_pallas._offsets)."""
@@ -167,7 +161,7 @@ def flat_block_activity(d: torch.Tensor) -> torch.Tensor:
             d.data_ptr(), out.data_ptr(), b, h, w, _stream(d)
         )
     _raise_on(err, "diff_flat_block_activity launch")
-    LAUNCHES["flat_block_activity"] += 1
+    spans.count("launch.flat_block_activity")
     return out
 
 
@@ -216,7 +210,7 @@ def plane_stats(
                 b, h, w, hb, wb, lag, bit_depth, _stream(s),
             )
         _raise_on(err, "diff_plane_stats launch")
-        LAUNCHES["plane_stats"] += 1
+        spans.count("launch.plane_stats")
     sums = out.to(torch.float64)
     iu = torch.triu_indices(p, p, device=s.device)
     gram = torch.zeros((b, p, p), dtype=torch.float64, device=s.device)

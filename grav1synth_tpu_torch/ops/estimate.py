@@ -33,6 +33,7 @@ import torch
 
 from ..obu.types import FilmGrainParams, GrainTableSegment
 from ..tables.aggregate import packet_bounds
+from ..utils import spans
 from . import grain_ref
 from .diff_estimate import (
     _ChunkStats,
@@ -150,8 +151,9 @@ class NoiseEstimator:
             list(f) if isinstance(f, (list, tuple)) else [f] for f in frames
         ]
         y = stage_planes(self._pinned, self.device, 0, [p[0] for p in planes])
-        den_y, q_y = self_blur(y, self.bit_depth)
-        dicts = [_plane_stats(den_y, q_y, self.lag, self.bit_depth)]
+        with spans.span("estimate.launch"):
+            den_y, q_y = self_blur(y, self.bit_depth)
+            dicts = [_plane_stats(den_y, q_y, self.lag, self.bit_depth)]
         has_chroma = all(
             len(p) >= 3 and p[1] is not None and p[2] is not None
             for p in planes
@@ -162,19 +164,23 @@ class NoiseEstimator:
             sub_y = 1 if hc < h else 0
             sub_x = 1 if wc < w else 0
             self._sub = (sub_x, sub_y)
-            lsum = pool_sum(q_y, hc, wc, sub_x, sub_y)  # once for Cb and Cr
+            with spans.span("estimate.launch"):
+                lsum = pool_sum(q_y, hc, wc, sub_x, sub_y)  # once for Cb and Cr
             for k in (1, 2):
                 c = stage_planes(self._pinned, self.device, k, [p[k] for p in planes])
-                dicts.append(_chroma_stats(c, lsum, self.lag, self.bit_depth, sub_x, sub_y))
-        host = _download(dicts)
+                with spans.span("estimate.launch"):
+                    dicts.append(_chroma_stats(c, lsum, self.lag, self.bit_depth, sub_x, sub_y))
+        with spans.span("estimate.download"):
+            host = _download(dicts)
         per = host[0]
         per_cb, per_cr = (host[1], host[2]) if has_chroma else (None, None)
-        for i in range(len(planes)):
-            self._ingest(
-                {k: v[i] for k, v in per.items()},
-                None if per_cb is None else {k: v[i] for k, v in per_cb.items()},
-                None if per_cr is None else {k: v[i] for k, v in per_cr.items()},
-            )
+        with spans.span("estimate.ingest"):
+            for i in range(len(planes)):
+                self._ingest(
+                    {k: v[i] for k, v in per.items()},
+                    None if per_cb is None else {k: v[i] for k, v in per_cb.items()},
+                    None if per_cr is None else {k: v[i] for k, v in per_cr.items()},
+                )
 
     def _fallback_lag0(self) -> List[GrainTableSegment]:
         """Sigma-curve-only table from the bin moments (pre-AR-fit

@@ -16,7 +16,8 @@ through ``_finish``: the same float64 scaling of the same integer sums.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper.
+kernel or raises, and counts the launch in ``utils.spans``'
+``launch.<kernel>`` counter.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils import spans
 from .diff_kernels import FLAT_BLOCK, NUM_BINS, _n_design, _pixel_flat, offsets
 from .grain_kernels import _check, _on_cpu, _raise_on, _stream
 
@@ -37,14 +39,6 @@ AREA = BLUR * BLUR
 LAGS = (0, 1, 2, 3)
 # bytes of one float64 design chunk (B x P x rows x W) of the plain Gram
 _CHUNK_BYTES = 1 << 28
-
-LAUNCHES: Dict[str, int] = {"self_blur": 0, "self_stats": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
@@ -209,7 +203,7 @@ def self_blur(f: torch.Tensor, bit_depth: int) -> Tuple[torch.Tensor, torch.Tens
             b, h, w, bit_depth, _stream(f),
         )
     _raise_on(err, "estimate_self_blur launch")
-    LAUNCHES["self_blur"] += 1
+    spans.count("launch.self_blur")
     return den, q
 
 
@@ -260,7 +254,7 @@ def self_stats(
                 b, h, w, hb, wb, lag, 1 if lsum is None else n_pool, bit_depth, _stream(q),
             )
         _raise_on(err, "estimate_self_stats launch")
-        LAUNCHES["self_stats"] += 1
+        spans.count("launch.self_stats")
     return _unpack_self_stats(out, p, None if lsum is None else n_pool)
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..obu.types import FilmGrainParams
+from ..utils import spans
 from . import grain_ref
 from .tables_data import GAUSSIAN_SEQUENCE
 
@@ -180,6 +181,12 @@ def from_jax_params(batch, device) -> GrainParamsBatch:
 
 def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
     """Stack host FilmGrainParams into one parameter buffer on ``device``."""
+    with spans.span("grain.pack"):
+        return _upload_params(_param_columns(params), len(params), device)
+
+
+def _param_columns(params: List[FilmGrainParams]) -> Dict[str, np.ndarray]:
+    """Each field of ``params``' buffer as a (B, *shape) int32 array."""
     b = len(params)
 
     def pad_points(pts, n):
@@ -208,7 +215,7 @@ def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
     def cr_active(p):
         return p.chroma_scaling_from_luma or len(p.scaling_points_cr) > 0
 
-    host = dict(
+    return dict(
         seed=arr(lambda p: p.grain_seed),
         num_y=arr(lambda p: len(p.scaling_points_y)),
         num_cb=arr(lambda p: len(p.scaling_points_cb)),
@@ -234,7 +241,6 @@ def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
         overlap=arr(lambda p: int(p.overlap_flag)),
         clip=arr(lambda p: int(p.clip_to_restricted_range)),
     )
-    return _upload_params(host, b, device)
 
 
 # ---------------------------------------------------------------------------
@@ -773,17 +779,20 @@ def apply_grain(
     ``host_params`` or ``prepared``) skips the chroma kernel and returns
     ``cb``/``cr`` untouched."""
     if prepared is None and host_params is not None:
-        prepared = prepare_patterns(
-            host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
-        )
+        with spans.span("grain.patterns"):
+            prepared = prepare_patterns(
+                host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
+            )
     if prepared is None:
         return apply_grain_device_patterns(y, cb, cr, p, bit_depth, sub_x, sub_y, monochrome)
-    from .program import ProgramKey, program_for
+    with spans.span("program.replay"):
+        from .program import ProgramKey, program_for
 
-    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, prepared.chroma_static, "host")
-    tables = program_for(key).run(p)
-    return apply_with_tables(y, cb, cr, tables, prepared.planes(), bit_depth, sub_x, sub_y,
-                             monochrome)
+        key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, prepared.chroma_static, "host")
+        tables = program_for(key).run(p)
+    with spans.span("grain.launch"):
+        return apply_with_tables(y, cb, cr, tables, prepared.planes(), bit_depth, sub_x, sub_y,
+                                 monochrome)
 
 
 def apply_grain_device_patterns(
@@ -803,13 +812,16 @@ def apply_grain_device_patterns(
     same device time): the pattern kernel runs inside the batch's
     parameter program, and ``chroma_static`` False runs the luma kernel
     alone and returns ``cb``/``cr`` untouched."""
-    from .program import ProgramKey, program_for
+    with spans.span("program.replay"):
+        from .program import ProgramKey, program_for
 
-    key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, chroma_static, "device")
-    tables = program_for(key).run(p)
-    chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)
-    return apply_with_tables(y, cb, cr, tables, _unpack_patterns(tables.patterns, chroma_shape),
-                             bit_depth, sub_x, sub_y, monochrome)
+        key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, chroma_static, "device")
+        tables = program_for(key).run(p)
+    with spans.span("grain.launch"):
+        chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)
+        return apply_with_tables(y, cb, cr, tables,
+                                 _unpack_patterns(tables.patterns, chroma_shape), bit_depth,
+                                 sub_x, sub_y, monochrome)
 
 
 def apply_with_tables(

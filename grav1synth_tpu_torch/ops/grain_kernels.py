@@ -18,10 +18,11 @@ version.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper. A
-launch recorded into a CUDA graph under capture launches nothing: it is
-counted in ``RECORDED``, and the graph's owner (``ops.program``) adds
-what its graph holds to ``LAUNCHES`` on each replay.
+kernel or raises, and counts the launch in ``utils.spans``'
+``launch.<kernel>`` counter. A launch recorded into a CUDA graph under
+capture launches nothing: it is counted in ``recorded.<kernel>``, and the
+graph's owner (``ops.program``) adds what its graph holds to
+``launch.<kernel>`` on each replay.
 
 Per-plane parameter rows (``pack_plane_params``) carry the scalars the
 kernels read and the plane's 256-entry scaling LUT at the 8-bit nodes;
@@ -31,11 +32,12 @@ the kernels read the LUT directly (and interpolate between nodes above
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from .. import _build
+from ..utils import spans
 from .grain import (
     BLOCK,
     GRAIN_H,
@@ -67,12 +69,6 @@ P_OFFSET = 10
 P_LUT = 16  # 256 scaling values at the 8-bit nodes
 P_LEN = P_LUT + 256
 
-LAUNCHES: Dict[str, int] = {
-    "grain_luma": 0, "grain_chroma_pair": 0, "grain_chroma": 0, "grain_pattern": 0,
-}
-# launches recorded into CUDA graphs under capture, per wrapper (never reset)
-RECORDED: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
-
 # packed per-frame pattern row (int32; csrc/pattern_kernels.cu)
 Q_SEED = 0
 Q_HAS_Y = 1  # the frame has luma points
@@ -88,18 +84,13 @@ Q_COEFFS_CR = Q_COEFFS_CB + 24
 Q_LEN = Q_COEFFS_CR + 24
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 def _launched(name: str) -> None:
     """Count one launch of ``name``'s kernel, or, under graph capture,
     one launch recorded into the graph."""
     if torch.cuda.is_current_stream_capturing():
-        RECORDED[name] += 1
+        spans.count("recorded." + name)
     else:
-        LAUNCHES[name] += 1
+        spans.count("launch." + name)
 
 
 def pack_plane_params(p: GrainParamsBatch, plane: str, bit_depth: int) -> torch.Tensor:

@@ -33,19 +33,21 @@ of them (``grain.apply_with_tables`` reads them in the two grain kernels
 right after the replay). A replay on another stream than the last one
 first waits for that stream.
 
-``COUNTS`` counts captures and replays; each replay also adds the kernel
-launches its graph holds to ``grain_kernels.LAUNCHES``.
+The ``utils.spans`` counters ``program.captures`` and ``program.replays``
+count captures and replays; each replay also adds the kernel launches
+its graph holds to ``launch.<kernel>``. A capture (the eager warm-up
+included) is the span ``program.capture``.
 """
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..utils import spans
 from . import grain_kernels as gk
 from .grain import (
     BLOCK,
@@ -60,13 +62,6 @@ from .grain import (
 # batch of 16, whatever the stream's tables. The 4K bench stream
 # (.bench_cache/bench_4k10_grainy.ivf) makes one.
 MAX_PROGRAMS = 16
-
-COUNTS: Dict[str, int] = {"captures": 0, "replays": 0}
-
-
-def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k] = 0
 
 
 @dataclass(frozen=True)
@@ -171,7 +166,6 @@ class GrainProgram:
         self.static_in: Optional[torch.Tensor] = None
         self.outputs: Optional[ProgramOutputs] = None
         self.kernels: Dict[str, int] = {}  # kernel launches the graph holds
-        self.capture_ms: Optional[float] = None  # host ms of the warm-up and capture
         self._stream: Optional[torch.cuda.Stream] = None  # the last replay's
 
     def run(self, p: GrainParamsBatch) -> ProgramOutputs:
@@ -196,15 +190,14 @@ class GrainProgram:
         self._stream = stream
         self.static_in[:b].copy_(buf, non_blocking=True)
         self.graph.replay()
-        COUNTS["replays"] += 1
+        spans.count("program.replays")
         for name, n in self.kernels.items():
-            gk.LAUNCHES[name] += n
+            spans.count("launch." + name, n)
         return self.outputs.first(b)
 
     def _capture(self) -> None:
-        t0 = time.perf_counter()
         dev = self.key.device
-        with torch.cuda.device(dev):
+        with spans.span("program.capture"), torch.cuda.device(dev):
             self.static_in = torch.zeros((self.key.batch, PARAMS_WIDTH), dtype=torch.int32,
                                          device=dev)
             side = torch.cuda.Stream(dev)
@@ -215,14 +208,14 @@ class GrainProgram:
                 program_body(self.static_in, self.key)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            recorded = dict(gk.RECORDED)
+            recorded = spans.counters("recorded.")
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 self.outputs = program_body(self.static_in, self.key)
             graph.instantiate()
-        self.kernels = {k: gk.RECORDED[k] - recorded[k] for k in recorded if gk.RECORDED[k] > recorded[k]}
+        after = spans.counters("recorded.")
+        self.kernels = {k: n - recorded.get(k, 0) for k, n in after.items() if n > recorded.get(k, 0)}
         self.graph = graph
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        COUNTS["captures"] += 1
+        spans.count("program.captures")
 
 
 _PROGRAMS: "OrderedDict[ProgramKey, GrainProgram]" = OrderedDict()

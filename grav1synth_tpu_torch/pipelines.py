@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
@@ -36,6 +35,7 @@ from .obu import Av1Parser, GrainAction, GrainRewriter, GrainTableSegment
 from .ops import grain as grain_ops
 from .parallel.mesh import DeviceMesh, make_mesh, pad_batch, sharded_apply
 from .tables import aggregate_grain_headers, dump_table, load_table
+from .utils import spans
 from .utils.progress import Progress
 
 log = logging.getLogger("grav1synth")
@@ -540,8 +540,12 @@ def _pinned(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
-    host = torch.from_numpy(np.stack(planes).astype(np.int16))
-    return _pinned(host, device).to(device, non_blocking=True)
+    with spans.span("upload.stack"):
+        host = torch.from_numpy(np.stack(planes).astype(np.int16))
+    with spans.span("upload.pin"):
+        host = _pinned(host, device)
+    with spans.span("upload.copy"):
+        return host.to(device, non_blocking=True)
 
 
 def _start_download(t: torch.Tensor, bit_depth: int) -> torch.Tensor:
@@ -549,13 +553,14 @@ def _start_download(t: torch.Tensor, bit_depth: int) -> torch.Tensor:
     mux dtype. 8-bit samples are cast to uint8 on the device first (half
     the bytes); above 8 bits the int16 samples (0..4095) are already the
     uint16 bytes, reinterpreted on the host."""
-    if bit_depth == 8:
-        t = t.to(torch.uint8)
-    if t.device.type != "cuda":
-        return t
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
+    with spans.span("download.start"):
+        if bit_depth == 8:
+            t = t.to(torch.uint8)
+        if t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
 
 
 def _as_mux(t: torch.Tensor, bit_depth: int) -> np.ndarray:
@@ -570,7 +575,6 @@ def render(
     grain: bool = True,
     progress: bool = True,
     shards: int = 1,
-    stage_stats: Optional[dict] = None,
     device="cuda",
 ) -> int:
     """Decode an AV1 stream and write y4m with film grain synthesized on
@@ -584,10 +588,10 @@ def render(
     muxed one batch later (a FIFO), so the host's mux of batch N overlaps
     the device's work on batch N+1.
 
-    ``stage_stats``: optional dict filled with the wall seconds each
-    stage spent on the driving thread: "decode", "dispatch" (param pack,
-    pattern generation and upload, kernel launches), "download" (waiting
-    for the device-to-host copies), "mux" (y4m writes)."""
+    The driving thread's stages are the spans (``utils.spans``)
+    "render.decode" (waiting for the decoder), "render.dispatch" (upload,
+    parameters, patterns, kernel launches), "render.download" (waiting for
+    the device-to-host copies) and "render.mux" (y4m writes)."""
     from .container.ffshim import Decoder
     from .container.y4m import Y4mWriter
     from .utils.prefetch import maybe_prefetch
@@ -617,58 +621,54 @@ def render(
         pend: list = []  # [(Frame, params)]
         inflight: list = []  # dispatched batches awaiting download + mux
         frames_out = 0
-        stats = stage_stats if stage_stats is not None else {}
-        for k in ("decode", "dispatch", "download", "mux"):
-            stats.setdefault(k, 0.0)
 
         def dispatch() -> None:
             if not pend:
                 return
-            t_disp = time.time()
-            first = pend[0][0]
-            bd, mono, sub = first.bit_depth, len(first.planes) == 1, first.subsampling
-            todo = [i for i, (_, p) in enumerate(pend) if _grain_visible(p)]
-            outs = [list(f.planes) for f, _ in pend]
-            grained = None
-            done = None
-            if todo and mesh is not None:
-                hp = [pend[i][1] for i in todo]
-                stacked = [
-                    np.stack([pend[i][0].planes[k] for i in todo]).astype(np.int16)
-                    for k in range(1 if mono else 3)
-                ]
-                stacked, hp_p, nreal = pad_batch(stacked, hp, len(mesh))
-                planes = [_pinned(torch.from_numpy(a), device) for a in stacked]
-                y, cb, cr = planes if not mono else (planes[0], None, None)
-                res = sharded_apply(
-                    mesh, y, cb, cr, grain_ops.pack_params(hp_p, "cpu"), bd,
-                    sub_x=sub[0], sub_y=sub[1], monochrome=mono,
-                )
-                res = [None if r is None else r[:nreal] for r in res]
-            elif todo:
-                hp = [pend[i][1] for i in todo]
-                planes = [
-                    _upload([pend[i][0].planes[k] for i in todo], device)
-                    for k in range(1 if mono else 3)
-                ]
-                y, cb, cr = planes if not mono else (planes[0], None, None)
-                res = grain_ops.apply_grain(
-                    y, cb, cr, grain_ops.pack_params(hp, device), bd, sub[0], sub[1],
-                    mono, host_params=hp,
-                )
-            if todo:
-                # a luma-only batch returns cb/cr untouched: those planes
-                # stay the decoder's own
-                grained = [
-                    None if r is None or r is src else _start_download(r, bd)
-                    for r, src in zip(res, (y, cb, cr))
-                ]
-                if device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record()
-            inflight.append((todo, grained, done, outs, bd))
-            pend.clear()
-            stats["dispatch"] += time.time() - t_disp
+            with spans.span("render.dispatch"):
+                first = pend[0][0]
+                bd, mono, sub = first.bit_depth, len(first.planes) == 1, first.subsampling
+                todo = [i for i, (_, p) in enumerate(pend) if _grain_visible(p)]
+                outs = [list(f.planes) for f, _ in pend]
+                grained = None
+                done = None
+                if todo and mesh is not None:
+                    hp = [pend[i][1] for i in todo]
+                    stacked = [
+                        np.stack([pend[i][0].planes[k] for i in todo]).astype(np.int16)
+                        for k in range(1 if mono else 3)
+                    ]
+                    stacked, hp_p, nreal = pad_batch(stacked, hp, len(mesh))
+                    planes = [_pinned(torch.from_numpy(a), device) for a in stacked]
+                    y, cb, cr = planes if not mono else (planes[0], None, None)
+                    res = sharded_apply(
+                        mesh, y, cb, cr, grain_ops.pack_params(hp_p, "cpu"), bd,
+                        sub_x=sub[0], sub_y=sub[1], monochrome=mono,
+                    )
+                    res = [None if r is None else r[:nreal] for r in res]
+                elif todo:
+                    hp = [pend[i][1] for i in todo]
+                    planes = [
+                        _upload([pend[i][0].planes[k] for i in todo], device)
+                        for k in range(1 if mono else 3)
+                    ]
+                    y, cb, cr = planes if not mono else (planes[0], None, None)
+                    res = grain_ops.apply_grain(
+                        y, cb, cr, grain_ops.pack_params(hp, device), bd, sub[0], sub[1],
+                        mono, host_params=hp,
+                    )
+                if todo:
+                    # a luma-only batch returns cb/cr untouched: those planes
+                    # stay the decoder's own
+                    grained = [
+                        None if r is None or r is src else _start_download(r, bd)
+                        for r, src in zip(res, (y, cb, cr))
+                    ]
+                    if device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record()
+                inflight.append((todo, grained, done, outs, bd))
+                pend.clear()
             while len(inflight) > 1:
                 drain()
 
@@ -678,21 +678,19 @@ def render(
                 return
             todo, grained, done, outs, bd = inflight.pop(0)
             if todo:
-                t_dl = time.time()
-                if done is not None:
-                    done.synchronize()
-                host = [None if g is None else _as_mux(g, bd) for g in grained]
-                stats["download"] += time.time() - t_dl
+                with spans.span("render.download"):
+                    if done is not None:
+                        done.synchronize()
+                    host = [None if g is None else _as_mux(g, bd) for g in grained]
                 for k, i in enumerate(todo):
                     for pi, plane in enumerate(host):
                         if plane is not None:
                             outs[i][pi] = plane[k]
-            t_mux = time.time()
-            for planes in outs:
-                writer.write_frame(planes)
-                frames_out += 1
-                bar.step()
-            stats["mux"] += time.time() - t_mux
+            with spans.span("render.mux"):
+                for planes in outs:
+                    writer.write_frame(planes)
+                    frames_out += 1
+                    bar.step()
 
         def decoded_pairs():
             """Decode and pair each displayed frame with its parsed grain
@@ -713,13 +711,10 @@ def render(
         def timed_source():
             it = iter(maybe_prefetch(decoded_pairs(), depth=batch))
             while True:
-                t0 = time.time()
-                try:
-                    item = next(it)
-                except StopIteration:
-                    stats["decode"] += time.time() - t0
+                with spans.span("render.decode"):
+                    item = next(it, None)
+                if item is None:
                     return
-                stats["decode"] += time.time() - t0
                 yield item
 
         def geometry(frame):
@@ -748,6 +743,7 @@ def render(
             writer.close()
         bar.done()
         log.info("Done, wrote %d frames to %s", frames_out, output_path)
+        spans.log_summary()
         return frames_out
 
 
@@ -759,7 +755,6 @@ def diff(
     progress: bool = True,
     batch: int = 16,
     shards: int = 1,
-    stage_stats: Optional[dict] = None,
     device="cuda",
 ) -> List[GrainTableSegment]:
     """Estimate a grain table from a grainy source and a denoised copy,
@@ -771,10 +766,10 @@ def diff(
     > 1 spreads each batch over a device mesh (``device_mesh``). The table
     depends on neither ``batch`` nor ``shards``.
 
-    ``stage_stats``: optional dict filled with the wall seconds the
-    driving thread spent in "decode" (pulling both decoders) and
-    "device" (diff_batch: upload, kernels, the statistics download and
-    the host-side chunking)."""
+    The driving thread's stages are the spans (``utils.spans``)
+    "diff.decode" (pulling both decoders) and, inside ``diff_batch``,
+    "stage.planes", "diff.launch", "diff.download", "diff.chunk" and
+    "diff.fit"."""
     from .container.ffshim import Decoder
     from .utils.filters import FilterChain
     from .utils.prefetch import maybe_prefetch
@@ -804,23 +799,17 @@ def diff(
         pend_src: list = []
         pend_den: list = []
         pend_geom = None
-        stats = stage_stats if stage_stats is not None else {}
-        stats.setdefault("decode", 0.0)
-        stats.setdefault("device", 0.0)
 
         def flush():
             if pend_src:
-                t0 = time.time()
                 est.diff_batch(pend_src, pend_den, mesh=mesh)
-                stats["device"] += time.time() - t0
                 pend_src.clear()
                 pend_den.clear()
 
         while True:
-            t0 = time.time()
-            sf = next(src_it, None)
-            df = next(den_it, None)
-            stats["decode"] += time.time() - t0
+            with spans.span("diff.decode"):
+                sf = next(src_it, None)
+                df = next(den_it, None)
             if sf is None or df is None:
                 if (sf is None) != (df is None):
                     log.warning(
@@ -855,6 +844,7 @@ def diff(
         segments = est.finish() if est is not None else []
         dump_table(segments, output_path)
         log.info("Done, wrote grain table to %s (%d frames)", output_path, n)
+        spans.log_summary()
         return segments
 
 
@@ -913,4 +903,5 @@ def estimate(
             for i, s in enumerate(est.per_frame_sigma):
                 fh.write(f"{i} {s:.4f}\n")
     log.info("Done, wrote grain table to %s", output_path)
+    spans.log_summary()
     return segments

@@ -18,6 +18,12 @@ from av1_builder import sample_grain_params
 from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
 from grav1synth_tpu_torch.ops import program as pg
+from grav1synth_tpu_torch.utils import spans
+
+
+def _programs():
+    """The parameter programs' captures and replays so far."""
+    return {k: spans.counter("program." + k) for k in ("captures", "replays")}
 
 
 @pytest.fixture
@@ -62,14 +68,14 @@ def test_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
         prep = tg.prepare_patterns(
             params, bd, sub_x, sub_y, device=dev, generate=tg.generate_patterns_ref
         )
-        before = dict(gk.LAUNCHES)
+        before = spans.counters("launch.")
         got = tg.apply_grain(
             *(t.to(dev) for t in planes), tg.pack_params(params, dev), bd,
             sub_x, sub_y, prepared=prep,
         )
         outs[str(dev)] = [t.cpu() for t in got]
-    assert gk.LAUNCHES["grain_luma"] == before["grain_luma"] + 1
-    assert gk.LAUNCHES["grain_chroma_pair"] == before["grain_chroma_pair"] + 1
+    assert spans.counter("launch.grain_luma") == before.get("grain_luma", 0) + 1
+    assert spans.counter("launch.grain_chroma_pair") == before.get("grain_chroma_pair", 0) + 1
     for pi in range(3):
         assert torch.equal(outs["cuda"][pi], outs["cpu"][pi]), f"plane {pi}"
 
@@ -109,10 +115,10 @@ class _KernelCase:
         luma_args = (y, self.pats[0], offs, self.py, self.bd)
         pair_args = (y, cb, cr, self.pats[1], self.pats[2], offs, self.p2, self.bd,
                      self.sub_x, self.sub_y)
-        before = dict(gk.LAUNCHES)
+        before = spans.counters("launch.")
         got = [gk.apply_plane_luma(*luma_args), *gk.apply_planes_pair(*pair_args)]
-        assert gk.LAUNCHES["grain_luma"] == before["grain_luma"] + 1
-        assert gk.LAUNCHES["grain_chroma_pair"] == before["grain_chroma_pair"] + 1
+        assert spans.counter("launch.grain_luma") == before.get("grain_luma", 0) + 1
+        assert spans.counter("launch.grain_chroma_pair") == before.get("grain_chroma_pair", 0) + 1
         want = [gk.apply_plane_luma_reference(*luma_args),
                 *gk.apply_planes_pair_reference(*pair_args)]
         for pi, (g, wnt) in enumerate(zip(got, want)):
@@ -130,9 +136,9 @@ class _KernelCase:
         for plane, src, pat, prm in (("cb", cb, self.pats[1], self.p2[:b]),
                                      ("cr", cr, self.pats[2], self.p2[b:])):
             args = (src, avg, pat, offs, prm, self.bd, self.sub_x, self.sub_y)
-            before = gk.LAUNCHES["grain_chroma"]
+            before = spans.counter("launch.grain_chroma")
             got = gk.apply_plane_chroma(*args)
-            assert gk.LAUNCHES["grain_chroma"] == before + 1
+            assert spans.counter("launch.grain_chroma") == before + 1
             assert torch.equal(got, gk.apply_plane_chroma_reference(*args)), f"{what}: {plane}"
 
 
@@ -285,9 +291,9 @@ def test_chroma_kernel_matches_plain_on_cuda(cuda, sub_x, sub_y, bd):
         for plane, pat in (("cb", cbp), ("cr", crp)):
             src = torch.from_numpy(rng.integers(0, maxv + 1, (b, hc, wc)).astype(np.int16)).to(cuda)
             args = (src, avg, pat, offs, gk.pack_plane_params(pb, plane, bd), bd, sub_x, sub_y)
-            before = gk.LAUNCHES["grain_chroma"]
+            before = spans.counter("launch.grain_chroma")
             got = gk.apply_plane_chroma(*args)
-            assert gk.LAUNCHES["grain_chroma"] == before + 1
+            assert spans.counter("launch.grain_chroma") == before + 1
             want = gk.apply_plane_chroma_reference(*args)
             assert torch.equal(got.cpu(), want.cpu()), f"{plane} {w}x{h}"
     torch.cuda.synchronize()
@@ -354,18 +360,18 @@ def test_diff_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
         (sy, dy), (sc, dc) = _diff_planes(rng, 3, h, w, bd, sub_x, sub_y)
         sy, dy, sc, dc = (torch.from_numpy(a).to(cuda) for a in (sy, dy, sc, dc))
         for d in (dy, dc):
-            before = dk.LAUNCHES["flat_block_activity"]
+            before = spans.counter("launch.flat_block_activity")
             act = dk.flat_block_activity(d)
-            ran = dk.LAUNCHES["flat_block_activity"] - before
+            ran = spans.counter("launch.flat_block_activity") - before
             assert ran == (1 if act.numel() else 0)
             assert torch.equal(act.cpu(), dk.flat_block_activity_reference(d).cpu())
         lavg4 = de.chroma_lavg4(sy, dy, sc.shape[1], sc.shape[2], sub_x, sub_y)
         for lag in (1, 2, 3):
             for s, d, aux in ((sy, dy, None), (sc, dc, lavg4)):
                 blocks = de.flat_blocks(d)
-                before = dk.LAUNCHES["plane_stats"]
+                before = spans.counter("launch.plane_stats")
                 got = dk.plane_stats(s, d, blocks, aux, lag, bd)
-                assert dk.LAUNCHES["plane_stats"] == before + 1
+                assert spans.counter("launch.plane_stats") == before + 1
                 want = dk.plane_stats_reference(s, d, blocks, aux, lag, bd)
                 _stats_equal(got, want, f"{bd}-bit {w}x{h} lag {lag} aux {aux is not None}")
     torch.cuda.synchronize()
@@ -375,9 +381,9 @@ def _activity_equal(d, what):
     """The flat-block activity kernel against its plain version, one launch."""
     from grav1synth_tpu_torch.ops import diff_kernels as dk
 
-    before = dk.LAUNCHES["flat_block_activity"]
+    before = spans.counter("launch.flat_block_activity")
     got = dk.flat_block_activity(d)
-    assert dk.LAUNCHES["flat_block_activity"] == before + 1
+    assert spans.counter("launch.flat_block_activity") == before + 1
     assert torch.equal(got, dk.flat_block_activity_reference(d)), what
 
 
@@ -554,9 +560,7 @@ def test_diff_wrappers_check_inputs_on_cuda(cuda):
 def test_estimate_on_cuda_matches_cpu(cuda):
     """The blur, the flat map (the flat-block kernel) and the statistics on
     the card against the CPU run; NoiseEstimator tables equal."""
-    from grav1synth_tpu_torch.ops import diff_kernels as dk
     from grav1synth_tpu_torch.ops import estimate as te
-    from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
     rng = np.random.default_rng(8)
     frames = []
@@ -568,9 +572,9 @@ def test_estimate_on_cuda_matches_cpu(cuda):
     den_cpu, q_cpu = te.self_blur(y, 10)
     den, q = te.self_blur(y.to(cuda), 10)
     assert torch.equal(den.cpu(), den_cpu) and torch.equal(q.cpu(), q_cpu)
-    before = dk.LAUNCHES["flat_block_activity"]
+    before = spans.counter("launch.flat_block_activity")
     assert torch.equal(te.flat_blocks(den).cpu(), te.flat_blocks(den_cpu))
-    assert dk.LAUNCHES["flat_block_activity"] == before + 1
+    assert spans.counter("launch.flat_block_activity") == before + 1
     for got, want in (
         (te.batch_self_stats(y.to(cuda), 2, 10), te.batch_self_stats(y, 2, 10)),
         (
@@ -584,12 +588,12 @@ def test_estimate_on_cuda_matches_cpu(cuda):
     tables = []
     for dev in ("cpu", cuda):
         est = te.NoiseEstimator((24, 1), 10, device=dev)
-        ek.reset_launch_counts()
-        before = dk.LAUNCHES["flat_block_activity"]
+        spans.reset()
         est.push_batch(frames)
         # the card's batch: K8, K5 and K9 once a plane (finish's
         # calibration pushes a batch of its own)
-        launches = dict(ek.LAUNCHES), dk.LAUNCHES["flat_block_activity"] - before
+        launches = ({k: spans.counter("launch." + k) for k in ("self_blur", "self_stats")},
+                    spans.counter("launch.flat_block_activity"))
         tables.append(est.finish())
     assert launches == ({"self_blur": 3, "self_stats": 3}, 3)
     assert len(tables[0]) == 1 and tables[0][0].params == tables[1][0].params
@@ -648,9 +652,9 @@ def _unaligned(t, by: int = 3):
 def _blur_equal(f, bd, what):
     from grav1synth_tpu_torch.ops import estimate_kernels as ek
 
-    before = ek.LAUNCHES["self_blur"]
+    before = spans.counter("launch.self_blur")
     den, q = ek.self_blur(f, bd)
-    assert ek.LAUNCHES["self_blur"] == before + 1
+    assert spans.counter("launch.self_blur") == before + 1
     want = ek.self_blur_reference(f, bd)
     assert torch.equal(den, want[0]) and torch.equal(q, want[1]), what
 
@@ -664,9 +668,9 @@ def _self_stats_all(q, den, lsum, n_pool, lags, bd, what):
     blocks = de.flat_blocks(den)
     for lag in lags:
         for aux in (None,) if lsum is None else (None, lsum):
-            before = ek.LAUNCHES["self_stats"]
+            before = spans.counter("launch.self_stats")
             got = ek.self_stats(q, den, blocks, aux, n_pool, lag, bd)
-            assert ek.LAUNCHES["self_stats"] == before + 1
+            assert spans.counter("launch.self_stats") == before + 1
             want = ek.self_stats_reference(q, den, blocks, aux, n_pool, lag, bd)
             _stats_equal(got, want, f"{what} lag {lag} lsum {aux is not None}")
 
@@ -1001,9 +1005,9 @@ def _random_planes(rng, b, h, w, bd, sub_x, sub_y, device):
 def test_pattern_kernel_matches_plain_on_cuda(cuda, sub_x, sub_y, mono, bd):
     params = pattern_zoo(100 * bd + 10 * sub_x + 2 * sub_y + mono)
     pb = tg.pack_params(params, cuda)
-    before = gk.LAUNCHES["grain_pattern"]
+    before = spans.counter("launch.grain_pattern")
     got = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
-    assert gk.LAUNCHES["grain_pattern"] == before + 1
+    assert spans.counter("launch.grain_pattern") == before + 1
     want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
     assert got.dtype == torch.int16 and got.shape == want.shape
     assert torch.equal(got.cpu(), want.cpu())
@@ -1049,14 +1053,13 @@ def test_device_pattern_apply_equals_host_pattern_apply_on_cuda(cuda, sub_x, sub
     want = tg.apply_grain(*planes, pb, 10, sub_x, sub_y, prepared=prep)
     tg.apply_grain(*planes, pb, 10, sub_x, sub_y)  # captures the batch's program
     torch.cuda.synchronize()
-    gk.reset_launch_counts()
-    pg.reset_counts()
+    spans.reset()
     got = tg.apply_grain(*planes, pb, 10, sub_x, sub_y)
     torch.cuda.synchronize()
-    assert {k: gk.LAUNCHES[k] for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")} == {
+    assert {k: spans.counter("launch." + k) for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")} == {
         "grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1,
     }
-    assert pg.COUNTS == {"captures": 0, "replays": 1}
+    assert _programs() == {"captures": 0, "replays": 1}
     for pi in range(3):
         assert torch.equal(got[pi], want[pi]), f"plane {pi}"
 
@@ -1128,13 +1131,12 @@ def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, patte
         assert torch.equal(got[k], want[k]), f"plane {k}: graph vs eager body"
         assert torch.equal(got[k].cpu(), on_cpu[k]), f"plane {k}: card vs CPU"
     torch.cuda.synchronize()
-    gk.reset_launch_counts()
-    pg.reset_counts()
+    spans.reset()
     again = graph()
     torch.cuda.synchronize()
-    assert pg.COUNTS == {"captures": 0, "replays": 1}
-    assert gk.LAUNCHES["grain_pattern"] == (patterns == "device")
-    assert gk.LAUNCHES["grain_luma"] == 1 and gk.LAUNCHES["grain_chroma_pair"] == (not mono)
+    assert _programs() == {"captures": 0, "replays": 1}
+    assert spans.counter("launch.grain_pattern") == (patterns == "device")
+    assert spans.counter("launch.grain_luma") == 1 and spans.counter("launch.grain_chroma_pair") == (not mono)
     assert all(torch.equal(a, b) for a, b in zip(again[:1 if mono else 3], got))
 
 

@@ -17,6 +17,7 @@ tests/test_torch_cuda.py (skipped without a GPU) and ``chip_smoke.py``.
 """
 
 import dataclasses
+import logging
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +32,7 @@ from grav1synth_tpu.ops import diff_pallas
 from grav1synth_tpu_torch import pipelines
 from grav1synth_tpu_torch.ops import diff_estimate as td
 from grav1synth_tpu_torch.ops import diff_kernels as dk
+from grav1synth_tpu_torch.utils import spans
 
 from test_diff_quality import film_like_clip, film_params, inject_grain
 from test_torch_cuda import EXTREME_CASES, extreme_stats_inputs, tall_stats_inputs
@@ -432,16 +434,24 @@ def _write_pair(tmp_path, w, h, bd, n, seed):
 
 
 @pytest.mark.parametrize("w,h,bd,n", [(128, 128, 8, 12), (97, 65, 10, 6)], ids=["8bit", "10bit-odd"])
-def test_pipeline_diff_matches_jax(tmp_path, w, h, bd, n):
+def test_pipeline_diff_matches_jax(tmp_path, w, h, bd, n, caplog):
     src, den = _write_pair(tmp_path, w, h, bd, n, seed=w)
     theirs = tmp_path / "jax.tbl"
     jax_pipelines.diff(src, den, str(theirs), progress=False)
     mine = tmp_path / "torch.tbl"
-    stats = {}
-    segs = pipelines.diff(src, den, str(mine), progress=False, stage_stats=stats, device="cpu")
+    spans.reset()
+    with caplog.at_level(logging.DEBUG, logger="spans"):
+        segs = pipelines.diff(src, den, str(mine), progress=False, device="cpu")
     assert segs and segs[0].params.scaling_points_y
     assert mine.read_bytes() == theirs.read_bytes()
-    assert set(stats) == {"decode", "device"} and stats["device"] > 0
+    got = spans.snapshot()["spans"]
+    # one batch of n pairs (and the streams' end), three planes a side
+    assert {k: got[k]["count"] for k in ("diff.decode", "stage.planes", "diff.launch",
+                                         "diff.download", "diff.chunk")} == {
+        "diff.decode": n + 1, "stage.planes": 6, "diff.launch": 1, "diff.download": 1,
+        "diff.chunk": 1}
+    assert got["diff.fit"]["count"] >= 1 and got["diff.launch"]["total_ms"] > 0
+    assert "diff.launch" in caplog.text
     mine3 = tmp_path / "torch_b3.tbl"
     pipelines.diff(src, den, str(mine3), progress=False, batch=3, device="cpu")
     assert mine3.read_bytes() == theirs.read_bytes()

@@ -4,6 +4,7 @@ dav1d's own grain-on decode, on the CPU (the plain PyTorch path,
 and every sample equal to dav1d's. Also: the port's CLI, and that the
 port never imports JAX."""
 
+import logging
 import os
 import subprocess
 import sys
@@ -17,6 +18,7 @@ from grav1synth_tpu import pipelines as jax_pipelines
 from grav1synth_tpu.container.y4m import read_y4m
 from grav1synth_tpu_torch import cli as torch_cli
 from grav1synth_tpu_torch import pipelines
+from grav1synth_tpu_torch.utils import spans
 
 from test_render import _dav1d_frames, _grainy_ivf
 
@@ -60,16 +62,25 @@ def test_render_no_grain_matches_clean_decode(tmp_path):
             assert (got[pi] == want.planes[pi]).all()
 
 
-def test_render_stage_stats(tmp_path):
+def test_render_stage_stats(tmp_path, caplog):
+    """render's stages are spans: with the spans logger at DEBUG each is
+    summed, and render logs the summary at its end."""
     path, _ = _grainy_ivf(tmp_path, 96, 66, 8, False, 6, "")
-    stats = {}
-    n = pipelines.render(
-        path, str(tmp_path / "s.y4m"), batch=3, progress=False,
-        stage_stats=stats, device="cpu",
-    )
+    spans.reset()
+    with caplog.at_level(logging.DEBUG, logger="spans"):
+        n = pipelines.render(path, str(tmp_path / "s.y4m"), batch=3, progress=False, device="cpu")
     assert n == 6
-    assert set(stats) == {"decode", "dispatch", "download", "mux"}
-    assert stats["dispatch"] > 0 and stats["mux"] > 0
+    got = spans.snapshot()["spans"]
+    stages = {k: got[k]["count"] for k in got if k.startswith("render.")}
+    # six frames and the decoder's end; two batches of three
+    assert stages == {"render.decode": 7, "render.dispatch": 2, "render.download": 2,
+                      "render.mux": 2}
+    assert got["render.dispatch"]["total_ms"] > 0 and got["render.mux"]["total_ms"] > 0
+    # the dispatch holds the upload, the parameters and the launches
+    assert got["upload.stack"]["count"] == got["upload.pin"]["count"] == 6
+    assert got["grain.pack"]["count"] == got["program.replay"]["count"] == 2
+    assert got["render.dispatch"]["self_ms"] < got["render.dispatch"]["total_ms"]
+    assert "render.dispatch" in caplog.text and "upload.stack" in caplog.text
 
 
 def test_render_refuses_what_is_not_ported(tmp_path):
