@@ -135,7 +135,13 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    time a replay; the host ms of ``pack_params`` and of the host
    patterns' ``prepare_patterns``; per batch the host issue ms, device busy
    ms and idle share (torch.profiler) of both paths, and both paths'
-   frames/s in turns (eager, graph, graph, eager).
+   frames/s in turns (eager, graph, graph, eager);
+13. render's host staging (``pipelines._upload``) at 3840x2160 10-bit
+   and 1920x1080 8-bit 4:2:0, B = 16 uint16 or uint8 planes, the 4K
+   luma also as strided views: every batch equal on the card to the
+   planes' int16 stack, ``upload.frames`` counting each frame, twelve
+   batches in render's FIFO (one in flight) pinning no new block after
+   the first two, and the host ms a batch of the three planes.
 
 Phases 1-8 take grain patterns from ``grain_ref`` on the host (the native
 libav*/dav1d shim, and with it ``generate_patterns_native`` and the
@@ -2419,6 +2425,51 @@ def program_paths(cell, frames, pats, dev):
     return graph, eager, key
 
 
+def staging_phase(card, dev):
+    """13. render's host staging (see the module's note)."""
+    from grav1synth_tpu_torch import pipelines
+
+    rng = np.random.default_rng(13)
+    host_stats = getattr(torch.cuda, "host_memory_stats", dict)
+    for h, w, bd in ((2160, 3840, 10), (1080, 1920, 8)):
+        dtype = np.uint8 if bd == 8 else np.uint16
+        shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+        pool = [rng.integers(0, 1 << bd, (16,) + s, dtype=dtype) for s in shapes]
+        if bd == 10:  # the luma's rows inside a wider buffer, as a decoder may hand them
+            wide = np.zeros((16, h, w + 64), dtype)
+            wide[:, :, :w] = pool[0]
+            pool[0] = wide[:, :, :w]
+        want = [torch.from_numpy(p.astype(np.int16)).to(dev) for p in pool]
+
+        def hold(got, done):
+            done.synchronize()
+            if not all(g.dtype == torch.int16 and torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"{w}x{h} {bd}-bit: a staged batch differs")
+
+        frames0 = spans.counter("upload.frames")
+        pending, ms, allocs = [], [], None
+        for i in range(12):
+            if i == 2:
+                allocs = host_stats().get("num_host_alloc")
+            t0 = time.perf_counter()
+            got = [pipelines._upload(list(p), dev) for p in pool]
+            ms.append((time.perf_counter() - t0) * 1e3)
+            done = torch.cuda.Event()
+            done.record()
+            pending.append((got, done))
+            if len(pending) > 1:
+                hold(*pending.pop(0))
+        hold(*pending.pop())
+        frames = spans.counter("upload.frames") - frames0
+        new_blocks = None if allocs is None else host_stats().get("num_host_alloc") - allocs
+        if frames != 12 * 3 * 16 or new_blocks not in (0, None):
+            raise AssertionError(f"staging: upload.frames {frames}, new pinned blocks {new_blocks}")
+        log(f"[staging] {w}x{h} {bd}-bit 4:2:0 B=16, 3 planes: equal to the int16 stack; "
+            f"upload.frames {frames}; new pinned blocks after 2 batches {new_blocks}; "
+            f"host ms a batch median {np.median(ms[2:]):.2f} (min {min(ms[2:]):.2f}, "
+            f"max {max(ms[2:]):.2f}; first {ms[0]:.2f}) on {card}")
+
+
 def program_phase(card, dev, apply4):
     """Phase 12: the apply path's parameter program (``ops.program``) at
     4K10 4:2:0, B = 16 and 112, 3-plane and luma-only, host and card
@@ -2748,6 +2799,7 @@ def main() -> int:
     rank_launches = distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy,
                                       two_shard_fps)
     program_phase(card, dev, apply4)
+    staging_phase(card, dev)
 
     summary = {
         "kernels": [

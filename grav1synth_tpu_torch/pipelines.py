@@ -540,12 +540,32 @@ def _pinned(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
-    with spans.span("upload.stack"):
-        host = torch.from_numpy(np.stack(planes).astype(np.int16))
+    """Stack one plane of each frame on ``device`` as int16, in one host
+    pass.
+
+    On a CUDA device the buffer is pinned, from PyTorch's caching host
+    allocator, which hands a block out again only once the non-blocking
+    copy that read it has passed on its stream: a batch still uploading is
+    never overwritten. Each frame is one torch ``copy_`` (spread over the
+    host's cores; a strided plane goes in as it is), uint16 viewed as
+    int16, which is value-preserving up to 12 bits. uint8 planes bound for
+    a CUDA device travel as uint8 and are widened on the card (half the
+    bytes); on the CPU every plane is staged as int16. Spans:
+    ``upload.pin`` (the buffer), ``upload.stack`` (the copies),
+    ``upload.copy`` (the upload); the counter ``upload.frames`` adds the
+    frames staged."""
+    cuda = device.type == "cuda"
+    narrow = cuda and planes[0].dtype == np.uint8
     with spans.span("upload.pin"):
-        host = _pinned(host, device)
+        buf = torch.empty((len(planes),) + planes[0].shape,
+                          dtype=torch.uint8 if narrow else torch.int16, pin_memory=cuda)
+    with spans.span("upload.stack"):
+        for dst, a in zip(buf, planes):
+            dst.copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
+    spans.count("upload.frames", len(planes))
     with spans.span("upload.copy"):
-        return host.to(device, non_blocking=True)
+        out = buf.to(device, non_blocking=True)
+        return out.to(torch.int16) if narrow else out
 
 
 def _start_download(t: torch.Tensor, bit_depth: int) -> torch.Tensor:

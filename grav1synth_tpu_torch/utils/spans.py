@@ -26,7 +26,9 @@ bitstream syntax elements, a user feature, not time).
 - ``recorded.<kernel>``: launches recorded into a CUDA graph under
   capture, which launch nothing then;
 - ``program.captures``, ``program.replays``: the apply's parameter
-  programs (``ops.program``).
+  programs (``ops.program``);
+- ``upload.frames``: frames staged by ``pipelines._upload``, once a
+  plane (a three-plane batch of 16 adds 48).
 
 ``snapshot`` returns both, ``reset`` clears both.
 """

@@ -1218,3 +1218,61 @@ def test_program_cache_drops_programs_without_waiting_on_cuda(cuda):
     assert not pg._RETIRED
     pg.clear_programs()
     assert not pg._PROGRAMS and not pg._RETIRED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bd", [(np.uint8, 8), (np.uint16, 10)], ids=["8bit", "10bit"])
+def test_upload_keeps_a_batch_in_flight_on_cuda(cuda, dtype, bd):
+    """``pipelines._upload`` stages into pinned blocks of the caching host
+    allocator: a batch whose upload waits behind the stream is not
+    overwritten by the next batch's staging; after the warm-up, the next
+    batches (two behind the stream, then render's FIFO of one in flight)
+    pin no new block;
+    ``upload.frames`` counts every frame staged."""
+    from grav1synth_tpu_torch import pipelines
+
+    rng = np.random.default_rng(bd)
+    batches = [list(rng.integers(0, 1 << bd, (6, 540, 960), dtype=dtype)) for _ in range(10)]
+    host_stats = getattr(torch.cuda, "host_memory_stats", dict)
+
+    def check(got, planes, done=None):
+        if done is not None:
+            done.synchronize()
+        assert got.dtype == torch.int16 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), torch.from_numpy(np.stack(planes).astype(np.int16)))
+
+    def behind_the_stream(a, b) -> bool:
+        """``a`` uploaded behind about half a second of the stream, then
+        ``b`` staged; whether ``a``'s copy had passed by then."""
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 30)
+        got_a = pipelines._upload(a, cuda)
+        a_passed = torch.cuda.Event()
+        a_passed.record()
+        got_b = pipelines._upload(b, cuda)
+        passed = a_passed.query()
+        torch.cuda.synchronize()
+        check(got_a, a)
+        check(got_b, b)
+        return passed
+
+    frames0 = spans.counter("upload.frames")
+    # warm-up: the widening kernel loaded (a lazily loaded kernel waits
+    # for the stream at its first launch) and device memory cached; then
+    # two blocks pinned, so that no allocation below waits for the stream
+    check(pipelines._upload(batches[0], cuda), batches[0])
+    behind_the_stream(batches[1], batches[2])
+    allocs = host_stats().get("num_host_alloc")
+    assert not behind_the_stream(batches[3], batches[4]), \
+        "the first upload passed before the second was staged"
+    pending = []
+    for planes in batches[5:]:
+        got = pipelines._upload(planes, cuda)
+        done = torch.cuda.Event()
+        done.record()
+        pending.append((got, planes, done))
+        if len(pending) > 1:
+            check(*pending.pop(0))
+    check(*pending.pop())
+    assert host_stats().get("num_host_alloc") == allocs
+    assert spans.counter("upload.frames") - frames0 == 10 * 6

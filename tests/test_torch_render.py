@@ -62,6 +62,24 @@ def test_render_no_grain_matches_clean_decode(tmp_path):
             assert (got[pi] == want.planes[pi]).all()
 
 
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+@pytest.mark.parametrize("dtype,bd", [(np.uint8, 8), (np.uint16, 10), (np.uint16, 12)],
+                         ids=["8bit", "10bit", "12bit"])
+def test_upload_equals_the_stacked_cast(dtype, bd, strided):
+    """``_upload``'s one pass gives, sample for sample, the int16 stack of
+    the planes, the depth's ends included; a strided plane (a decoder's
+    rows inside a wider buffer) goes in as it is."""
+    rng = np.random.default_rng(bd)
+    h, w = 33, 47
+    wide = rng.integers(0, 1 << bd, (4, h, w + 13 if strided else w), dtype=dtype)
+    planes = [f[:, 5 : 5 + w] if strided else f for f in wide]
+    planes[0][0, :2] = (0, (1 << bd) - 1)
+    assert all(p.flags.c_contiguous != strided for p in planes)
+    got = pipelines._upload(planes, torch.device("cpu"))
+    assert got.dtype == torch.int16
+    assert torch.equal(got, torch.from_numpy(np.stack(planes).astype(np.int16)))
+
+
 def test_render_stage_stats(tmp_path, caplog):
     """render's stages are spans: with the spans logger at DEBUG each is
     summed, and render logs the summary at its end."""

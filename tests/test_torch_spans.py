@@ -65,12 +65,14 @@ def _estimate(frames):
     NoiseEstimator((24, 1), 10, device=CPU).push_batch(frames)
 
 
+# path -> (run, spans a run, the ``upload.`` counters it adds)
 PATHS = {
-    "upload": (_upload, {"upload.stack": 3, "upload.pin": 3, "upload.copy": 3}),
+    "upload": (_upload, {"upload.stack": 3, "upload.pin": 3, "upload.copy": 3},
+               {"frames": 6}),
     "apply": (_apply, {"upload.stack": 3, "grain.pack": 1, "program.replay": 1,
-                       "grain.launch": 1}),
+                       "grain.launch": 1}, {"frames": 6}),
     "estimate": (_estimate, {"stage.planes": 3, "estimate.launch": 4, "estimate.download": 1,
-                             "estimate.ingest": 1}),
+                             "estimate.ingest": 1}, {}),
 }
 
 
@@ -110,7 +112,7 @@ def _user_ranges(prof, tmp_path):
 
 @pytest.mark.parametrize("path", sorted(PATHS))
 def test_profiled_ranges_nest_in_the_callers(path, tmp_path):
-    run, want = PATHS[path]
+    run, want, _ = PATHS[path]
     frames = _frames(2)
     spans.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
@@ -130,10 +132,11 @@ def test_profiled_ranges_nest_in_the_callers(path, tmp_path):
 
 @pytest.mark.parametrize("path", sorted(PATHS))
 def test_summed_counts(path, summing):
-    run, want = PATHS[path]
+    run, want, counted = PATHS[path]
     run(_frames(2))
     got = spans.snapshot()["spans"]
     assert {k: got[k]["count"] for k in want} == want
+    assert spans.counters("upload.") == counted
     for s in got.values():
         assert 0 <= s["self_ms"] <= s["total_ms"] and s["max_ms"] <= s["total_ms"]
 
