@@ -1065,6 +1065,44 @@ def test_device_pattern_apply_equals_host_pattern_apply_on_cuda(cuda, sub_x, sub
 
 
 @pytest.mark.cuda
+def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
+    """3840x2160 12-bit 4:4:4, B = 2 (overlap on and off, clipping off and
+    on), through ``pack_params`` and ``apply_grain`` with a captured
+    program: the luma kernel at 12 bits and the chroma-pair kernel's
+    unsubsampled 12-bit path, whose 56,736 B of dynamic shared memory pass
+    the 48 KB default, equal to their plain versions on the program's own
+    tables and patterns, frame 0 equal to grain_ref; one launch each."""
+    from grav1synth_tpu_torch.ops import grain_ref
+
+    h, w, bd = 2160, 3840, 12
+    params = [sample_grain_params(seed=1201), sample_grain_params(seed=1202)]
+    params[1].overlap_flag, params[1].clip_to_restricted_range = False, True
+    y, cb, cr = _random_planes(np.random.default_rng(12), 2, h, w, bd, 0, 0, cuda)
+    tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, 0, 0)  # captures the program
+    torch.cuda.synchronize()
+    spans.reset()
+    got = tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, 0, 0)
+    torch.cuda.synchronize()
+    assert _programs() == {"captures": 0, "replays": 1}
+    assert spans.counters("launch.") == {"grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1}
+    key = pg.ProgramKey.of(y, bd, 0, 0, False, True, "device")
+    tables = pg.program_body(tg.pack_params(params, cuda).buffer, key)
+    luma_pat, cb_pat, cr_pat = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(0, 0))
+    assert tuple(cb_pat.shape) == (2, 73, 82)
+    want_y = gk.apply_plane_luma_reference(y, luma_pat, tables.offsets, tables.params_y, bd)
+    assert torch.equal(got[0], want_y), "luma"
+    del want_y
+    want_cb, want_cr = gk.apply_planes_pair_reference(
+        y, cb, cr, cb_pat, cr_pat, tables.offsets, tables.params2, bd, 0, 0)
+    assert torch.equal(got[1], want_cb) and torch.equal(got[2], want_cr), "chroma"
+    del want_cb, want_cr
+    ref = grain_ref.apply_grain_frame([t[0].cpu().numpy().astype(np.int32) for t in (y, cb, cr)],
+                                      params[0], bd, 0, 0)
+    for k in range(3):
+        assert np.array_equal(got[k][0].cpu().numpy().astype(np.int32), ref[k]), f"plane {k}"
+
+
+@pytest.mark.cuda
 def test_sharded_apply_over_a_two_shard_mesh_on_one_card(cuda):
     from grav1synth_tpu_torch.parallel import DeviceMesh, sharded_apply_with_stats
 

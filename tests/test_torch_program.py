@@ -15,7 +15,11 @@ and tests/test_torch_cuda.py). Here:
   ``lfsr_outputs``), and the broadcast forms equal the loops;
 - ``apply_grain`` and ``apply_grain_device_patterns`` through the program
   equal ``grain_jax.apply_grain`` (Pallas in interpret mode) and
-  ``grain_ref`` at tolerance 0;
+  ``grain_ref`` at tolerance 0; on tables drawn by the benchmark's own
+  ``draw_tables`` (the uhd12_444 cell's 4:4:4 12-bit layout and table
+  shape, and generate's luma-only, AR lag 0 shape) the benchmark's path,
+  ``pack_params`` then ``apply_grain``, also equals the benchmark's frozen
+  ``grain_ref``;
 - the program's body, run on the meta device, makes no tensor from host
   data and reads nothing back: what a CUDA graph capture forbids.
 
@@ -23,6 +27,9 @@ Inputs come from numpy seeds. Integer arithmetic: every comparison is exact.
 """
 
 import dataclasses
+import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -31,6 +38,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from av1_builder import sample_grain_params
+from grav1synth_tpu.obu.types import FilmGrainParams as JaxParams
 from grav1synth_tpu.ops import grain_jax, grain_ref
 from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
@@ -77,6 +85,49 @@ def luma_batch(seed: int):
         p.overlap_flag = bool(i % 2)
         out.append(p)
     return out
+
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
+
+
+def _bench_module(name):
+    """A module of the benchmark's folder by its dotted name under it
+    (``inputs``, ``reference.grain_ref``), with the folder on the path
+    while it imports."""
+    if name not in sys.modules:
+        sys.path.insert(0, BENCH)
+        try:
+            __import__(name)
+        finally:
+            sys.path.remove(BENCH)
+    return sys.modules[name]
+
+
+# generate's table shape (``ops/photon_noise.py``): 14 luma points, no
+# chroma points, AR lag 0, overlap on
+PHOTON_GRAIN = {"y_points": 14, "cb_points": 0, "cr_points": 0, "ar_lag": 0, "overlap": True,
+                "chroma_scaling_from_luma": False, "clip_to_restricted_range": False}
+
+
+def drawn_batch(flags, seed: int = 2**31 + 17):
+    """Three tables drawn by the benchmark's own ``draw_tables``, as the JAX
+    package's parameters. With ``photon`` in ``flags``, of generate's
+    shape; else of the uhd12_444 cell's shape (4 Y, 2 Cb, 2 Cr points, AR
+    lag 2) with overlap and clipping on where ``flags`` name them, chroma
+    scaled from luma (and no chroma points) with ``cfl``, AR lag 3 with
+    ``lag3``."""
+    if "photon" in flags:
+        grain = PHOTON_GRAIN
+    else:
+        with open(os.path.join(BENCH, "configs", "uhd12_444.json")) as fh:
+            grain = json.load(fh)["grain"]
+        grain = dict(grain, overlap="overlap" in flags, clip_to_restricted_range="clip" in flags)
+        if "cfl" in flags:
+            grain.update(cb_points=0, cr_points=0, chroma_scaling_from_luma=True)
+        if "lag3" in flags:
+            grain["ar_lag"] = 3
+    tables = _bench_module("inputs").draw_tables(seed, grain, 3)
+    return [JaxParams(**t) for t in tables]
 
 
 def frames(b, h, w, bd, sub_x, sub_y, mono, seed):
@@ -543,18 +594,40 @@ APPLY_CASES = [
     ("mono-8-64x64-mixed", 1, 1, True, 8, 64, 64, "mixed"),
     ("420-12-70x130-mixed", 1, 1, False, 12, 70, 130, "mixed"),
     ("420-10-64x64-luma", 1, 1, False, 10, 64, 64, "luma"),
+    # the uhd12_444 cell's layout, depth and table shape, B = 3
+    ("444-12-71x134-cell-overlap-clip", 0, 0, False, 12, 71, 134, "cell overlap clip"),
+    ("444-12-71x134-cell-overlap", 0, 0, False, 12, 71, 134, "cell overlap"),
+    ("444-12-71x134-cell-clip", 0, 0, False, 12, 71, 134, "cell clip"),
+    ("444-12-71x134-cell", 0, 0, False, 12, 71, 134, "cell"),
+    ("444-12-71x134-cell-cfl", 0, 0, False, 12, 71, 134, "cell overlap cfl"),
+    ("444-12-71x134-cell-lag3", 0, 0, False, 12, 71, 134, "cell overlap lag3"),
+    # generate's table shape: at 4:4:4 12-bit, and at 1080p8's layout and depth
+    ("444-12-71x134-photon", 0, 0, False, 12, 71, 134, "photon"),
+    ("420-8-67x120-photon", 1, 1, False, 8, 67, 120, "photon"),
 ]
+
+# batches whose tables touch no chroma: the chroma kernel is skipped where
+# the host's fact is known
+LUMA_ONLY = ("luma", "photon")
+
+
+def _batch(kind, seed):
+    if kind == "mixed":
+        return mixed_batch(seed)
+    if kind == "luma":
+        return luma_batch(seed)
+    return drawn_batch(kind.split())
 
 
 @pytest.mark.parametrize(
     "sub_x,sub_y,mono,bd,h,w,batch", [c[1:] for c in APPLY_CASES], ids=[c[0] for c in APPLY_CASES]
 )
 def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w, batch):
-    params = mixed_batch(bd + h) if batch == "mixed" else luma_batch(bd + h)
+    params = _batch(batch, bd + h)
     y, cb, cr = frames(len(params), h, w, bd, sub_x, sub_y, mono, seed=bd * 7 + h)
     jb = grain_jax.pack_params(params)
     chroma_static = tg._touches_chroma(params)
-    assert chroma_static == (batch == "mixed")
+    assert chroma_static == (batch not in LUMA_ONLY)
     cb_t, cr_t = _t(cb), _t(cr)
     outs = {
         "host patterns": tg.apply_grain(_t(y), cb_t, cr_t, tg.pack_params(params, "cpu"), bd,
@@ -564,11 +637,14 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
         "card patterns, host facts": tg.apply_grain_device_patterns(
             _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), bd, sub_x, sub_y, mono,
             chroma_static=chroma_static),
+        # the benchmark's path: pack_params, then apply_grain, card patterns
+        "card patterns, packed": tg.apply_grain(_t(y), cb_t, cr_t, tg.pack_params(params, "cpu"),
+                                                bd, sub_x, sub_y, mono),
     }
     want = grain_jax.apply_grain(y, cb, cr, jb, bd, sub_x, sub_y, mono, backend="pallas",
                                  host_params=params)
     nplanes = 1 if mono else 3
-    if batch == "luma":  # the chroma kernel skipped: cb/cr returned as they came
+    if batch in LUMA_ONLY:  # the chroma kernel skipped: cb/cr returned as they came
         assert outs["host patterns"][1] is cb_t and outs["card patterns, host facts"][2] is cr_t
     for what, out in outs.items():
         assert all(o is None for o in out[nplanes:]), what
@@ -580,6 +656,16 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
                                           sub_x, sub_y)
         for k in range(nplanes):
             _equal(outs["host patterns"][k][i], ref[k], f"grain_ref frame {i} plane {k}")
+    if batch not in ("mixed", "luma"):
+        # the frozen reference that decides the cell's ``correct``
+        bench_ref = _bench_module("reference.grain_ref")
+        ref_params = _bench_module("reference.types").FilmGrainParams
+        for i, p in enumerate(params):
+            ref = bench_ref.apply_grain_frame([pl[i].astype(np.int32) for pl in planes],
+                                              ref_params(**dataclasses.asdict(p)), bd, sub_x, sub_y)
+            for k in range(nplanes):
+                _equal(outs["card patterns, packed"][k][i], ref[k],
+                       f"benchmark grain_ref frame {i} plane {k}")
 
 
 # ---------------------------------------------------------------------------
