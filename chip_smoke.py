@@ -132,7 +132,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    frame 0 to grain_ref; captures, replays and the
    pattern, luma and chroma-pair kernels' launches counted exactly; each
    program's graph nodes (read through libcuda), capture ms and device
-   time a replay; the host ms of ``pack_params`` and of the host
+   time a replay; the host ms of ``pack_params`` (on one table with new
+   seeds and on a table a frame, with the rows it built) and of the host
    patterns' ``prepare_patterns``; per batch the host issue ms, device busy
    ms and idle share (torch.profiler) of both paths, and both paths'
    frames/s in turns (eager, graph, graph, eager);
@@ -2559,25 +2560,36 @@ def program_phase(card, dev, apply4):
                 f"kernels recorded {prog.kernels}; "
                 f"replay {replay_ms:.4f} ms back to back (CUDA events), "
                 f"device busy {alone['busy_ms']:.4f} ms a replay (torch.profiler) on {card}")
-        # the host's two pieces of a batch left outside the program
+        # the host's two pieces of a batch left outside the program;
+        # pack_params on one table with new seeds (one row built) and on
+        # a table a frame (a row each)
         params = apply4["batches"][b]
-        host_ms = {}
+        one_table = reseeded(params[:1], b)
+        own_tables = [dataclasses.replace(p, cb_offset=(p.cb_offset + i) % 512)
+                      for i, p in enumerate(one_table)]
+        host_ms, packed = {}, {}
         for what, fn in (
-            ("pack_params", lambda: tg.pack_params(params, dev)),
+            ("one table", lambda: tg.pack_params(one_table, dev)),
+            ("a table a frame", lambda: tg.pack_params(own_tables, dev)),
             ("prepare_patterns", lambda: tg.prepare_patterns(
                 params, BD, SX, SY, device=dev, generate=lambda *a: apply4["pats"][b])),
         ):
             fn()
             torch.cuda.synchronize()
+            counts = spans.counter("pack.rows"), spans.counter("pack.frames")
             t0 = time.perf_counter()
             for _ in range(20):
                 fn()
             host_ms[what] = (time.perf_counter() - t0) / 20 * 1e3
+            packed[what] = (f"{spans.counter('pack.rows') - counts[0]} rows / "
+                            f"{spans.counter('pack.frames') - counts[1]} frames")
             torch.cuda.synchronize()
         log(f"[program] 4K10 4:2:0 3-plane B={b}, host clock a batch (no synchronise): "
-            f"pack_params {host_ms['pack_params']:.3f} ms, prepare_patterns (the host "
-            f"patterns' pack, pinned copy and upload) {host_ms['prepare_patterns']:.3f} ms "
-            f"on {card}")
+            f"pack_params on one table with new seeds {host_ms['one table']:.3f} ms "
+            f"({packed['one table']} in 20 calls), on a table a frame "
+            f"{host_ms['a table a frame']:.3f} ms ({packed['a table a frame']}); "
+            f"prepare_patterns (the host patterns' pack, pinned copy and upload) "
+            f"{host_ms['prepare_patterns']:.3f} ms on {card}")
         # both paths per batch, in turns
         reps = 10 if b == 16 else 3
         for (_, kind, source, _, facts), (graph, eager, key) in zip(cells, paths):

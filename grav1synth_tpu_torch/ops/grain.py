@@ -2,7 +2,8 @@
 grav1synth_tpu/ops/grain_jax.py).
 
 A batch's parameters travel as one (B, ``PARAMS_WIDTH``) int32 buffer
-(``GrainParamsBatch``: every field is a view of it), built in numpy and
+(``GrainParamsBatch``: every field is a view of it), built on the host
+one row per run of frames whose tables are equal but for the seed, and
 uploaded in one pinned, non-blocking copy. Grain patterns come either from
 the host (the native C++ recurrence, or ``grain_ref`` where the native
 shim is missing), uploaded as one packed int16 buffer per batch, or from
@@ -69,17 +70,9 @@ def _lag_offsets(lag: int) -> List[Tuple[int, int]]:
 
 
 @functools.lru_cache(maxsize=None)
-def _lag3_slots(lag: int) -> np.ndarray:
+def _lag3_slots(lag: int) -> Tuple[int, ...]:
     """The lag-3 slot of each lag-N coefficient, in scan order."""
-    return np.asarray([_LAG3_SLOT[off] for off in _lag_offsets(lag)], dtype=np.int64)
-
-
-def scatter_coeffs_to_lag3(coeffs: List[int], lag: int) -> np.ndarray:
-    """Place a lag-N coefficient list into the 24 lag-3 slots."""
-    out = np.zeros(24, dtype=np.int32)
-    slots = _lag3_slots(lag)[: len(coeffs)]
-    out[slots] = coeffs[: len(slots)]
-    return out
+    return tuple(_LAG3_SLOT[off] for off in _lag_offsets(lag))
 
 
 # ---------------------------------------------------------------------------
@@ -155,12 +148,9 @@ for _name, (_start, _shape) in PARAM_COLUMNS.items():
     setattr(GrainParamsBatch, _name, _column_view(_start, _shape))
 
 
-def _upload_params(values: Dict[str, np.ndarray], b: int, device) -> GrainParamsBatch:
-    """Field values (each (B, *shape)) written into one host buffer, then
-    one copy to ``device``: pinned and non-blocking on a CUDA device."""
-    host = np.zeros((b, PARAMS_WIDTH), dtype=np.int32)
-    for name, (start, shape) in PARAM_COLUMNS.items():
-        host[:, start : start + _numel(shape)] = np.asarray(values[name], dtype=np.int32).reshape(b, -1)
+def _upload(host: np.ndarray, device) -> GrainParamsBatch:
+    """A (B, ``PARAMS_WIDTH``) int32 host buffer as a batch on ``device``:
+    one copy, pinned and non-blocking on a CUDA device."""
     buf = torch.from_numpy(host)
     device = torch.device(device)
     if device.type == "cuda":
@@ -175,72 +165,86 @@ def from_jax_params(batch, device) -> GrainParamsBatch:
     array-likes: numpy arrays or jax arrays) as the port's, on
     ``device``, in one buffer. The tests feed one packed batch to both
     packages through this."""
-    values = {name: np.array(getattr(batch, name), dtype=np.int32) for name in PARAM_COLUMNS}
-    return _upload_params(values, len(values["seed"]), device)
+    b = len(batch.seed)
+    host = np.empty((b, PARAMS_WIDTH), dtype=np.int32)
+    for name, (start, shape) in PARAM_COLUMNS.items():
+        host[:, start : start + _numel(shape)] = np.asarray(getattr(batch, name), dtype=np.int32).reshape(b, -1)
+    return _upload(host, device)
 
 
 def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
-    """Stack host FilmGrainParams into one parameter buffer on ``device``."""
+    """Stack host FilmGrainParams into one parameter buffer on ``device``.
+
+    A frame's row depends on its table alone, and only its seed column on
+    ``grain_seed``; consecutive frames mostly share a table (inter frames
+    that copy a reference's grain, a table's segments). So one row is built
+    per run of frames whose tables are ``equal_ignoring_seed`` to the run's
+    first, each run fills its rows from it, and the seeds are written last.
+    Nothing outlives the call: a table edited in place packs to its new
+    values. Counters ``pack.frames`` and ``pack.rows``."""
     with spans.span("grain.pack"):
-        return _upload_params(_param_columns(params), len(params), device)
+        rows: List[List[int]] = []
+        runs: List[int] = []
+        head = None
+        for p in params:
+            if head is not None and (p is head or p.equal_ignoring_seed(head)):
+                runs[-1] += 1
+            else:
+                head = p
+                rows.append(_param_row(p))
+                runs.append(1)
+        table = np.array(rows, dtype=np.int32).reshape(len(rows), PARAMS_WIDTH)
+        host = np.repeat(table, runs, axis=0)
+        host[:, PARAM_COLUMNS["seed"][0]] = [p.grain_seed for p in params]
+        spans.count("pack.frames", len(params))
+        spans.count("pack.rows", len(rows))
+        return _upload(host, device)
 
 
-def _param_columns(params: List[FilmGrainParams]) -> Dict[str, np.ndarray]:
-    """Each field of ``params``' buffer as a (B, *shape) int32 array."""
-    b = len(params)
+def _points(pts, n: int) -> List[int]:
+    """A curve's n (x, y) pairs, flat: padded with the last point; an
+    empty curve is all zeros."""
+    if len(pts) == 0:
+        return [0] * (2 * n)
+    return [v for pt in pts for v in pt] + [*pts[-1]] * (n - len(pts))
 
-    def pad_points(pts, n):
-        # padded with the last point; an empty curve is all zeros
-        rows = [list(p) + [p[-1]] * (n - len(p)) if p else [(0, 0)] * n for p in pts]
-        return np.asarray(rows, dtype=np.int32).reshape(b, n, 2)
 
-    def arr(get):
-        return np.asarray([get(p) for p in params], dtype=np.int32)
+def _in_lag3(coeffs, slots: Tuple[int, ...]) -> List[int]:
+    """A lag-N coefficient list placed into the 24 lag-3 slots."""
+    out = [0] * 24
+    for s, c in zip(slots, coeffs):
+        out[s] = c
+    return out
 
-    def chroma_coeffs(get_coeffs, active):
-        out = np.zeros((b, 25), dtype=np.int32)
-        for i, p in enumerate(params):
-            cs = get_coeffs(p)
-            if not active(p) or not cs:
-                continue
-            n_spatial = 2 * p.ar_coeff_lag * (p.ar_coeff_lag + 1)
-            out[i, :24] = scatter_coeffs_to_lag3(cs[:n_spatial], p.ar_coeff_lag)
-            if len(p.scaling_points_y) > 0 and len(cs) > n_spatial:
-                out[i, 24] = cs[n_spatial]
-        return out
 
-    def cb_active(p):
-        return p.chroma_scaling_from_luma or len(p.scaling_points_cb) > 0
+def _param_row(p: FilmGrainParams) -> List[int]:
+    """One table's ``PARAMS_WIDTH`` values in ``PARAM_COLUMNS`` order, the
+    seed's left 0. A chroma plane's coefficients are zeros unless it is
+    active (its own points, or scaling from luma), and its luma coefficient
+    (slot 24) is set only where luma has points."""
+    lag = p.ar_coeff_lag
+    slots = _lag3_slots(lag)
+    n_spatial = 2 * lag * (lag + 1)
+    y, cb, cr = p.scaling_points_y, p.scaling_points_cb, p.scaling_points_cr
+    csfl = p.chroma_scaling_from_luma
 
-    def cr_active(p):
-        return p.chroma_scaling_from_luma or len(p.scaling_points_cr) > 0
+    def chroma(cs, active):
+        if not active or len(cs) == 0:
+            return [0] * 25
+        luma = cs[n_spatial] if len(y) > 0 and len(cs) > n_spatial else 0
+        return _in_lag3(cs[:n_spatial], slots) + [luma]
 
-    return dict(
-        seed=arr(lambda p: p.grain_seed),
-        num_y=arr(lambda p: len(p.scaling_points_y)),
-        num_cb=arr(lambda p: len(p.scaling_points_cb)),
-        num_cr=arr(lambda p: len(p.scaling_points_cr)),
-        pts_y=pad_points([p.scaling_points_y for p in params], MAX_Y_POINTS),
-        pts_cb=pad_points([p.scaling_points_cb for p in params], MAX_UV_POINTS),
-        pts_cr=pad_points([p.scaling_points_cr for p in params], MAX_UV_POINTS),
-        coeffs_y=np.stack(
-            [scatter_coeffs_to_lag3(p.ar_coeffs_y, p.ar_coeff_lag) for p in params]
-        ),
-        coeffs_cb=chroma_coeffs(lambda p: p.ar_coeffs_cb, cb_active),
-        coeffs_cr=chroma_coeffs(lambda p: p.ar_coeffs_cr, cr_active),
-        scaling_shift=arr(lambda p: p.scaling_shift),
-        ar_shift=arr(lambda p: p.ar_coeff_shift),
-        grain_scale_shift=arr(lambda p: p.grain_scale_shift),
-        cb_mult=arr(lambda p: p.cb_mult),
-        cb_luma_mult=arr(lambda p: p.cb_luma_mult),
-        cb_offset=arr(lambda p: p.cb_offset),
-        cr_mult=arr(lambda p: p.cr_mult),
-        cr_luma_mult=arr(lambda p: p.cr_luma_mult),
-        cr_offset=arr(lambda p: p.cr_offset),
-        csfl=arr(lambda p: int(p.chroma_scaling_from_luma)),
-        overlap=arr(lambda p: int(p.overlap_flag)),
-        clip=arr(lambda p: int(p.clip_to_restricted_range)),
-    )
+    return [
+        0, len(y), len(cb), len(cr),
+        *_points(y, MAX_Y_POINTS), *_points(cb, MAX_UV_POINTS), *_points(cr, MAX_UV_POINTS),
+        *_in_lag3(p.ar_coeffs_y, slots),
+        *chroma(p.ar_coeffs_cb, csfl or len(cb) > 0),
+        *chroma(p.ar_coeffs_cr, csfl or len(cr) > 0),
+        p.scaling_shift, p.ar_coeff_shift, p.grain_scale_shift,
+        p.cb_mult, p.cb_luma_mult, p.cb_offset,
+        p.cr_mult, p.cr_luma_mult, p.cr_offset,
+        int(csfl), int(p.overlap_flag), int(p.clip_to_restricted_range),
+    ]
 
 
 # ---------------------------------------------------------------------------

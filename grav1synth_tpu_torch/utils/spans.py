@@ -28,7 +28,10 @@ bitstream syntax elements, a user feature, not time).
 - ``program.captures``, ``program.replays``: the apply's parameter
   programs (``ops.program``);
 - ``upload.frames``: frames staged by ``pipelines._upload``, once a
-  plane (a three-plane batch of 16 adds 48).
+  plane (a three-plane batch of 16 adds 48);
+- ``pack.frames``, ``pack.rows``: frames packed by ``ops.grain.pack_params``
+  and the parameter rows it built for them, one a run of frames whose
+  tables are equal but for the seed.
 
 ``snapshot`` returns both, ``reset`` clears both.
 """

@@ -8,6 +8,7 @@ so every comparison is exact (tolerance 0).
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,8 +16,10 @@ import torch
 
 from av1_builder import sample_grain_params
 from grav1synth_tpu.ops import grain_jax, grain_pallas, grain_ref
+from grav1synth_tpu_torch.obu.types import FilmGrainParams as PortParams
 from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
+from grav1synth_tpu_torch.utils import spans
 
 DENSE_Y = [(x, (x * 7 + 13 * (i % 5)) % 256) for i, x in enumerate(range(0, 256, 19))][:14]
 EXTREME_Y = [(0, 0), (1, 255), (2, 0), (128, 200), (255, 10)]
@@ -181,6 +184,115 @@ def test_pack_params_matches_jax():
         _equal(getattr(mine, name), getattr(theirs, name), name)
         assert getattr(mine, name).dtype == torch.int32, name
     assert mine.batch == len(params)
+
+
+def _port(p, **changes):
+    """``p`` as the port's own FilmGrainParams (its lists copied), with
+    ``changes``."""
+    return PortParams(**{**dataclasses.asdict(p), **changes})
+
+
+def _reseeded(p, n, first=1000):
+    """``n`` copies of ``p``, each with a seed of its own."""
+    return [_port(p, grain_seed=first + 97 * i) for i in range(n)]
+
+
+def _changed(value):
+    """Another value of a table field's type: a flag flipped, a number
+    moved, a point's y or the first coefficient changed."""
+    if isinstance(value, bool):
+        return not value
+    if isinstance(value, int):
+        return value + 1
+    if value and isinstance(value[0], (tuple, list)):
+        (x, y), *rest = value
+        return [(x, y ^ 1), *rest]
+    return [value[0] ^ 1, *value[1:]]
+
+
+def _lag_table(lag):
+    n = 2 * lag * (lag + 1)
+    return _port(
+        sample_grain_params(seed=1), ar_coeff_lag=lag,
+        ar_coeffs_y=[(5 * i + 3) % 19 - 9 for i in range(n)],
+        ar_coeffs_cb=[(3 * i + 1) % 17 - 8 for i in range(n + 1)],
+        ar_coeffs_cr=[(7 * i + 2) % 23 - 11 for i in range(n + 1)],
+    )
+
+
+def _luma_only(**changes):
+    # chroma coefficients left in place: an inactive plane packs zeros
+    return _port(sample_grain_params(seed=2), scaling_points_cb=[], scaling_points_cr=[],
+                 **changes)
+
+
+def _from_luma(**changes):
+    return _port(sample_grain_params(seed=3), chroma_scaling_from_luma=True,
+                 scaling_points_cb=[], scaling_points_cr=[], **changes)
+
+
+_A = sample_grain_params(seed=11)
+_B = _port(_A, cb_offset=200, ar_coeff_lag=1, ar_coeffs_y=[1, 2, 3, 4])
+# the fields equal_ignoring_seed compares: every field of the table but the seed
+TABLE_FIELDS = [f.name for f in dataclasses.fields(PortParams) if f.name != "grain_seed"]
+
+# case -> (the batch, the rows it builds: one a run of frames whose tables
+# are equal ignoring the seed)
+PACK_CASES = {
+    "one_table_new_seeds": (lambda: _reseeded(_A, 8), 1),
+    "every_frame_another_table": (lambda: [_port(p) for p in _param_zoo()], len(_param_zoo())),
+    "A_A_B_B_A": (lambda: _reseeded(_A, 2) + _reseeded(_B, 2, 5) + _reseeded(_A, 1, 9), 3),
+    "lag_0": (lambda: _reseeded(_lag_table(0), 3) + _reseeded(_lag_table(2), 2), 2),
+    "lag_3": (lambda: _reseeded(_lag_table(3), 3) + _reseeded(_lag_table(1), 2), 2),
+    "luma_only": (lambda: _reseeded(_luma_only(), 3) + _reseeded(_luma_only(overlap_flag=False), 2), 2),
+    # luma's points gone: the chroma planes keep their coefficients, not slot 24
+    "chroma_scaling_from_luma": (
+        lambda: _reseeded(_from_luma(), 3) + _reseeded(_from_luma(scaling_points_y=[]), 2), 2),
+    "no_points": (lambda: _reseeded(_port(_A, scaling_points_y=[], scaling_points_cb=[],
+                                          scaling_points_cr=[]), 3) + _reseeded(_A, 1), 2),
+    # equal values, yet a list of lists is not equal to a list of tuples:
+    # two runs, the same rows
+    "points_lists_and_tuples": (lambda: _reseeded(_A, 2) + _reseeded(_port(
+        _A, **{k: [list(pt) for pt in getattr(_A, k)] for k in
+               ("scaling_points_y", "scaling_points_cb", "scaling_points_cr")}), 2), 2),
+    **{f"differs_in_{name}": (
+        lambda name=name: _reseeded(_A, 2) + _reseeded(
+            _port(_A, **{name: _changed(getattr(_A, name))}), 2, 7), 2)
+       for name in TABLE_FIELDS},
+}
+
+
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_pack_params_builds_one_row_a_run(case):
+    """Every column equal to the JAX package's ``pack_params``, with one
+    row built a run of frames that share a table."""
+    make, runs = PACK_CASES[case]
+    params = make()
+    frames, rows = spans.counter("pack.frames"), spans.counter("pack.rows")
+    mine = tg.pack_params(params, "cpu")
+    assert spans.counter("pack.frames") - frames == len(params)
+    assert spans.counter("pack.rows") - rows == runs
+    theirs = grain_jax.pack_params(params)
+    for name in tg.PARAM_COLUMNS:
+        _equal(getattr(mine, name), getattr(theirs, name), f"{case}: {name}")
+    assert mine.buffer.shape == (len(params), tg.PARAMS_WIDTH)
+
+
+def test_pack_params_reads_tables_edited_in_place():
+    """Nothing is kept between calls: a table edited in place between two
+    batches packs to its new values, beside copies of its old ones."""
+    t = _port(sample_grain_params(seed=5))
+    params = [t, t] + _reseeded(t, 2)
+    before = tg.pack_params(params, "cpu").buffer.clone()
+    t.cb_mult += 7
+    t.scaling_points_y[1] = (40, 77)
+    t.ar_coeffs_cr[0] = 9
+    after = tg.pack_params(params, "cpu")
+    theirs = grain_jax.pack_params(params)
+    for name in tg.PARAM_COLUMNS:
+        _equal(getattr(after, name), getattr(theirs, name), name)
+    assert not torch.equal(after.buffer[:2], before[:2])
+    assert torch.equal(after.buffer[2:], before[2:])
 
 
 @pytest.mark.parametrize("nbits", [8, 11])
