@@ -13,17 +13,21 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    (widths 520-535, every residue mod 8, at odd and even heights, with
    planes switched off in mixed batches; a batch slice whose frame bases
    are not 16-byte aligned; more work units than resident CTAs) and at
-   3840x2160 10-bit 4:2:0 with 16 frames; two small frames also against
+   3840x2160 10-bit 4:2:0 with 16 frames (the kernels reading grain_ref's
+   patterns); two small frames also through ``apply_grain`` against
    grain_ref on the host;
 4. the main path at full size: the frame parameters of
    .bench_cache/bench_4k10_grainy.ivf (3840x2160, 10-bit, 4:2:0), parsed
    on the host and reseeded to batches of 16 and 112, applied through
    ``ops.grain.apply_grain`` on the card (3-plane and luma-only tables;
-   each batch one parameter program, captured here and replayed, then the
-   grain kernels), first frames checked against grain_ref, the kernels'
-   launches and the programs' replays counted, one a batch; then kernel
-   times (CUDA events) beside the plain versions', and apply frames/s with
-   the pattern upload included;
+   each batch one parameter program with the pattern kernel in it,
+   captured here and replayed, then the grain kernels), first frames
+   checked against grain_ref and every frame against the grain kernels on
+   grain_ref's patterns, the pattern, luma and chroma-pair kernels'
+   launches and the programs' replays counted, one a batch once the
+   programs are captured (the chroma-pair kernel skipped for the luma-only
+   tables); then kernel times (CUDA events, on grain_ref's patterns)
+   beside the plain versions', and apply frames/s;
 5. the two diff kernels against their plain versions on the card, equal
    to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
    small odd and even sizes (a plane under 16 px included) and at
@@ -91,15 +95,9 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    mixed batches (AR lag 0-3, grain_scale_shift 0-3, chroma scaling from
    luma, inactive planes), batches of one lag each (0-3) and lag-2 frames
    with a stray lag-3 slot, and on the 16 and 112 reseeded frames of
-   phase 4 against grain_ref's patterns; then the main path with patterns
-   made on the card: ``apply_grain`` with no host patterns at 3840x2160
-   10-bit 4:2:0, B = 16 and 112, 3-plane and luma-only, equal on every
-   frame to phase 4's host-pattern output and on frame 0 to grain_ref,
-   with the pattern (inside the replayed program), luma and chroma-pair
-   kernels' launches counted, one a batch once the programs are captured; then
-   the pattern kernel's time (CUDA events) at lag 2 and lag 3 beside its
-   plain version's, its chain bound and grain_ref's host ms/frame, and
-   apply+generate frames/s;
+   phase 4 against grain_ref's patterns; then the pattern kernel's time
+   (CUDA events) at lag 2 and lag 3 beside its plain version's, its chain
+   bound and grain_ref's host ms/frame;
 10. the sharded paths: ``sharded_apply_with_stats`` over ``make_mesh()``
    (every card) and over a two-shard mesh that names the card twice, at
    4K10 B = 16, equal to the unsharded output, frames exact, energy
@@ -125,16 +123,16 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    killed) fails the script, its log's tail printed;
 12. the parameter program (``ops.program``): at 3840x2160 10-bit 4:2:0,
    B = 16 and 112 (the latter a ragged batch of a program made at 128),
-   3-plane and luma-only, with host patterns, patterns made on the card,
-   and patterns made on the card with the host's fact (chroma tables and
-   kernel off for luma-only tables): every frame of the graph path equal
-   to the program's eager body on the card followed by the same kernels,
-   frame 0 to grain_ref; captures, replays and the
+   patterns made on the card, 3-plane tables (the chroma tables and kernel
+   on) and luma-only tables (off, as ``pack_params`` reads the tables):
+   every frame of the graph path equal to the
+   program's eager body on the card followed by the same kernels, frame 0
+   to grain_ref (chroma to the input where it is off); captures, replays and the
    pattern, luma and chroma-pair kernels' launches counted exactly; each
    program's graph nodes (read through libcuda), capture ms and device
    time a replay; the host ms of ``pack_params`` (on one table with new
-   seeds and on a table a frame, with the rows it built) and of the host
-   patterns' ``prepare_patterns``; per batch the host issue ms, device busy
+   seeds and on a table a frame, with the rows it built); per batch the
+   host issue ms, device busy
    ms and idle share (torch.profiler) of both paths, and both paths'
    frames/s in turns (eager, graph, graph, eager);
 13. render's host staging (``pipelines._upload``) at 3840x2160 10-bit
@@ -144,11 +142,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    batches in render's FIFO (one in flight) pinning no new block after
    the first two, and the host ms a batch of the three planes.
 
-Phases 1-8 take grain patterns from ``grain_ref`` on the host (the native
-libav*/dav1d shim, and with it ``generate_patterns_native`` and the
-render pipeline's decoder, is not built on hosts without those
-libraries); phases 9-11 make them on the card, phase 12 both. Every apply
-runs through the batch's parameter program (one graph replay on the card).
+Every ``apply_grain`` makes its grain patterns on the card, inside the
+batch's parameter program (one graph replay); the kernels timed or held
+alone read grain_ref's patterns from the host (the native libav*/dav1d
+shim, and with it ``generate_patterns_native`` and the render pipeline's
+decoder, is not built on hosts without those libraries).
 
 Every ``[time]`` line gives the kernel's time beside its plain version's
 and its bound: the larger of the bytes it must move (inputs read once,
@@ -678,11 +676,8 @@ def kernel_inputs(params, planes, bd, sub_x, sub_y, device, generate=None):
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
     y, cb, cr = (t if torch.is_tensor(t) else torch.from_numpy(t).to(device) for t in planes)
-    prep = tg.prepare_patterns(
-        params, bd, sub_x, sub_y, device=device,
-        generate=generate or tg.generate_patterns_ref,
-    )
-    lp, cbp, crp = prep.planes()
+    pats = (generate or tg.generate_patterns_ref)(params, bd, sub_x, sub_y, False)
+    lp, cbp, crp = given_patterns(pats, sub_x, sub_y, device)
     pb = tg.pack_params(params, device)
     _, h, w = y.shape
     offs = tg.block_offsets(pb.seed, (h + 31) // 32, (w + 31) // 32)
@@ -691,6 +686,17 @@ def kernel_inputs(params, planes, bd, sub_x, sub_y, device, generate=None):
     luma_args = (y, lp, offs, py, bd)
     pair_args = (y, cb, cr, cbp, crp, offs, p2, bd, sub_x, sub_y)
     return luma_args, pair_args
+
+
+def given_patterns(pats, sub_x, sub_y, device):
+    """Host (luma, cb, cr) patterns (cb/cr None when monochrome) on
+    ``device`` as the grain kernels read them: packed as the pattern
+    kernel writes them, uploaded in one copy."""
+    from grav1synth_tpu_torch.ops import grain as tg
+
+    packed = tg.pack_patterns(*(None if a is None else torch.from_numpy(a) for a in pats))
+    chroma_shape = None if pats[1] is None else tg.chroma_pattern_shape(sub_x, sub_y)
+    return tg._unpack_patterns(packed.to(device), chroma_shape)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -969,16 +975,10 @@ def grained_film(eff, dev, n=32, h=2160, w=3840, bd=10):
 
     clean = film_frames(np.random.default_rng(11), n, h, w, bd)
     params = reseeded(eff, n)
-    pats = tg.generate_patterns_ref(params, bd, 1, 1)
     grainy = []
     for i0 in range(0, n, 16):
-        ps = params[i0 : i0 + 16]
-        prep = tg.prepare_patterns(ps, bd, device=dev, generate=lambda *a, i0=i0: tuple(
-            p[i0 : i0 + 16] for p in pats))
-        out = tg.apply_grain(
-            *(torch.from_numpy(p[i0 : i0 + 16]).to(dev) for p in clean),
-            tg.pack_params(ps, dev), bd, prepared=prep,
-        )
+        out = tg.apply_grain(*(torch.from_numpy(p[i0 : i0 + 16]).to(dev) for p in clean),
+                             tg.pack_params(params[i0 : i0 + 16], dev), bd, 1, 1)
         grainy.append([t.cpu().numpy() for t in out])
     grainy = [np.concatenate([g[k] for g in grainy]) for k in range(3)]
     if np.array_equal(grainy[0], clean[0]):
@@ -1977,8 +1977,8 @@ def pattern_chain(params, sub_x: int, sub_y: int, probe: dict) -> dict:
 
 
 def pattern_phase(card, eff, dev, apply4):
-    """Phase 9; returns the pattern kernel's launches, time and error for
-    the summary, and the device-pattern outputs of the main path."""
+    """Phase 9; returns the pattern kernel's time and error for the
+    summary."""
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
@@ -2011,7 +2011,7 @@ def pattern_phase(card, eff, dev, apply4):
                 n_cases += 1
             hold(stray_slot_batch(eff[0], dev), bd, sub_x, sub_y, mono, "stray lag-3 slots")
             n_cases += 1
-    batches, frames, pats, outs = (apply4[k] for k in ("batches", "frames", "pats", "outs"))
+    batches, pats = apply4["batches"], apply4["pats"]
     pbs = {b: tg.pack_params(ps, dev) for b, ps in batches.items()}
     for b, pb in pbs.items():
         got = gk.generate_patterns_packed(pb, BD, SX, SY).cpu()
@@ -2025,37 +2025,6 @@ def pattern_phase(card, eff, dev, apply4):
         f"batch, lags 0-3 each on its own, stray lag-3 slots in lag-2 frames) equal to the "
         f"plain version (max |err| {err}); the 4K stream's 16 and 112 reseeded frames equal "
         f"to grain_ref")
-
-    # the main path with patterns made on the card
-    pbl = tg.pack_params(apply4["lum16"], dev)
-
-    def run(b, key):
-        pb = pbl if key == "luma16" else tg.pack_params(batches[b], dev)
-        return tg.apply_grain(*frames[b], pb, BD, SX, SY)
-
-    # capture the programs first (a capture's eager warm-up launches the
-    # pattern kernel once), then count one batch each
-    for b, key in ((16, 16), (112, 112)):
-        run(b, key)
-    torch.cuda.synchronize()
-    spans.reset()
-    dev_outs = {key: run(b, key) for b, key in ((16, 16), (112, 112), (16, "luma16"))}
-    torch.cuda.synchronize()
-    launches = launch_counts("grain_pattern", "grain_luma", "grain_chroma_pair")
-    programs = program_counts()
-    log(f"[pattern main path] launches {launches}, parameter programs {programs}")
-    if set(launches.values()) != {3} or programs != {"captures": 0, "replays": 3}:
-        raise AssertionError(f"device-pattern path: launches {launches}, programs {programs}")
-    for key, got in dev_outs.items():
-        for k, (g, w) in enumerate(zip(got, outs[key])):
-            if not torch.equal(g, w):
-                raise AssertionError(f"device patterns {key} plane {k}: differs from host patterns")
-    check_against_grain_ref(
-        dev_outs[16], apply4["host16"], batches[16], BD, SX, SY, [0], "4K B=16 device patterns"
-    )
-    log("[pattern main path] 4K10 B=16, B=112 and luma-only batches through apply_grain "
-        "without host patterns: every frame equal to the host-pattern output, frame 0 to "
-        "grain_ref")
 
     # times: the kernel alone on rows built once, and the wrapper with the
     # row pack (a dozen small device ops) in front of it
@@ -2087,27 +2056,7 @@ def pattern_phase(card, eff, dev, apply4):
             f"({apply4['gen_ms'] * len(params):.1f} ms per batch) on {card}")
     main_case = t.pop(f"B=16 lag {lag}")
     main_case["other_cases"] = list(t.values())
-    for b, key in ((16, 16), (112, 112), (16, "luma16")):
-        fps = frames_per_s(lambda: run(b, key), b, 10 if b == 16 else 3)
-        kind = "luma-only" if key == "luma16" else "3-plane"
-        host = apply4["host_fps"][key]
-        log(f"[apply] 4K10 4:2:0 {kind} B={b}, patterns made on the card: {fps:.1f} frames/s "
-            f"apply+generate (param pack, pattern kernel, offsets, grain kernels); phase 4 "
-            f"with host patterns: {host:.1f} frames/s apply alone, "
-            f"{1e3 / (1e3 / host + apply4['gen_ms']):.1f} with grain_ref's generation, on {card}")
-        # the same with the dispatch fact host params give (chroma kernel
-        # off for luma-only tables), as apply_grain_device_patterns takes it
-        ps = apply4["lum16"] if key == "luma16" else batches[b]
-        facts = {"chroma_static": tg._touches_chroma(ps)}
-        fps_facts = frames_per_s(
-            lambda: tg.apply_grain_device_patterns(
-                *frames[b], tg.pack_params(ps, dev), BD, SX, SY, **facts
-            ), b, 10 if b == 16 else 3,
-        )
-        log(f"[apply] 4K10 4:2:0 {kind} B={b}, patterns made on the card, host facts {facts} "
-            f"(apply_grain_device_patterns): {fps_facts:.1f} frames/s on {card}")
-    return {"grain_pattern": launches["grain_pattern"]}, {"grain_pattern": main_case}, \
-        {"grain_pattern": err}, dev_outs
+    return {"grain_pattern": main_case}, {"grain_pattern": err}
 
 
 def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
@@ -2363,60 +2312,30 @@ def distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy, two_shard
 
 
 def program_cells(apply4, lum112):
-    """Phase 12's cells: (B, kind, source, params, facts) at 4K10 4:2:0 for
-    B = 16 and 112, 3-plane and luma-only; patterns from the host (the
-    dispatch fact, chroma on or off, from host params), made on the card
-    with the JAX package's default (the chroma kernel on), and made on the
-    card with the host's fact."""
-    from grav1synth_tpu_torch.ops import grain as tg
-
-    cells = []
-    for b in (16, 112):
-        for kind, params in (("3-plane", apply4["batches"][b]),
-                             ("luma-only", apply4["lum16"] if b == 16 else lum112)):
-            facts = tg._touches_chroma(params)
-            cells += [(b, kind, "host patterns", params, facts),
-                      (b, kind, "card patterns", params, None),
-                      (b, kind, "card patterns, host facts", params, facts)]
-    return cells
+    """Phase 12's cells: (B, kind, params) at 4K10 4:2:0 for B = 16 and
+    112, 3-plane tables (the chroma tables and kernel on) and luma-only
+    tables (off), as ``pack_params`` reads them from the tables."""
+    return [(b, kind, params) for b in (16, 112)
+            for kind, params in (("3-plane", apply4["batches"][b]),
+                                 ("luma-only", apply4["lum16"] if b == 16 else lum112))]
 
 
-def program_paths(cell, frames, pats, dev):
+def program_paths(cell, frames, dev):
     """(graph, eager, key) of a phase-12 cell: the apply through its
-    parameter program (one upload, one graph replay, the grain kernels),
-    and the same with the program's eager body in the replay's place; both
-    pack the parameters and upload host patterns in the call."""
+    parameter program (one upload, one graph replay with the pattern
+    kernel in it, the grain kernels), and the same with the program's
+    eager body in the replay's place; both pack the parameters in the
+    call."""
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import program as pg
 
     BD, SX, SY = 10, 1, 1
-    b, _, source, params, facts = cell
+    _, _, params = cell
     y, cb, cr = frames
-    if source == "host patterns":
-        def prep():
-            return tg.prepare_patterns(params, BD, SX, SY, device=dev, generate=lambda *a: pats)
-
-        key = pg.ProgramKey.of(y, BD, SX, SY, False, facts, "host")
-
-        def graph():
-            return tg.apply_grain(y, cb, cr, tg.pack_params(params, dev), BD, SX, SY,
-                                  prepared=prep())
-
-        def eager():
-            prepared = prep()
-            tables = pg.program_body(tg.pack_params(params, dev).buffer, key)
-            return tg.apply_with_tables(y, cb, cr, tables, prepared.planes(), BD, SX, SY)
-
-        return graph, eager, key
-    chroma_static = True if facts is None else facts
-    key = pg.ProgramKey.of(y, BD, SX, SY, False, chroma_static, "device")
+    key = pg.ProgramKey.of(y, BD, SX, SY, False, tg._touches_chroma(params))
 
     def graph():
-        pb = tg.pack_params(params, dev)
-        if facts is None:
-            return tg.apply_grain(y, cb, cr, pb, BD, SX, SY)
-        return tg.apply_grain_device_patterns(y, cb, cr, pb, BD, SX, SY,
-                                              chroma_static=chroma_static)
+        return tg.apply_grain(y, cb, cr, tg.pack_params(params, dev), BD, SX, SY)
 
     def eager():
         tables = pg.program_body(tg.pack_params(params, dev).buffer, key)
@@ -2473,14 +2392,15 @@ def staging_phase(card, dev):
 
 def program_phase(card, dev, apply4):
     """Phase 12: the apply path's parameter program (``ops.program``) at
-    4K10 4:2:0, B = 16 and 112, 3-plane and luma-only, host and card
-    patterns, with and without the host's facts. Every frame of the graph
-    path equal to the eager body on the card followed by the same kernels,
-    frame 0 to grain_ref; captures, replays and launches counted exactly;
-    each program's graph nodes, capture ms and device time per replay;
-    the host ms of the parameter pack and the host-pattern upload; per
-    batch the host issue ms, device busy ms and idle share of both paths;
-    frames/s of both in turns (eager, graph, graph, eager)."""
+    4K10 4:2:0, B = 16 and 112, 3-plane tables (the chroma tables and
+    kernel on) and luma-only tables (off). Every frame of the
+    graph path equal to the eager body on the card followed by the same
+    kernels, frame 0 to grain_ref (chroma to the input where it is off);
+    captures, replays and launches counted exactly; each program's graph
+    nodes, capture ms and device time per replay; the host ms of the
+    parameter pack; per batch the host issue ms, device busy ms and idle
+    share of both paths; frames/s of both in turns (eager, graph, graph,
+    eager)."""
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_ref
     from grav1synth_tpu_torch.ops import program as pg
@@ -2488,7 +2408,6 @@ def program_phase(card, dev, apply4):
     BD, SX, SY = 10, 1, 1
     host16, frames = apply4["host16"], apply4["frames"]
     lum112 = luma_only(apply4["batches"][112])
-    lum_pats = {16: apply4["pats"]["luma16"], 112: tg.generate_patterns_ref(lum112, BD, SX, SY)}
     refs = {}
     for kind, p0 in (("3-plane", apply4["batches"][16][0]), ("luma-only", apply4["lum16"][0])):
         refs[kind] = grain_ref.apply_grain_frame(
@@ -2497,8 +2416,7 @@ def program_phase(card, dev, apply4):
     pg.clear_programs()
     for b in (16, 112):
         cells = [c for c in program_cells(apply4, lum112) if c[0] == b]
-        paths = [program_paths(c, frames[b], apply4["pats"][b] if c[1] == "3-plane"
-                               else lum_pats[b], dev) for c in cells]
+        paths = [program_paths(c, frames[b], dev) for c in cells]
         # first pass: the graph path (capturing each key's program) against
         # the eager body with the same kernels, frame 0 against grain_ref;
         # the spans summed, for the captures' time
@@ -2506,16 +2424,17 @@ def program_phase(card, dev, apply4):
         spans.reset()
         level = spans.log.level
         spans.log.setLevel(logging.DEBUG)
-        for (_, kind, source, _, _), (graph, eager, _) in zip(cells, paths):
+        for (_, kind, _), (graph, eager, key) in zip(cells, paths):
             got, want = graph(), eager()
             for k in range(3):
                 if not torch.equal(got[k], want[k]):
-                    raise AssertionError(f"B={b} {kind} {source}: plane {k} of the graph path "
-                                         "differs from the eager body's")
+                    raise AssertionError(f"B={b} {kind}: plane {k} of the graph path differs "
+                                         "from the eager body's")
+                ref = refs[kind][k] if key.chroma_static or k == 0 else host16[k][0]
                 if not np.array_equal(got[k][0].cpu().numpy().astype(np.int64),
-                                      refs[kind][k].astype(np.int64)):
-                    raise AssertionError(f"B={b} {kind} {source}: frame 0 plane {k} differs "
-                                         "from grain_ref")
+                                      ref.astype(np.int64)):
+                    raise AssertionError(f"B={b} {kind}: frame 0 plane {k} differs from "
+                                         "grain_ref")
         torch.cuda.synchronize()
         spans.log.setLevel(level)
         capture = spans.snapshot()["spans"]["program.capture"]
@@ -2527,9 +2446,9 @@ def program_phase(card, dev, apply4):
         # pattern, luma and chroma-pair kernels once a batch where they run
         want_counts = {
             "captures": 0, "replays": len(cells),
-            "grain_pattern": sum(c[2] != "host patterns" for c in cells),
+            "grain_pattern": len(cells),
             "grain_luma": len(cells),
-            "grain_chroma_pair": sum(c[1] == "3-plane" or c[2] == "card patterns" for c in cells),
+            "grain_chroma_pair": sum(key.chroma_static for _, _, key in paths),
         }
         torch.cuda.synchronize()
         spans.reset()
@@ -2539,14 +2458,13 @@ def program_phase(card, dev, apply4):
         counts = {**program_counts(), **launch_counts(*kernels)}
         if counts != want_counts:
             raise AssertionError(f"B={b} second pass: counts {counts}, expected {want_counts}")
-        log(f"[program] 4K10 4:2:0 B={b}, {len(cells)} cells (3-plane and luma-only; host "
-            f"patterns, card patterns, card patterns with the host's facts): every frame of the "
-            f"graph path equal to the eager body's, frame 0 to grain_ref; first pass "
+        log(f"[program] 4K10 4:2:0 B={b}, {len(cells)} cells (3-plane tables, chroma on; "
+            f"luma-only tables, chroma off): every frame of the graph path equal to the eager body's, frame 0 to grain_ref; first pass "
             f"{first}, {len(keys)} programs, their captures (with the eager warm-up; span "
             f"program.capture) {capture['total_ms'] / capture['count']:.1f} ms on average, "
             f"{capture['max_ms']:.1f} at most; then one batch a cell: {counts}")
         # each program alone: graph nodes, device ms per replay
-        for (_, kind, source, params, _), (_, _, key) in zip(cells, paths):
+        for (_, kind, params), (_, _, key) in zip(cells, paths):
             if key not in keys:
                 continue
             keys.remove(key)
@@ -2555,8 +2473,8 @@ def program_phase(card, dev, apply4):
             replay_ms = cuda_ms(lambda: prog.run(pb), 50)
             alone = profile_batches(lambda: prog.run(pb), 20)
             log(f"[program] B={b} (made at {key.batch}), chroma "
-                f"{'on' if key.chroma_static else 'off'},"
-                f" patterns {key.patterns} ({kind}, {source}): graph {graph_nodes(prog.graph)}, "
+                f"{'on' if key.chroma_static else 'off'} ({kind}): "
+                f"graph {graph_nodes(prog.graph)}, "
                 f"kernels recorded {prog.kernels}; "
                 f"replay {replay_ms:.4f} ms back to back (CUDA events), "
                 f"device busy {alone['busy_ms']:.4f} ms a replay (torch.profiler) on {card}")
@@ -2571,8 +2489,6 @@ def program_phase(card, dev, apply4):
         for what, fn in (
             ("one table", lambda: tg.pack_params(one_table, dev)),
             ("a table a frame", lambda: tg.pack_params(own_tables, dev)),
-            ("prepare_patterns", lambda: tg.prepare_patterns(
-                params, BD, SX, SY, device=dev, generate=lambda *a: apply4["pats"][b])),
         ):
             fn()
             torch.cuda.synchronize()
@@ -2587,17 +2503,15 @@ def program_phase(card, dev, apply4):
         log(f"[program] 4K10 4:2:0 3-plane B={b}, host clock a batch (no synchronise): "
             f"pack_params on one table with new seeds {host_ms['one table']:.3f} ms "
             f"({packed['one table']} in 20 calls), on a table a frame "
-            f"{host_ms['a table a frame']:.3f} ms ({packed['a table a frame']}); "
-            f"prepare_patterns (the host patterns' pack, pinned copy and upload) "
-            f"{host_ms['prepare_patterns']:.3f} ms on {card}")
+            f"{host_ms['a table a frame']:.3f} ms ({packed['a table a frame']}) on {card}")
         # both paths per batch, in turns
         reps = 10 if b == 16 else 3
-        for (_, kind, source, _, facts), (graph, eager, key) in zip(cells, paths):
+        for (_, kind, _), (graph, eager, key) in zip(cells, paths):
             fps = {"eager": [], "graph": []}
             for which in ("eager", "graph", "graph", "eager"):
                 fps[which].append(frames_per_s(eager if which == "eager" else graph, b, reps))
             prof = {"graph": profile_batches(graph, reps), "eager": profile_batches(eager, reps)}
-            log(f"[program] 4K10 4:2:0 {kind} B={b}, {source} (made at {key.batch}, chroma "
+            log(f"[program] 4K10 4:2:0 {kind} B={b} (made at {key.batch}, chroma "
                 f"{'on' if key.chroma_static else 'off'}): graph "
                 f"{fps['graph'][0]:.1f} / {fps['graph'][1]:.1f} frames/s, eager body "
                 f"{fps['eager'][0]:.1f} / {fps['eager'][1]:.1f} (turns eager, graph, graph, "
@@ -2682,10 +2596,8 @@ def main() -> int:
     n_cases += 1
     small = small_params(base)[:2]
     sp = random_planes(rng, 2, 70, 301, 10, 1, 1)
-    out = tg.apply_grain(
-        *(torch.from_numpy(a).to(dev) for a in sp), tg.pack_params(small, dev), 10,
-        prepared=tg.prepare_patterns(small, 10, device=dev, generate=tg.generate_patterns_ref),
-    )
+    out = tg.apply_grain(*(torch.from_numpy(a).to(dev) for a in sp), tg.pack_params(small, dev),
+                         10, 1, 1)
     check_against_grain_ref(out, sp, small, 10, 1, 1, range(2), "small frames")
     torch.cuda.synchronize()
     log(f"[kernels] {n_cases} cases integer-equal to the plain versions "
@@ -2703,25 +2615,28 @@ def main() -> int:
     gen_ms = (time.perf_counter() - t0) / (16 + 112 + 16) * 1e3
     log(f"[patterns] grain_ref on the host: {gen_ms:.1f} ms/frame ({16 + 112 + 16} frames)")
 
-    def run(b, params, key):
-        prep = tg.prepare_patterns(
-            params, BD, SX, SY, device=dev, generate=lambda *a: pats[key]
-        )
-        return tg.apply_grain(*frames[b], tg.pack_params(params, dev), BD, SX, SY, prepared=prep)
+    cases = ((16, 16, batches[16]), (112, 112, batches[112]), (16, "luma16", lum16))
 
+    def run(b, params):
+        return tg.apply_grain(*frames[b], tg.pack_params(params, dev), BD, SX, SY)
+
+    # capture each batch's program first (a capture's eager warm-up
+    # launches the pattern kernel), then count one batch each
+    for b, _, params in cases:
+        run(b, params)
     torch.cuda.synchronize()
     spans.reset()
-    out16 = run(16, batches[16], 16)
-    out112 = run(112, batches[112], 112)
-    outl = run(16, lum16, "luma16")
+    outs = {key: run(b, params) for b, key, params in cases}
     torch.cuda.synchronize()
-    launches = launch_counts("grain_luma", "grain_chroma_pair")
+    launches = launch_counts("grain_pattern", "grain_luma", "grain_chroma_pair")
     programs = program_counts()
     log(f"[main path] launches {launches}, parameter programs {programs}")
-    # one program replay and one luma kernel a batch, the chroma-pair
-    # kernel but for the luma-only batch (each program captured here)
-    if launches != {"grain_luma": 3, "grain_chroma_pair": 2} or programs["replays"] != 3:
+    # one program replay (the pattern kernel in it) and one luma kernel a
+    # batch, the chroma-pair kernel but for the luma-only batch
+    if launches != {"grain_pattern": 3, "grain_luma": 3, "grain_chroma_pair": 2} or \
+            programs != {"captures": 0, "replays": 3}:
         raise AssertionError(f"main path: launches {launches}, programs {programs}")
+    out16, out112, outl = outs[16], outs[112], outs["luma16"]
     for o, b in ((out16, 16), (out112, 112)):
         for k, t in enumerate(o):
             if tuple(t.shape) != tuple(frames[b][k].shape) or t.dtype != torch.int16:
@@ -2762,31 +2677,37 @@ def main() -> int:
         cuda_ms(lambda: gk.apply_plane_luma(*luma112), 10), None, *luma_work(luma112)), card))
     log(time_line("grain_chroma_pair", "4K10 4:2:0 B=112", timing(
         cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10), None, *pair_work(pair112)), card))
-    host_fps = {}
-    for b, key in ((16, 16), (112, 112), (16, "luma16")):
-        params = batches[b] if key != "luma16" else lum16
-        host_fps[key] = frames_per_s(lambda: run(b, params, key), b, 10 if b == 16 else 3)
+    # every frame of the main path against the grain kernels on grain_ref's
+    # patterns, with tables built outside the program
+    lum_args = kernel_inputs(lum16, frames[16], BD, SX, SY, dev, lambda *a: pats["luma16"])[0]
+    for key, la, pa in ((16, luma_args, pair_args), (112, luma112, pair112),
+                        ("luma16", lum_args, None)):
+        want = [gk.apply_plane_luma(*la)] + ([] if pa is None else list(gk.apply_planes_pair(*pa)))
+        for k, w in enumerate(want):
+            if not torch.equal(outs[key][k], w):
+                raise AssertionError(f"main path {key} plane {k}: differs from the grain kernels "
+                                     "on grain_ref's patterns")
+    del want, lum_args
+    log("[main path] 4K10 B=16, B=112 and luma-only batches: every frame equal to the grain "
+        "kernels on grain_ref's patterns")
+    for b, key, params in cases:
+        fps = frames_per_s(lambda: run(b, params), b, 10 if b == 16 else 3)
         kind = "luma-only" if key == "luma16" else "3-plane"
-        log(f"[apply] 4K10 4:2:0 {kind} B={b}: {host_fps[key]:.1f} frames/s "
-            f"(pattern upload, param pack, offsets and kernels; host pattern "
-            f"generation excluded) on {card}")
-    prep16 = tg.prepare_patterns(
-        batches[16], BD, SX, SY, device=dev, generate=lambda *a: pats[16]
-    )
+        log(f"[apply] 4K10 4:2:0 {kind} B={b}: {fps:.1f} frames/s (param pack, the parameter "
+            f"program with the pattern kernel, the grain kernels) on {card}")
+    pats16 = given_patterns(pats[16], SX, SY, dev)
     pb16 = tg.pack_params(batches[16], dev)
     plain_s = cuda_ms(
-        lambda: tg.apply_grain_reference(
-            *frames[16], *prep16.planes(), pb16, BD, SX, SY
-        ), 2, 1,
+        lambda: tg.apply_grain_reference(*frames[16], *pats16, pb16, BD, SX, SY), 2, 1,
     ) / 1e3
     log(f"[apply] plain PyTorch apply_grain_reference 4K10 B=16: {16 / plain_s:.1f} frames/s on {card}")
 
-    # phases 9 and 10 reuse the batches, frames and host-pattern outputs
+    # phases 9 to 12 reuse the batches, frames and the main path's outputs
     apply4 = dict(
-        batches=batches, lum16=lum16, host16=host16, frames=frames, pats=pats,
-        outs={16: out16, 112: out112, "luma16": outl}, gen_ms=gen_ms, host_fps=host_fps,
+        batches=batches, lum16=lum16, host16=host16, frames=frames, pats=pats, outs=outs,
+        gen_ms=gen_ms,
     )
-    del luma_args, pair_args, luma112, pair112, prep16
+    del luma_args, pair_args, luma112, pair112, pats16
     torch.cuda.empty_cache()
     clean, grainy = grained_film(eff, dev)
     for phase in (
@@ -2803,12 +2724,11 @@ def main() -> int:
     times.update(phase_times)
     errs.update(phase_errs)
     torch.cuda.empty_cache()
-    phase_launches, phase_times, phase_errs, dev_outs = pattern_phase(card, eff, dev, apply4)
-    launches.update(phase_launches)
+    phase_times, phase_errs = pattern_phase(card, eff, dev, apply4)
     times.update(phase_times)
     errs.update(phase_errs)
-    two_shard_fps = sharded_phase(card, dev, apply4, dev_outs, clean, grainy)
-    rank_launches = distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy,
+    two_shard_fps = sharded_phase(card, dev, apply4, outs, clean, grainy)
+    rank_launches = distributed_phase(card, dev, eff, apply4, outs, clean, grainy,
                                       two_shard_fps)
     program_phase(card, dev, apply4)
     staging_phase(card, dev)

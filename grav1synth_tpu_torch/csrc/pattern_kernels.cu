@@ -1,7 +1,7 @@
 // AV1 film grain patterns on Hopper (sm_90a): the Gaussian base noise and
 // the auto-regressive filter of spec 7.18.3.3 for a batch of frames, written
 // straight into the packed int16 buffer the grain kernels read (luma 73x82,
-// then Cb and Cr; grav1synth_tpu_torch/ops/grain.py PreparedPatterns).
+// then Cb and Cr; grav1synth_tpu_torch/ops/grain.py pack_patterns).
 // Bound to Python through a plain C interface (ctypes; see _build.py).
 //
 // grain_pattern_kernel replaces grav1synth_tpu/ops/grain_jax.py:

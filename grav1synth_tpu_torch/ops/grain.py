@@ -4,21 +4,18 @@ grav1synth_tpu/ops/grain_jax.py).
 A batch's parameters travel as one (B, ``PARAMS_WIDTH``) int32 buffer
 (``GrainParamsBatch``: every field is a view of it), built on the host
 one row per run of frames whose tables are equal but for the seed, and
-uploaded in one pinned, non-blocking copy. Grain patterns come either from
-the host (the native C++ recurrence, or ``grain_ref`` where the native
-shim is missing), uploaded as one packed int16 buffer per batch, or from
-the device: the pattern kernel of ``grain_kernels`` writes the same packed
-buffer from the parameter batch inside the batch's parameter program
-(``generate_patterns`` is its plain version).
+uploaded in one pinned, non-blocking copy.
 
 ``apply_grain`` runs each batch as one parameter program
 (``ops.program``, the counterpart of the JAX package's ``jax.jit``
-boundary): the per-plane parameter tables, the block offsets and, with
-patterns made on the device, the pattern kernel, replayed as one CUDA
-graph on the card and run eagerly on the CPU. The per-pixel work then
-runs in the two CUDA kernels of ``grain_kernels`` (luma, then Cb+Cr in
-one pass). Everything here is integer arithmetic and bit-exact against
-``grain_ref`` (itself validated against dav1d).
+boundary): the per-plane parameter tables, the block offsets and the
+pattern kernel of ``grain_kernels``, which writes the batch's grain
+patterns as one packed int16 buffer (``generate_patterns`` is its plain
+version), replayed as one CUDA graph on the card and run eagerly on the
+CPU. The per-pixel work then runs in the two CUDA kernels of
+``grain_kernels`` (luma, then Cb+Cr in one pass). Everything here is
+integer arithmetic and bit-exact against ``grain_ref`` (itself validated
+against dav1d).
 
 ``apply_grain_reference`` is the plain PyTorch version of the whole
 apply, written from the same pieces as the JAX package's XLA
@@ -28,8 +25,7 @@ formulation: ``_noise_plane``, ``scaling_lookup``, ``_avg_luma``.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,17 +112,23 @@ class GrainParamsBatch:
     int32 ``buffer``, so the batch uploads, slices and moves as one
     tensor. Each field of ``PARAM_COLUMNS`` (``seed``, ``pts_y``, ...) is
     a read-only property giving a view of its columns, (B,) or
-    (B, *shape); an in-place edit of a view is an edit of the buffer."""
+    (B, *shape); an in-place edit of a view is an edit of the buffer.
 
-    __slots__ = ("buffer",)
+    ``touches_chroma``, a host bool, says whether some frame's table
+    touches chroma (``pack_params`` sets it from the tables; a batch made
+    from a bare buffer is taken to). ``apply_grain`` skips the chroma
+    tables and kernel of a batch that does not."""
 
-    def __init__(self, buffer: torch.Tensor):
+    __slots__ = ("buffer", "touches_chroma")
+
+    def __init__(self, buffer: torch.Tensor, touches_chroma: bool = True):
         if buffer.dim() != 2 or buffer.shape[1] != PARAMS_WIDTH or buffer.dtype != torch.int32:
             raise ValueError(
                 f"a parameter buffer is (B, {PARAMS_WIDTH}) int32, got "
                 f"{tuple(buffer.shape)} {buffer.dtype}"
             )
         self.buffer = buffer
+        self.touches_chroma = bool(touches_chroma)
 
     @property
     def batch(self) -> int:
@@ -148,7 +150,7 @@ for _name, (_start, _shape) in PARAM_COLUMNS.items():
     setattr(GrainParamsBatch, _name, _column_view(_start, _shape))
 
 
-def _upload(host: np.ndarray, device) -> GrainParamsBatch:
+def _upload(host: np.ndarray, device, touches_chroma: bool = True) -> GrainParamsBatch:
     """A (B, ``PARAMS_WIDTH``) int32 host buffer as a batch on ``device``:
     one copy, pinned and non-blocking on a CUDA device."""
     buf = torch.from_numpy(host)
@@ -157,7 +159,7 @@ def _upload(host: np.ndarray, device) -> GrainParamsBatch:
         buf = buf.pin_memory().to(device, non_blocking=True)
     else:
         buf = buf.to(device)
-    return GrainParamsBatch(buf)
+    return GrainParamsBatch(buf, touches_chroma)
 
 
 def from_jax_params(batch, device) -> GrainParamsBatch:
@@ -172,6 +174,18 @@ def from_jax_params(batch, device) -> GrainParamsBatch:
     return _upload(host, device)
 
 
+def _touches_chroma(params) -> bool:
+    """Whether any frame in the batch touches chroma (photon-noise tables
+    without --chroma and many film tables are luma-only; the chroma tables
+    and the chroma kernel are then skipped)."""
+    return any(
+        hp.chroma_scaling_from_luma
+        or len(hp.scaling_points_cb) > 0
+        or len(hp.scaling_points_cr) > 0
+        for hp in params
+    )
+
+
 def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
     """Stack host FilmGrainParams into one parameter buffer on ``device``.
 
@@ -180,17 +194,18 @@ def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
     that copy a reference's grain, a table's segments). So one row is built
     per run of frames whose tables are ``equal_ignoring_seed`` to the run's
     first, each run fills its rows from it, and the seeds are written last.
+    The batch's ``touches_chroma`` is read from the runs' first tables.
     Nothing outlives the call: a table edited in place packs to its new
     values. Counters ``pack.frames`` and ``pack.rows``."""
     with spans.span("grain.pack"):
         rows: List[List[int]] = []
         runs: List[int] = []
-        head = None
+        heads: List[FilmGrainParams] = []
         for p in params:
-            if head is not None and (p is head or p.equal_ignoring_seed(head)):
+            if heads and (p is heads[-1] or p.equal_ignoring_seed(heads[-1])):
                 runs[-1] += 1
             else:
-                head = p
+                heads.append(p)
                 rows.append(_param_row(p))
                 runs.append(1)
         table = np.array(rows, dtype=np.int32).reshape(len(rows), PARAMS_WIDTH)
@@ -198,7 +213,7 @@ def pack_params(params: List[FilmGrainParams], device) -> GrainParamsBatch:
         host[:, PARAM_COLUMNS["seed"][0]] = [p.grain_seed for p in params]
         spans.count("pack.frames", len(params))
         spans.count("pack.rows", len(rows))
-        return _upload(host, device)
+        return _upload(host, device, _touches_chroma(heads))
 
 
 def _points(pts, n: int) -> List[int]:
@@ -521,33 +536,7 @@ def _round_shift(x: torch.Tensor, ss: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Host metadata and patterns
-
-
-def _touches_chroma(host_params) -> bool:
-    """Whether any frame in the batch touches chroma (photon-noise tables
-    without --chroma and many film tables are luma-only; the chroma tables
-    and the chroma kernel are then skipped)."""
-    return any(
-        hp.chroma_scaling_from_luma
-        or len(hp.scaling_points_cb) > 0
-        or len(hp.scaling_points_cr) > 0
-        for hp in host_params
-    )
-
-
-@dataclass
-class PreparedPatterns:
-    """Host-generated grain patterns resident on the device, plus the
-    facts the dispatch specialises on. The three per-plane patterns ride
-    one packed int16 buffer (B, luma || cb || cr), uploaded in one copy."""
-
-    packed: torch.Tensor  # (B, n_luma [+ 2 n_chroma]) int16
-    chroma_shape: Optional[Tuple[int, int]]  # (ch, cw) or None
-    chroma_static: bool  # some frame touches chroma
-
-    def planes(self):
-        return _unpack_patterns(self.packed, self.chroma_shape)
+# Host patterns
 
 
 def _unpack_patterns(packed: torch.Tensor, chroma_shape):
@@ -581,38 +570,6 @@ def generate_patterns_ref(
     cb = np.stack([g.cb for g in pats]).astype(np.int32)
     cr = np.stack([g.cr for g in pats]).astype(np.int32)
     return luma, cb, cr
-
-
-def prepare_patterns(
-    host_params,
-    bit_depth: int,
-    sub_x: int = 1,
-    sub_y: int = 1,
-    monochrome: bool = False,
-    *,
-    device,
-    generate: Optional[Callable] = None,
-) -> PreparedPatterns:
-    """Generate grain patterns on the host and start their upload.
-
-    ``generate`` defaults to the native shim's
-    ``generate_patterns_native``. On a CUDA device the packed buffer is
-    pinned and copied with ``non_blocking=True``, so the upload overlaps
-    whatever the stream is running."""
-    if generate is None:
-        from ..container.ffshim import generate_patterns_native
-
-        generate = generate_patterns_native
-    chroma_static = _touches_chroma(host_params)
-    lp, cbp, crp = generate(host_params, bit_depth, sub_x, sub_y, monochrome)
-    chroma_shape = None if cbp is None else tuple(int(v) for v in cbp.shape[1:])
-    host = pack_patterns(*(None if a is None else torch.from_numpy(a) for a in (lp, cbp, crp)))
-    device = torch.device(device)
-    if device.type == "cuda":
-        packed = host.pin_memory().to(device, non_blocking=True)
-    else:
-        packed = host.to(device)
-    return PreparedPatterns(packed, chroma_shape, chroma_static)
 
 
 # ---------------------------------------------------------------------------
@@ -748,7 +705,8 @@ def generate_patterns(
 
 def pack_patterns(luma, cb, cr) -> torch.Tensor:
     """(luma, cb, cr) patterns -> the packed (B, 73 * 82 [+ 2 ch cw])
-    int16 buffer of ``PreparedPatterns``."""
+    int16 buffer the pattern kernel writes (``_unpack_patterns`` views
+    it as planes again)."""
     b = luma.shape[0]
     parts = [luma.reshape(b, -1)] + ([] if cb is None else [cb.reshape(b, -1), cr.reshape(b, -1)])
     return torch.cat(parts, 1).to(torch.int16)
@@ -767,59 +725,22 @@ def apply_grain(
     sub_x: int = 1,
     sub_y: int = 1,
     monochrome: bool = False,
-    host_params=None,
-    prepared: Optional[PreparedPatterns] = None,
 ):
-    """Apply film grain to a batch of frames on ``y.device``.
+    """Apply film grain to a batch of frames on ``y.device``
+    (grain_jax's on-device-pattern apply without its segment bound: the
+    program evaluates every segment, at the same device time).
 
     Frames go to the kernels as int16 (every AV1 bit depth fits) and come
-    back as int16. Patterns come from ``prepared``; failing that, from the
-    host when ``host_params`` is given; failing that, from the pattern
-    kernel on the device (grain_jax.apply_grain_batch_pallas: every curve
-    segment, the chroma kernel on). The batch's parameter program
-    (``ops.program``) runs first: one graph replay on a CUDA device, eager
-    on the CPU. Then the CUDA kernels run (luma, then Cb+Cr); on the CPU
-    their plain versions. A batch whose tables touch no chroma (known from
-    ``host_params`` or ``prepared``) skips the chroma kernel and returns
-    ``cb``/``cr`` untouched."""
-    if prepared is None and host_params is not None:
-        with spans.span("grain.patterns"):
-            prepared = prepare_patterns(
-                host_params, bit_depth, sub_x, sub_y, monochrome, device=y.device
-            )
-    if prepared is None:
-        return apply_grain_device_patterns(y, cb, cr, p, bit_depth, sub_x, sub_y, monochrome)
+    back as int16. The batch's parameter program (``ops.program``) runs
+    first, the pattern kernel inside it: one graph replay on a CUDA device,
+    eager on the CPU. Then the CUDA kernels run (luma, then Cb+Cr); on the
+    CPU their plain versions. A batch whose tables touch no chroma
+    (``p.touches_chroma`` False) skips the chroma tables and kernel and
+    returns ``cb``/``cr`` untouched."""
     with spans.span("program.replay"):
         from .program import ProgramKey, program_for
 
-        key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, prepared.chroma_static, "host")
-        tables = program_for(key).run(p)
-    with spans.span("grain.launch"):
-        return apply_with_tables(y, cb, cr, tables, prepared.planes(), bit_depth, sub_x, sub_y,
-                                 monochrome)
-
-
-def apply_grain_device_patterns(
-    y: torch.Tensor,
-    cb: Optional[torch.Tensor],
-    cr: Optional[torch.Tensor],
-    p: GrainParamsBatch,
-    bit_depth: int,
-    sub_x: int = 1,
-    sub_y: int = 1,
-    monochrome: bool = False,
-    chroma_static: bool = True,
-):
-    """Apply with patterns made on the device, given the dispatch fact
-    that host params would give (grain_jax.apply_grain_device_patterns
-    without its segment bound: the program evaluates every segment, at the
-    same device time): the pattern kernel runs inside the batch's
-    parameter program, and ``chroma_static`` False runs the luma kernel
-    alone and returns ``cb``/``cr`` untouched."""
-    with spans.span("program.replay"):
-        from .program import ProgramKey, program_for
-
-        key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, chroma_static, "device")
+        key = ProgramKey.of(y, bit_depth, sub_x, sub_y, monochrome, p.touches_chroma)
         tables = program_for(key).run(p)
     with spans.span("grain.launch"):
         chroma_shape = None if monochrome else chroma_pattern_shape(sub_x, sub_y)

@@ -440,8 +440,8 @@ def generate_patterns_packed(
     monochrome: bool = False,
 ) -> torch.Tensor:
     """Grain patterns of a parameter batch, made on its device: a new
-    (B, 73 * 82 [+ 2 ch cw]) int16 tensor in ``PreparedPatterns.packed``'s
-    layout (luma, then Cb and Cr unless monochrome)."""
+    (B, 73 * 82 [+ 2 ch cw]) int16 tensor in the layout of
+    ``grain.pack_patterns`` (luma, then Cb and Cr unless monochrome)."""
     if _on_cpu(p.buffer):
         return generate_patterns_packed_reference(p, bit_depth, sub_x, sub_y, monochrome)
     return pattern_kernel(pattern_params(p), bit_depth, sub_x, sub_y, monochrome)

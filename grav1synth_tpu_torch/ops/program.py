@@ -1,14 +1,13 @@
 """One parameter program per batch on the apply path: the counterpart of
-the JAX package's ``jax.jit`` boundary (``grain_jax.apply_grain_device_patterns``,
-``_apply_pallas_packed``, ``_apply_pallas_luma_only_packed``,
-``_apply_pallas_with_patterns``), whose compiled programs are cached per
-shape and per value of their static arguments.
+the JAX package's ``jax.jit`` boundary (``grain_jax.apply_grain_batch_pallas``,
+``_apply_pallas_luma_only_packed``, ``_apply_pallas_with_patterns``), whose
+compiled programs are cached per shape and per value of their static
+arguments.
 
 The program takes a batch's one parameter buffer
 (``GrainParamsBatch.buffer``) to what the grain kernels read: the luma
-and the Cb|Cr per-plane parameter tables, the block offsets and, with
-patterns made on the device, the pattern rows and the pattern kernel's
-packed patterns (``program_body``). ``GrainProgram`` runs it for one
+and the Cb|Cr per-plane parameter tables, the block offsets, the pattern
+rows and the pattern kernel's packed patterns (``program_body``). ``GrainProgram`` runs it for one
 ``ProgramKey``. On a CUDA device it runs the body once eagerly on a side
 stream (which builds the kernels and fills the lazy device caches), then
 captures it into a ``torch.cuda.CUDAGraph``; each ``run`` copies the
@@ -57,9 +56,9 @@ from .grain import (
 )
 
 # programs kept per process, least recently used dropped first. One
-# geometry at batches of up to 2^k frames makes at most 2 (k + 1) keys a
-# pattern source (k + 1 batch buckets, chroma on or off): 10 at render's
-# batch of 16, whatever the stream's tables. The 4K bench stream
+# geometry at batches of up to 2^k frames makes at most 2 (k + 1) keys
+# (k + 1 batch buckets, chroma on or off): 10 at render's batch of 16,
+# whatever the stream's tables. The 4K bench stream
 # (.bench_cache/bench_4k10_grainy.ivf) makes one.
 MAX_PROGRAMS = 16
 
@@ -78,15 +77,14 @@ class ProgramKey:
     sub_y: int
     monochrome: bool
     chroma_static: bool  # the Cb|Cr tables are made (never when monochrome)
-    patterns: str  # "device": the pattern kernel runs in the program; "host": uploaded
 
     @classmethod
     def of(cls, y: torch.Tensor, bit_depth: int, sub_x: int, sub_y: int, monochrome: bool,
-           chroma_static: bool, patterns: str) -> "ProgramKey":
+           chroma_static: bool) -> "ProgramKey":
         """The key of a batch of luma planes ``y`` (B, H, W)."""
         b, h, w = y.shape
         return cls(y.device, batch_bucket(b), h, w, bit_depth, sub_x, sub_y, bool(monochrome),
-                   bool(chroma_static) and not monochrome, patterns)
+                   bool(chroma_static) and not monochrome)
 
 
 def batch_bucket(b: int) -> int:
@@ -100,8 +98,8 @@ class ProgramOutputs:
     params_y: torch.Tensor  # (B, P_LEN) luma rows
     params2: Optional[torch.Tensor]  # (2B, P_LEN) Cb rows, then Cr; None: no chroma kernel
     offsets: torch.Tensor  # (B, S, NB) int32 block-offset randoms
-    rows: Optional[torch.Tensor]  # (B, Q_LEN) pattern rows; patterns made on the device only
-    patterns: Optional[torch.Tensor] = None  # (B, n) int16 packed; the same
+    rows: torch.Tensor  # (B, Q_LEN) pattern rows
+    patterns: Optional[torch.Tensor] = None  # (B, n) int16 packed; set by program_body
 
     def first(self, b: int) -> "ProgramOutputs":
         """The outputs of the first ``b`` frames: views of the same tensors,
@@ -133,21 +131,18 @@ def program_tables(p: GrainParamsBatch, key: ProgramKey) -> ProgramOutputs:
         params2 = torch.cat(
             [gk.pack_plane_params(p, plane, key.bit_depth) for plane in ("cb", "cr")]
         )
-    rows = gk.pattern_params(p) if key.patterns == "device" else None
-    return ProgramOutputs(params_y, params2, offsets, rows)
+    return ProgramOutputs(params_y, params2, offsets, gk.pattern_params(p))
 
 
 def program_body(buf: torch.Tensor, key: ProgramKey) -> ProgramOutputs:
     """The whole program on the (B, PARAMS_WIDTH) parameter buffer
-    ``buf``, eagerly: ``program_tables``, then, with patterns made on the
-    device, the pattern kernel on its rows (on the CPU, its plain
-    version)."""
+    ``buf``, eagerly: ``program_tables``, then the pattern kernel on its
+    rows (on the CPU, its plain version)."""
     p = GrainParamsBatch(buf)
     out = program_tables(p, key)
-    if key.patterns == "device":
-        layout = (key.bit_depth, key.sub_x, key.sub_y, key.monochrome)
-        out.patterns = (gk.pattern_kernel(out.rows, *layout) if buf.is_cuda
-                        else gk.generate_patterns_packed_reference(p, *layout))
+    layout = (key.bit_depth, key.sub_x, key.sub_y, key.monochrome)
+    out.patterns = (gk.pattern_kernel(out.rows, *layout) if buf.is_cuda
+                    else gk.generate_patterns_packed_reference(p, *layout))
     return out
 
 
@@ -159,8 +154,6 @@ class GrainProgram:
     def __init__(self, key: ProgramKey):
         if key.device.type not in ("cpu", "cuda"):
             raise ValueError(f"a parameter program runs on a CUDA device or the CPU, not {key.device}")
-        if key.patterns not in ("device", "host"):
-            raise ValueError(f"patterns must be 'device' or 'host', not {key.patterns!r}")
         self.key = key
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static_in: Optional[torch.Tensor] = None

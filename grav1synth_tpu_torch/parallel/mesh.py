@@ -57,19 +57,21 @@ def make_mesh(n_devices: Optional[int] = None) -> DeviceMesh:
     return DeviceMesh(torch.device("cuda", i) for i in range(n))
 
 
+def pad_frames(items: Sequence, n: int) -> list:
+    """``items`` (a batch's frames, tables or planes) to a multiple of the
+    mesh size ``n``: the last one repeated. The padded frames are dropped
+    after the step."""
+    return list(items) + list(items[-1:]) * ((-len(items)) % n)
+
+
 def pad_batch(
     planes: Sequence[np.ndarray], params: List[FilmGrainParams], n: int
 ) -> Tuple[List[np.ndarray], List[FilmGrainParams], int]:
-    """Pad a frame batch to a multiple of the mesh size (padded frames
-    replicate the last frame and are dropped after the step). A copy of
-    grav1synth_tpu.parallel.mesh.pad_batch, whose module imports JAX."""
-    b = planes[0].shape[0]
-    pad = (-b) % n
-    if pad == 0:
-        return list(planes), params, b
-    planes_p = [np.concatenate([pl, np.repeat(pl[-1:], pad, 0)], 0) for pl in planes]
-    params_p = params + [params[-1]] * pad
-    return planes_p, params_p, b
+    """Pad a frame batch to a multiple of the mesh size with
+    ``pad_frames``: (planes, params, the real frame count), as
+    grav1synth_tpu.parallel.mesh.pad_batch returns them (whose module
+    imports JAX)."""
+    return [np.stack(pad_frames(pl, n)) for pl in planes], pad_frames(params, n), len(params)
 
 
 def frame_shards(n_frames: int, n_shards: int) -> List[Tuple[int, int]]:
@@ -108,7 +110,7 @@ def _shard_params(p: GrainParamsBatch, sl: slice, device: torch.device) -> Grain
     buf = p.buffer[sl]
     if device.type == "cuda" and buf.device.type == "cpu":
         buf = buf.pin_memory()
-    return GrainParamsBatch(buf.to(device, non_blocking=True))
+    return GrainParamsBatch(buf.to(device, non_blocking=True), p.touches_chroma)
 
 
 def sharded_apply_with_stats(
@@ -127,8 +129,8 @@ def sharded_apply_with_stats(
     ``mesh[0]``. ``noise_energy`` is sum((y' - y)^2) over the luma of
     every frame, an exact int64 sum per shard, summed on ``mesh[0]`` and
     returned as a float64 scalar; ``frame_count`` an int64 scalar there.
-    Patterns are made on each shard's device (``apply_grain`` without
-    host patterns). The batch must divide evenly over the mesh.
+    Patterns are made on each shard's device (``apply_grain``). The batch
+    must divide evenly over the mesh.
 
     With a ``ProcessMesh``, the planes and ``p`` are this rank's frames
     and the planes come back on its first local device; ``noise_energy``

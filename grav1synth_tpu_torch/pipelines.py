@@ -33,7 +33,7 @@ import torch
 from .container import annexb, ivf
 from .obu import Av1Parser, GrainAction, GrainRewriter, GrainTableSegment
 from .ops import grain as grain_ops
-from .parallel.mesh import DeviceMesh, make_mesh, pad_batch, sharded_apply
+from .parallel.mesh import DeviceMesh, make_mesh, pad_frames, sharded_apply
 from .tables import aggregate_grain_headers, dump_table, load_table
 from .utils import spans
 from .utils.progress import Progress
@@ -534,14 +534,9 @@ def device_mesh(device: torch.device, shards: int) -> Optional[DeviceMesh]:
     return make_mesh(shards) if shards > 1 else None
 
 
-def _pinned(host: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``host`` in pinned memory when it is bound for a CUDA device."""
-    return host.pin_memory() if device.type == "cuda" else host
-
-
-def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
-    """Stack one plane of each frame on ``device`` as int16, in one host
-    pass.
+def _stage(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
+    """Stack one plane of each frame, bound for ``device``, in one host
+    pass: the host buffer ``_upload`` copies up.
 
     On a CUDA device the buffer is pinned, from PyTorch's caching host
     allocator, which hands a block out again only once the non-blocking
@@ -549,11 +544,10 @@ def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
     never overwritten. Each frame is one torch ``copy_`` (spread over the
     host's cores; a strided plane goes in as it is), uint16 viewed as
     int16, which is value-preserving up to 12 bits. uint8 planes bound for
-    a CUDA device travel as uint8 and are widened on the card (half the
-    bytes); on the CPU every plane is staged as int16. Spans:
-    ``upload.pin`` (the buffer), ``upload.stack`` (the copies),
-    ``upload.copy`` (the upload); the counter ``upload.frames`` adds the
-    frames staged."""
+    a CUDA device stay uint8 (half the bytes up; the grain kernels widen
+    them); on the CPU every plane is staged as int16. Spans:
+    ``upload.pin`` (the buffer), ``upload.stack`` (the copies); the
+    counter ``upload.frames`` adds the frames staged."""
     cuda = device.type == "cuda"
     narrow = cuda and planes[0].dtype == np.uint8
     with spans.span("upload.pin"):
@@ -563,9 +557,17 @@ def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
         for dst, a in zip(buf, planes):
             dst.copy_(torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a))
     spans.count("upload.frames", len(planes))
+    return buf
+
+
+def _upload(planes: List[np.ndarray], device: torch.device) -> torch.Tensor:
+    """Stack one plane of each frame on ``device`` as int16: ``_stage``,
+    then one non-blocking copy (the span ``upload.copy``); uint8 planes
+    are widened on the card."""
+    buf = _stage(planes, device)
     with spans.span("upload.copy"):
         out = buf.to(device, non_blocking=True)
-        return out.to(torch.int16) if narrow else out
+        return out.to(torch.int16) if buf.dtype == torch.uint8 else out
 
 
 def _start_download(t: torch.Tensor, bit_depth: int) -> torch.Tensor:
@@ -610,8 +612,9 @@ def render(
 
     The driving thread's stages are the spans (``utils.spans``)
     "render.decode" (waiting for the decoder), "render.dispatch" (upload,
-    parameters, patterns, kernel launches), "render.download" (waiting for
-    the device-to-host copies) and "render.mux" (y4m writes)."""
+    parameters, the parameter program, kernel launches), "render.download"
+    (waiting for the device-to-host copies) and "render.mux" (y4m
+    writes)."""
     from .container.ffshim import Decoder
     from .container.y4m import Y4mWriter
     from .utils.prefetch import maybe_prefetch
@@ -652,32 +655,27 @@ def render(
                 outs = [list(f.planes) for f, _ in pend]
                 grained = None
                 done = None
-                if todo and mesh is not None:
-                    hp = [pend[i][1] for i in todo]
-                    stacked = [
-                        np.stack([pend[i][0].planes[k] for i in todo]).astype(np.int16)
-                        for k in range(1 if mono else 3)
-                    ]
-                    stacked, hp_p, nreal = pad_batch(stacked, hp, len(mesh))
-                    planes = [_pinned(torch.from_numpy(a), device) for a in stacked]
-                    y, cb, cr = planes if not mono else (planes[0], None, None)
-                    res = sharded_apply(
-                        mesh, y, cb, cr, grain_ops.pack_params(hp_p, "cpu"), bd,
-                        sub_x=sub[0], sub_y=sub[1], monochrome=mono,
-                    )
-                    res = [None if r is None else r[:nreal] for r in res]
-                elif todo:
-                    hp = [pend[i][1] for i in todo]
-                    planes = [
-                        _upload([pend[i][0].planes[k] for i in todo], device)
-                        for k in range(1 if mono else 3)
-                    ]
-                    y, cb, cr = planes if not mono else (planes[0], None, None)
-                    res = grain_ops.apply_grain(
-                        y, cb, cr, grain_ops.pack_params(hp, device), bd, sub[0], sub[1],
-                        mono, host_params=hp,
-                    )
                 if todo:
+                    hp = [pend[i][1] for i in todo]
+                    frames = [pend[i][0] for i in todo]
+                    if mesh is not None:
+                        frames, hp = pad_frames(frames, len(mesh)), pad_frames(hp, len(mesh))
+                    stage = _upload if mesh is None else _stage
+                    planes = [stage([f.planes[k] for f in frames], device)
+                              for k in range(1 if mono else 3)]
+                    y, cb, cr = planes if not mono else (planes[0], None, None)
+                    if mesh is None:
+                        res = grain_ops.apply_grain(
+                            y, cb, cr, grain_ops.pack_params(hp, device), bd, sub[0], sub[1],
+                            mono,
+                        )
+                    else:
+                        # each shard is copied to its device from the host batch
+                        res = sharded_apply(
+                            mesh, y, cb, cr, grain_ops.pack_params(hp, "cpu"), bd,
+                            sub_x=sub[0], sub_y=sub[1], monochrome=mono,
+                        )
+                        res = [None if r is None else r[: len(todo)] for r in res]
                     # a luma-only batch returns cb/cr untouched: those planes
                     # stay the decoder's own
                     grained = [

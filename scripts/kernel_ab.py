@@ -27,9 +27,11 @@ name and power limit.
   ``_avg_luma``; both builds equal to the chroma-pair kernel's Cb), each
   time beside the kernel's bound and share (``chip_smoke.timing``); then
   the same turns end to end:
-  phase 4's apply with host patterns through ``ops.grain.apply_grain``
-  with each build loaded, as frames/s on the host clock, and under
-  torch.profiler as device-busy ms per batch and the device's idle share.
+  phase 4's ``ops.grain.apply_grain`` (the batch's parameter program with
+  the pattern kernel in it, captured once with the package's own library,
+  then the grain kernels) with each build loaded, as frames/s on the host
+  clock, and under torch.profiler as device-busy ms per batch and the
+  device's idle share.
 - ``pattern_kernels.cu``: the grain-pattern kernel on the stream's
   parameters at 4:2:0 10-bit, B = 16 and B = 112, with AR lag 0, 1, 2 and
   3 (``chip_smoke.lagged``), each time beside the operations bound and the
@@ -222,11 +224,12 @@ def grain_ab(libs, card: str, iters: int) -> None:
               f"{moved / cs.HBM_BYTES_PER_S * 1e3 / t:.3f} of 3.35 TB/s on {card}", flush=True)
         del dst
 
-        # end to end: phase 4's apply with host patterns, each build loaded
+        # end to end: phase 4's apply, each build loaded; the program (its
+        # pattern kernel the package's) is captured first, outside both turns
         def apply():
-            prep = tg.prepare_patterns(params, bd, sx, sy, device=dev, generate=lambda *a: pats)
-            return tg.apply_grain(*planes, tg.pack_params(params, dev), bd, sx, sy, prepared=prep)
+            return tg.apply_grain(*planes, tg.pack_params(params, dev), bd, sx, sy)
 
+        apply()
         reps = 20 if b == 16 else 6
         for k in ("old", "new", "new", "old"):
             with loaded(libs[k]):
@@ -240,7 +243,7 @@ def grain_ab(libs, card: str, iters: int) -> None:
                     torch.cuda.synchronize()
                     wall = (time.perf_counter() - t0) * 1e3 / reps
             busy = cs.device_busy(prof) / reps
-            print(f"[ab] apply_grain 4K10 4:2:0 B={b} host patterns, {k} kernels: {fps:.1f} "
+            print(f"[ab] apply_grain 4K10 4:2:0 B={b}, {k} kernels: {fps:.1f} "
                   f"frames/s; profiled {wall:.3f} ms per batch, device busy {busy:.3f} ms, idle "
                   f"share {1 - busy / wall:.3f} on {card}", flush=True)
         del runs, luma_args, pair_args, cb_args, planes

@@ -9,6 +9,7 @@ This file imports no JAX, so it also runs where JAX is not installed:
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,6 +32,20 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def ref_packed(params, bd, sub_x=1, sub_y=1, mono=False):
+    """grain_ref's patterns of ``params`` on the host, packed as the
+    pattern kernel writes them."""
+    pats = tg.generate_patterns_ref(params, bd, sub_x, sub_y, mono)
+    return tg.pack_patterns(*(None if a is None else torch.from_numpy(a) for a in pats))
+
+
+def ref_patterns(params, bd, sub_x=1, sub_y=1, mono=False, device="cpu"):
+    """``ref_packed`` on ``device``, viewed as the (luma, cb, cr) planes
+    the grain kernels read."""
+    packed = ref_packed(params, bd, sub_x, sub_y, mono).to(device)
+    return tg._unpack_patterns(packed, None if mono else tg.chroma_pattern_shape(sub_x, sub_y))
 
 
 def _params():
@@ -65,14 +80,12 @@ def test_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
     ]
     outs = {}
     for dev in ("cpu", cuda):
-        prep = tg.prepare_patterns(
-            params, bd, sub_x, sub_y, device=dev, generate=tg.generate_patterns_ref
-        )
+        pats = ref_patterns(params, bd, sub_x, sub_y, device=dev)
+        y, cb, cr = (t.to(dev) for t in planes)
+        key = pg.ProgramKey.of(y, bd, sub_x, sub_y, False, True)
+        tables = pg.program_tables(tg.pack_params(params, dev), key)
         before = spans.counters("launch.")
-        got = tg.apply_grain(
-            *(t.to(dev) for t in planes), tg.pack_params(params, dev), bd,
-            sub_x, sub_y, prepared=prep,
-        )
+        got = tg.apply_with_tables(y, cb, cr, tables, pats, bd, sub_x, sub_y)
         outs[str(dev)] = [t.cpu() for t in got]
     assert spans.counter("launch.grain_luma") == before.get("grain_luma", 0) + 1
     assert spans.counter("launch.grain_chroma_pair") == before.get("grain_chroma_pair", 0) + 1
@@ -99,10 +112,7 @@ class _KernelCase:
 
     def __init__(self, params, bd, sub_x, sub_y, device):
         self.bd, self.sub_x, self.sub_y = bd, sub_x, sub_y
-        prep = tg.prepare_patterns(
-            params, bd, sub_x, sub_y, device=device, generate=tg.generate_patterns_ref
-        )
-        self.pats = prep.planes()
+        self.pats = ref_patterns(params, bd, sub_x, sub_y, device=device)
         self.pb = tg.pack_params(params, device)
         self.py = gk.pack_plane_params(self.pb, "y", bd)
         self.p2 = torch.cat([gk.pack_plane_params(self.pb, pl, bd) for pl in ("cb", "cr")])
@@ -1011,10 +1021,7 @@ def test_pattern_kernel_matches_plain_on_cuda(cuda, sub_x, sub_y, mono, bd):
     want = gk.generate_patterns_packed_reference(pb, bd, sub_x, sub_y, mono)
     assert got.dtype == torch.int16 and got.shape == want.shape
     assert torch.equal(got.cpu(), want.cpu())
-    host = tg.prepare_patterns(
-        params, bd, sub_x, sub_y, mono, device="cpu", generate=tg.generate_patterns_ref
-    )
-    assert torch.equal(got.cpu(), host.packed)
+    assert torch.equal(got.cpu(), ref_packed(params, bd, sub_x, sub_y, mono))
 
 
 @pytest.mark.cuda
@@ -1047,10 +1054,10 @@ def test_device_pattern_apply_equals_host_pattern_apply_on_cuda(cuda, sub_x, sub
     params = pattern_zoo(31 + sub_x)
     planes = _random_planes(np.random.default_rng(3), len(params), 70, 301, 10, sub_x, sub_y, cuda)
     pb = tg.pack_params(params, cuda)
-    prep = tg.prepare_patterns(
-        params, 10, sub_x, sub_y, device=cuda, generate=tg.generate_patterns_ref
-    )
-    want = tg.apply_grain(*planes, pb, 10, sub_x, sub_y, prepared=prep)
+    # the grain kernels on the program's tables and grain_ref's patterns
+    tables = pg.program_tables(pb, pg.ProgramKey.of(planes[0], 10, sub_x, sub_y, False, True))
+    want = tg.apply_with_tables(*planes, tables, ref_patterns(params, 10, sub_x, sub_y, device=cuda),
+                                10, sub_x, sub_y)
     tg.apply_grain(*planes, pb, 10, sub_x, sub_y)  # captures the batch's program
     torch.cuda.synchronize()
     spans.reset()
@@ -1085,7 +1092,7 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
     torch.cuda.synchronize()
     assert _programs() == {"captures": 0, "replays": 1}
     assert spans.counters("launch.") == {"grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1}
-    key = pg.ProgramKey.of(y, bd, 0, 0, False, True, "device")
+    key = pg.ProgramKey.of(y, bd, 0, 0, False, True)
     tables = pg.program_body(tg.pack_params(params, cuda).buffer, key)
     luma_pat, cb_pat, cr_pat = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(0, 0))
     assert tuple(cb_pat.shape) == (2, 73, 82)
@@ -1118,53 +1125,90 @@ def test_sharded_apply_over_a_two_shard_mesh_on_one_card(cuda):
     assert got[4].item() == len(params)
 
 
-def program_paths(params, planes, bd, sub_x, sub_y, mono, patterns, device):
+@pytest.mark.cuda
+@pytest.mark.parametrize("luma_only", [False, True], ids=["chroma", "luma-only"])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_sharded_apply_from_render_s_pinned_host_batch_on_one_card(cuda, bd, luma_only):
+    """render's mesh branch: the planes staged by ``pipelines._stage`` in
+    pinned host memory (uint8 at 8 bits, int16 above), each shard copied
+    to the card from it, with the tables' own chroma fact: the planes and
+    the energy of the one-card apply on int16 card planes."""
+    from grav1synth_tpu_torch import pipelines
+    from grav1synth_tpu_torch.parallel import DeviceMesh, sharded_apply_with_stats
+
+    params = pattern_zoo(42 + bd)
+    if luma_only:
+        params = luma_tables(params)
+    assert tg.pack_params(params, "cpu").touches_chroma != luma_only
+    rng = np.random.default_rng(bd)
+    dtype = np.uint8 if bd == 8 else np.uint16
+    shapes = ((64, 96), (32, 48), (32, 48))
+    frames = [[rng.integers(0, 1 << bd, sh, dtype=dtype) for sh in shapes] for _ in params]
+    staged = [pipelines._stage([f[k] for f in frames], cuda) for k in range(3)]
+    assert all(map(torch.Tensor.is_pinned, staged))
+    assert all(t.dtype == (torch.uint8 if bd == 8 else torch.int16) for t in staged)
+    got = sharded_apply_with_stats(DeviceMesh([cuda, cuda]), *staged,
+                                   tg.pack_params(params, "cpu"), bd)
+    planes = [torch.from_numpy(np.stack([f[k] for f in frames]).astype(np.int16)).to(cuda)
+              for k in range(3)]
+    want = tg.apply_grain(*planes, tg.pack_params(params, cuda), bd)
+    for pi in range(3):
+        assert torch.equal(got[pi].to(torch.int16), want[pi]), f"plane {pi}"
+    d = want[0].to(torch.int64) - planes[0].to(torch.int64)
+    assert got[3].item() == float((d * d).sum()) and got[4].item() == len(params)
+
+
+def luma_tables(params):
+    """The tables with their chroma switched off: no Cb or Cr points, no
+    chroma scaling from luma."""
+    return [dataclasses.replace(p, scaling_points_cb=[], scaling_points_cr=[],
+                                chroma_scaling_from_luma=False) for p in params]
+
+
+def program_paths(params, planes, bd, sub_x, sub_y, mono, device):
     """(graph, eager): the apply through the batch's parameter program, and
     the same with the program's eager body in the graph's place."""
     y, cb, cr = planes
-    if patterns == "host":
-        def prep():
-            return tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device=device,
-                                       generate=tg.generate_patterns_ref)
-        chroma_static = tg._touches_chroma(params)
-    else:
-        chroma_static = True
-    key = pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, chroma_static, patterns)
+    key = pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, tg._touches_chroma(params))
 
     def graph():
         pb = tg.pack_params(params, device)
-        if patterns == "host":
-            return tg.apply_grain(y, cb, cr, pb, bd, sub_x, sub_y, mono, prepared=prep())
+        assert pb.touches_chroma == key.chroma_static or mono
         return tg.apply_grain(y, cb, cr, pb, bd, sub_x, sub_y, mono)
 
     def eager():
         tables = pg.program_body(tg.pack_params(params, device).buffer, key)
-        if patterns == "host":
-            pats = prep().planes()
-        else:
-            pats = tg._unpack_patterns(
-                tables.patterns, None if mono else tg.chroma_pattern_shape(sub_x, sub_y))
+        pats = tg._unpack_patterns(
+            tables.patterns, None if mono else tg.chroma_pattern_shape(sub_x, sub_y))
         return tg.apply_with_tables(y, cb, cr, tables, pats, bd, sub_x, sub_y, mono)
 
     return graph, eager
 
 
+# chroma_static False: the batch's tables touch no chroma (``luma_tables``),
+# so the program makes no Cb|Cr rows and the chroma-pair kernel is skipped
+CHROMA_STATIC = [pytest.param(False, id="luma-only"), pytest.param(True, id="device")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("patterns", ["host", "device"])
+@pytest.mark.parametrize("chroma_static", CHROMA_STATIC)
 @pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
-def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, patterns):
+def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, chroma_static):
     """The apply through the captured program equals the eager body with
     the same kernels, and the CPU run; after the capture a batch is one
-    replay, with the pattern kernel in it for card patterns."""
+    replay, with the pattern kernel in it, and the chroma-pair kernel after
+    it unless ``chroma_static`` is False."""
     params = pattern_zoo(60 + 2 * sub_x + sub_y + 4 * mono)
+    if not chroma_static:
+        params = luma_tables(params)
     planes = _random_planes(np.random.default_rng(5), len(params), 70, 301, 10, sub_x, sub_y, cuda)
     if mono:
         planes = [planes[0], None, None]
-    graph, eager = program_paths(params, planes, 10, sub_x, sub_y, mono, patterns, cuda)
+    graph, eager = program_paths(params, planes, 10, sub_x, sub_y, mono, cuda)
     got = graph()
     want = eager()
     cpu_planes = [None if t is None else t.cpu() for t in planes]
-    on_cpu = program_paths(params, cpu_planes, 10, sub_x, sub_y, mono, patterns, "cpu")[0]()
+    on_cpu = program_paths(params, cpu_planes, 10, sub_x, sub_y, mono, "cpu")[0]()
     for k in range(1 if mono else 3):
         assert torch.equal(got[k], want[k]), f"plane {k}: graph vs eager body"
         assert torch.equal(got[k].cpu(), on_cpu[k]), f"plane {k}: card vs CPU"
@@ -1173,8 +1217,11 @@ def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, patte
     again = graph()
     torch.cuda.synchronize()
     assert _programs() == {"captures": 0, "replays": 1}
-    assert spans.counter("launch.grain_pattern") == (patterns == "device")
-    assert spans.counter("launch.grain_luma") == 1 and spans.counter("launch.grain_chroma_pair") == (not mono)
+    assert spans.counter("launch.grain_pattern") == 1
+    assert spans.counter("launch.grain_luma") == 1
+    assert spans.counter("launch.grain_chroma_pair") == (chroma_static and not mono)
+    if not (chroma_static or mono):
+        assert got[1] is planes[1] and got[2] is planes[2]
     assert all(torch.equal(a, b) for a, b in zip(again[:1 if mono else 3], got))
 
 
@@ -1203,7 +1250,7 @@ def test_program_outputs_are_the_next_replays_on_cuda(cuda):
     of the same program writes the same tensors with its batch's tables."""
     first, second = pattern_zoo(80), pattern_zoo(81)
     y = torch.zeros((len(first), 64, 64), dtype=torch.int16, device=cuda)
-    prog = pg.program_for(pg.ProgramKey.of(y, 10, 1, 1, False, True, "device"))
+    prog = pg.program_for(pg.ProgramKey.of(y, 10, 1, 1, False, True))
     out1 = prog.run(tg.pack_params(first, cuda))
     kept = out1.offsets.clone()
     pb2 = tg.pack_params(second, cuda)
@@ -1216,8 +1263,8 @@ def test_program_outputs_are_the_next_replays_on_cuda(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("patterns", ["host", "device"])
-def test_program_ragged_batches_share_a_program_on_cuda(cuda, patterns):
+@pytest.mark.parametrize("chroma_static", CHROMA_STATIC)
+def test_program_ragged_batches_share_a_program_on_cuda(cuda, chroma_static):
     """Batches of 5, 8 and 6 frames run one program captured at 8: each
     fills the first rows of the static input and equals the eager body with
     the same kernels, after a batch of other frames filled the rest."""
@@ -1225,8 +1272,10 @@ def test_program_ragged_batches_share_a_program_on_cuda(cuda, patterns):
     outs = []
     for n, seed in ((5, 90), (8, 91), (6, 92)):
         params = pattern_zoo(seed, n=n)
+        if not chroma_static:
+            params = luma_tables(params)
         planes = _random_planes(np.random.default_rng(seed), n, 70, 301, 10, 1, 1, cuda)
-        graph, eager = program_paths(params, planes, 10, 1, 1, False, patterns, cuda)
+        graph, eager = program_paths(params, planes, 10, 1, 1, False, cuda)
         outs.append((graph(), eager()))
     torch.cuda.synchronize()
     assert len(pg._PROGRAMS) == 1 and next(iter(pg._PROGRAMS)).batch == 8
@@ -1245,7 +1294,7 @@ def test_program_cache_drops_programs_without_waiting_on_cuda(cuda):
     results = []
     for h in range(64, 64 + pg.MAX_PROGRAMS + 3):
         planes = _random_planes(np.random.default_rng(h), len(params), h, 96, 10, 1, 1, cuda)
-        graph, eager = program_paths(params, planes, 10, 1, 1, False, "host", cuda)
+        graph, eager = program_paths(params, planes, 10, 1, 1, False, cuda)
         results.append((graph(), eager()))
     assert len(pg._PROGRAMS) == pg.MAX_PROGRAMS
     torch.cuda.synchronize()

@@ -21,6 +21,8 @@ from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
 from grav1synth_tpu_torch.utils import spans
 
+from test_torch_cuda import ref_patterns
+
 DENSE_Y = [(x, (x * 7 + 13 * (i % 5)) % 256) for i, x in enumerate(range(0, 256, 19))][:14]
 EXTREME_Y = [(0, 0), (1, 255), (2, 0), (128, 200), (255, 10)]
 
@@ -80,19 +82,20 @@ def _equal(got, want, what):
 
 
 def check_apply(sub_x, sub_y, mono, bd, h, w, variant):
-    """The port's apply_grain (and apply_grain_reference) on the CPU
-    against grain_jax.apply_grain (pallas, xla) and grain_ref."""
+    """The port's apply_grain on ``pack_params``' batch, with the tables'
+    chroma fact (and apply_grain_reference on grain_ref's patterns), on
+    the CPU against grain_jax.apply_grain (pallas, xla, with the native
+    shim's patterns) and grain_ref."""
     params = _params(variant)
     y, cb, cr = _frames(len(params), h, w, bd, sub_x, sub_y, mono)
     jb = grain_jax.pack_params(params)
     pt = tg.from_jax_params(jb, "cpu")
-    out = tg.apply_grain(
-        _t(y), _t(cb), _t(cr), pt, bd, sub_x, sub_y, mono, host_params=params
-    )
-    prepared = tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device="cpu")
-    assert prepared.chroma_static == (variant not in ("luma_only", "mono"))
+    pb = tg.pack_params(params, "cpu")
+    assert pb.touches_chroma == (variant not in ("luma_only", "mono"))
+    out = tg.apply_grain(_t(y), _t(cb), _t(cr), pb, bd, sub_x, sub_y, mono)
     plain = tg.apply_grain_reference(
-        _t(y), _t(cb), _t(cr), *prepared.planes(), pt, bd, sub_x, sub_y, mono
+        _t(y), _t(cb), _t(cr), *ref_patterns(params, bd, sub_x, sub_y, mono), pt, bd, sub_x,
+        sub_y, mono
     )
     nplanes = 1 if mono else 3
     assert all(o is None for o in out[nplanes:])
@@ -138,23 +141,24 @@ def test_luma_only_batch_returns_chroma_untouched():
     params = _params("luma_only")
     y, cb, cr = _frames(len(params), 64, 64, 8, 1, 1, False)
     cb_t, cr_t = _t(cb), _t(cr)
-    _, cb_o, cr_o = tg.apply_grain(
-        _t(y), cb_t, cr_t, tg.pack_params(params, "cpu"), 8, host_params=params
-    )
+    pb = tg.pack_params(params, "cpu")
+    assert not pb.touches_chroma
+    _, cb_o, cr_o = tg.apply_grain(_t(y), cb_t, cr_t, pb, 8)
     assert cb_o is cb_t and cr_o is cr_t
 
 
 def test_apply_grain_needs_patterns():
-    """Without ``prepared`` or ``host_params`` the patterns are made on the
-    tensors' device (the pattern kernel's plain version here): the same
-    planes as with host patterns."""
+    """The patterns are made on the tensors' device, inside the batch's
+    parameter program (the pattern kernel's plain version here): the same
+    planes as ``apply_grain_reference`` on grain_ref's patterns."""
     params = _params("mixed")
     y, cb, cr = _frames(len(params), 32, 32, 8, 1, 1, False)
     pb = tg.pack_params(params, "cpu")
     got = tg.apply_grain(_t(y), _t(cb), _t(cr), pb, 8)
-    want = tg.apply_grain(_t(y), _t(cb), _t(cr), pb, 8, host_params=params)
+    want = tg.apply_grain_reference(_t(y), _t(cb), _t(cr), *ref_patterns(params, 8, 1, 1, False),
+                                    pb, 8)
     for pi in range(3):
-        assert torch.equal(got[pi], want[pi]), f"plane {pi}"
+        assert torch.equal(got[pi], want[pi].to(torch.int16)), f"plane {pi}"
 
 
 # ---------------------------------------------------------------------------

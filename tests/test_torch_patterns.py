@@ -5,9 +5,10 @@ kernel (K7, csrc/pattern_kernels.cu); the kernel's wrapper,
 ``grain_kernels.generate_patterns_packed``, runs it on CPU tensors. The
 same parameter batches, made from numpy seeds, go through it and through
 ``grain_jax.generate_patterns``, ``grain_ref.generate_grain`` and the
-native shim's ``generate_patterns_native``. ``apply_grain`` without
-patterns is held against ``grain_jax.apply_grain_batch_pallas`` and
-``apply_grain_device_patterns`` (Pallas in interpret mode) and
+native shim's ``generate_patterns_native``. ``apply_grain``, which makes
+its patterns on the tensors' device, is held against
+``grain_jax.apply_grain_batch_pallas`` and
+``grain_jax.apply_grain_device_patterns`` (Pallas in interpret mode) and
 ``grain_ref``. Integer arithmetic throughout: every comparison is exact.
 """
 
@@ -57,12 +58,14 @@ def test_generate_patterns_matches_jax_ref_and_native(bd, sub_x, sub_y, mono):
         ref = grain_ref.generate_grain(p, bd, mono, sub_x, sub_y)
         for k, want in enumerate((ref.luma, ref.cb, ref.cr)[:nplanes]):
             _equal(mine[k][i], want, f"grain_ref frame {i} plane {k}")
-    # the kernel's wrapper on CPU tensors: the same patterns, packed as
-    # the host path uploads them
+    # the kernel's wrapper on CPU tensors: the native shim's patterns,
+    # packed, and unpacked again to the same planes
     packed = gk.generate_patterns_packed(pb, bd, sub_x, sub_y, mono)
-    host = tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device="cpu")
-    assert packed.dtype == torch.int16 and torch.equal(packed, host.packed)
-    assert host.chroma_shape == (None if mono else tg.chroma_pattern_shape(sub_x, sub_y))
+    host = tg.pack_patterns(*(None if a is None else torch.from_numpy(a) for a in native))
+    assert packed.dtype == torch.int16 and torch.equal(packed, host)
+    chroma_shape = None if mono else tg.chroma_pattern_shape(sub_x, sub_y)
+    for k, plane in enumerate(tg._unpack_patterns(packed, chroma_shape)[:nplanes]):
+        _equal(plane, native[k], f"unpacked plane {k}")
 
 
 @pytest.mark.parametrize("lag", [0, 1, 2, 3])
@@ -146,10 +149,10 @@ def test_apply_without_patterns_matches_jax_device_paths_and_ref(sub_x, sub_y, m
     pb = tg.from_jax_params(jb, "cpu")
     out = tg.apply_grain(_t(y), _t(cb), _t(cr), pb, bd, sub_x, sub_y, mono)
     n_seg, chroma_static = grain_jax._host_metadata(params, mono)
-    assert chroma_static
-    mine_dev = tg.apply_grain_device_patterns(
-        _t(y), _t(cb), _t(cr), pb, bd, sub_x, sub_y, mono, chroma_static=chroma_static,
-    )
+    # the port's batch from the host tables, with their chroma fact
+    packed = tg.pack_params(params, "cpu")
+    assert chroma_static and packed.touches_chroma
+    mine_facts = tg.apply_grain(_t(y), _t(cb), _t(cr), packed, bd, sub_x, sub_y, mono)
     batch = grain_jax.apply_grain_batch_pallas(y, cb, cr, jb, bd, sub_x, sub_y, mono)
     dev = grain_jax.apply_grain_device_patterns(
         y, cb, cr, jb, bd, sub_x, sub_y, mono, n_seg=n_seg, chroma_static=chroma_static
@@ -160,7 +163,7 @@ def test_apply_without_patterns_matches_jax_device_paths_and_ref(sub_x, sub_y, m
         assert out[k].dtype == torch.int16
         _equal(out[k], batch[k], f"apply_grain_batch_pallas plane {k}")
         _equal(out[k], dev[k], f"apply_grain_device_patterns plane {k}")
-        _equal(mine_dev[k], dev[k], f"port apply_grain_device_patterns plane {k}")
+        _equal(mine_facts[k], dev[k], f"pack_params' batch: plane {k}")
     planes = [y, cb, cr][:nplanes]
     for i, p in enumerate(params):
         ref = grain_ref.apply_grain_frame(
@@ -171,8 +174,9 @@ def test_apply_without_patterns_matches_jax_device_paths_and_ref(sub_x, sub_y, m
 
 
 def test_device_patterns_luma_only_batch_returns_chroma_untouched():
-    """``chroma_static`` False (no frame touches chroma): the luma kernel
-    alone, cb/cr returned as they came, as in the JAX package."""
+    """No frame touches chroma (``pack_params`` records it, as the JAX
+    package's ``chroma_static``): the luma kernel alone, cb/cr returned as
+    they came, as in the JAX package."""
     params = pattern_zoo(5, n=4)
     for p in params:
         p.scaling_points_cb, p.scaling_points_cr = [], []
@@ -181,11 +185,10 @@ def test_device_patterns_luma_only_batch_returns_chroma_untouched():
     y, cb, cr = _frames(len(params), 64, 64, 10, 1, 1, False, seed=2)
     jb = grain_jax.pack_params(params)
     n_seg, chroma_static = grain_jax._host_metadata(params, False)
-    assert not chroma_static and not tg._touches_chroma(params)
+    pb = tg.pack_params(params, "cpu")
+    assert not chroma_static and not pb.touches_chroma
     cb_t, cr_t = _t(cb), _t(cr)
-    out = tg.apply_grain_device_patterns(
-        _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), 10, chroma_static=chroma_static,
-    )
+    out = tg.apply_grain(_t(y), cb_t, cr_t, pb, 10)
     assert out[1] is cb_t and out[2] is cr_t
     want = grain_jax.apply_grain_device_patterns(
         y, cb, cr, jb, 10, n_seg=n_seg, chroma_static=chroma_static

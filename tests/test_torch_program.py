@@ -13,9 +13,11 @@ and tests/test_torch_cuda.py). Here:
   ``pattern_params`` as they were before the program (kept below as the
   reference, with the loop forms of ``_scaling_eval8`` and
   ``lfsr_outputs``), and the broadcast forms equal the loops;
-- ``apply_grain`` and ``apply_grain_device_patterns`` through the program
-  equal ``grain_jax.apply_grain`` (Pallas in interpret mode) and
-  ``grain_ref`` at tolerance 0; on tables drawn by the benchmark's own
+- ``apply_grain`` through the program, with and without the tables'
+  chroma fact, and the grain kernels on the program's tables and
+  grain_ref's patterns, equal ``grain_jax.apply_grain`` (Pallas in
+  interpret mode, the native shim's patterns) and ``grain_ref`` at
+  tolerance 0; on tables drawn by the benchmark's own
   ``draw_tables`` (the uhd12_444 cell's 4:4:4 12-bit layout and table
   shape, and generate's luma-only, AR lag 0 shape) the benchmark's path,
   ``pack_params`` then ``apply_grain``, also equals the benchmark's frozen
@@ -45,7 +47,7 @@ from grav1synth_tpu_torch.ops import grain_kernels as gk
 from grav1synth_tpu_torch.ops import program as pg
 from grav1synth_tpu_torch.parallel import mesh as tmesh
 
-from test_torch_cuda import pattern_zoo, stray_slot_frames, stray_slots
+from test_torch_cuda import pattern_zoo, ref_packed, ref_patterns, stray_slot_frames, stray_slots
 
 DENSE_Y = [(x, (x * 7 + 13 * (i % 5)) % 256) for i, x in enumerate(range(0, 256, 19))][:14]
 
@@ -397,19 +399,25 @@ def test_buffer_follows_in_place_edits_and_replaced_fields():
     with pytest.raises(AttributeError):
         pb.seed = pb.seed + 1
     with pytest.raises(AttributeError):
-        pb.extra = 1  # nothing beside the buffer
+        pb.extra = 1  # nothing beside the buffer and its chroma fact
     for bad in (pb.buffer[:, 1:], pb.buffer.to(torch.int64), pb.buffer[0]):
         with pytest.raises(ValueError, match="parameter buffer"):
             tg.GrainParamsBatch(bad)
 
 
-def test_shard_params_move_buffer_rows():
+@pytest.mark.parametrize("luma_only", [False, True], ids=["chroma", "luma-only"])
+def test_shard_params_move_buffer_rows(luma_only):
     """A shard of a parameter batch is its buffer's rows, one copy, with
-    every field a view of the copy."""
+    every field a view of the copy, and the batch's chroma fact."""
     params = pattern_zoo(23, n=6)
+    if luma_only:
+        params = [dataclasses.replace(p, scaling_points_cb=[], scaling_points_cr=[],
+                                      chroma_scaling_from_luma=False) for p in params]
     pb = tg.pack_params(params, "cpu")
+    assert pb.touches_chroma != luma_only
     shard = tmesh._shard_params(pb, slice(2, 5), torch.device("cpu"))
     assert torch.equal(shard.buffer, pb.buffer[2:5])
+    assert shard.touches_chroma == pb.touches_chroma
     want = tg.pack_params(params[2:5], "cpu")
     for name in tg.PARAM_COLUMNS:
         _equal(getattr(shard, name), getattr(want, name), name)
@@ -484,52 +492,43 @@ def test_program_outputs_equal_parent_tables(bd, layout, sub_x, sub_y, mono):
     c_rows = torch.cat([parent_pack_plane_params(pb, pl, bd, n_seg) for pl in ("cb", "cr")])
 
     def check(out, key):
-        what = f"{key.patterns} patterns, chroma {key.chroma_static}"
+        what = f"chroma {key.chroma_static}"
         _equal(out.offsets, offs, f"{what}: offsets")
         _equal(out.params_y, y_rows, f"{what}: luma rows")
         if mono or not key.chroma_static:
             assert out.params2 is None, what
         else:
             _equal(out.params2, c_rows, f"{what}: Cb|Cr rows")
-        if key.patterns == "host":
-            assert out.rows is None and out.patterns is None, what
-        else:
-            _equal(out.rows, parent_pattern_params(pb), f"{what}: pattern rows")
+        _equal(out.rows, parent_pattern_params(pb), f"{what}: pattern rows")
 
     y = torch.zeros((len(params), h, w), dtype=torch.int16)
-    keys = [pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, cs, patterns)
-            for patterns in ("host", "device") for cs in (True, False)]
+    keys = [pg.ProgramKey.of(y, bd, sub_x, sub_y, mono, cs) for cs in (True, False)]
     for key in keys:
         check(pg.program_tables(pb, key), key)
-    # whole runs: the host-pattern program, and one with the pattern
-    # kernel's plain version in it, its patterns against grain_ref's
-    host = pg.program_for(keys[0]).run(pb)
-    check(host, keys[0])
-    again = pg.program_for(keys[0]).run(pb)  # the CPU program makes new outputs each run
-    assert again.params_y is not host.params_y and torch.equal(again.params_y, host.params_y)
-    if bd != 10:  # the plain pattern generator is slow; one bit depth a layout
+    if bd != 10:  # the plain pattern generator is slow; whole runs at one bit depth a layout
         return
-    card = pg.program_for(keys[2]).run(pb)
-    check(card, keys[2])
-    want = tg.prepare_patterns(params, bd, sub_x, sub_y, mono, device="cpu",
-                               generate=tg.generate_patterns_ref).packed
-    assert card.patterns.dtype == torch.int16 and torch.equal(card.patterns, want)
+    # a whole run, the pattern kernel's plain version in it, its patterns
+    # against grain_ref's; a second run makes new outputs
+    card = pg.program_for(keys[0]).run(pb)
+    check(card, keys[0])
+    assert card.patterns.dtype == torch.int16
+    assert torch.equal(card.patterns, ref_packed(params, bd, sub_x, sub_y, mono))
+    again = pg.program_for(keys[0]).run(pb)
+    assert again.params_y is not card.params_y and torch.equal(again.params_y, card.params_y)
 
 
 def test_program_refuses_a_batch_it_was_not_made_for():
     pb = tg.pack_params(pattern_zoo(2, n=3), "cpu")
-    key = pg.ProgramKey(torch.device("cpu"), 2, 64, 64, 10, 1, 1, False, True, "host")
+    key = pg.ProgramKey(torch.device("cpu"), 2, 64, 64, 10, 1, 1, False, True)
     with pytest.raises(ValueError, match="does not fit the program"):
         pg.GrainProgram(key).run(pb)
-    with pytest.raises(ValueError, match="patterns must be"):
-        pg.GrainProgram(dataclasses.replace(key, patterns="both"))
     with pytest.raises(ValueError, match="CUDA device or the CPU"):
         pg.GrainProgram(dataclasses.replace(key, device=torch.device("meta")))
 
 
 def test_program_cache_keeps_the_most_recent():
     pg.clear_programs()
-    keys = [pg.ProgramKey(torch.device("cpu"), 2, 64, h, 10, 1, 1, False, True, "host")
+    keys = [pg.ProgramKey(torch.device("cpu"), 2, 64, h, 10, 1, 1, False, True)
             for h in range(64, 64 + pg.MAX_PROGRAMS + 2)]
     progs = [pg.program_for(k) for k in keys]
     assert pg.program_for(keys[2]) is progs[2]  # now the most recent
@@ -549,10 +548,9 @@ def test_program_key_rounds_the_batch_up_to_a_power_of_two(b, bucket):
     never make chroma tables, whatever the caller says."""
     assert pg.batch_bucket(b) == bucket
     y = torch.zeros((b, 8, 8), dtype=torch.int16)
-    key = pg.ProgramKey.of(y, 10, 1, 1, False, True, "host")
+    key = pg.ProgramKey.of(y, 10, 1, 1, False, True)
     assert key.batch == bucket and key.chroma_static
-    assert pg.ProgramKey.of(y, 10, 1, 1, True, True, "host") == \
-        pg.ProgramKey.of(y, 10, 1, 1, True, False, "host")
+    assert pg.ProgramKey.of(y, 10, 1, 1, True, True) == pg.ProgramKey.of(y, 10, 1, 1, True, False)
 
 
 @pytest.mark.parametrize("layout,sub_x,sub_y,mono", LAYOUTS, ids=[c[0] for c in LAYOUTS])
@@ -568,19 +566,26 @@ def test_program_rows_past_the_batch_touch_nothing(layout, sub_x, sub_y, mono):
     pb = tg.pack_params(params, "cpu")
     other = tg.pack_params(pattern_zoo(31, n=n), "cpu").buffer
     y = torch.zeros((b, 40, 70), dtype=torch.int16)
-    for patterns in ("host", "device") if layout == "420" else ("host",):
-        key = pg.ProgramKey.of(y, 10, sub_x, sub_y, mono, True, patterns)
-        want = pg.program_body(pb.buffer, key)
-        for pad in (torch.zeros_like(other), other):
-            padded = pad.clone()
-            padded[:b] = pb.buffer
-            got = pg.program_body(padded, key).first(b)
-            for name in ("params_y", "params2", "offsets", "rows", "patterns"):
-                g, w = getattr(got, name), getattr(want, name)
-                assert (g is None) == (w is None), name
-                if w is not None:
-                    _equal(g, w, f"{patterns} patterns: {name}")
-        assert pg.program_body(pb.buffer, key).first(b).params_y.shape[0] == b
+    key = pg.ProgramKey.of(y, 10, sub_x, sub_y, mono, True)
+
+    def body(buf):
+        # the plain pattern generator is slow: its rows on every layout,
+        # the patterns themselves on one
+        if layout == "420":
+            return pg.program_body(buf, key)
+        return pg.program_tables(tg.GrainParamsBatch(buf), key)
+
+    want = body(pb.buffer)
+    for pad in (torch.zeros_like(other), other):
+        padded = pad.clone()
+        padded[:b] = pb.buffer
+        got = body(padded).first(b)
+        for name in ("params_y", "params2", "offsets", "rows", "patterns"):
+            g, w = getattr(got, name), getattr(want, name)
+            assert (g is None) == (w is None), name
+            if w is not None:
+                _equal(g, w, name)
+    assert want.first(b).params_y.shape[0] == b
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +612,7 @@ APPLY_CASES = [
 ]
 
 # batches whose tables touch no chroma: the chroma kernel is skipped where
-# the host's fact is known
+# the batch comes from pack_params
 LUMA_ONLY = ("luma", "photon")
 
 
@@ -626,26 +631,28 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
     params = _batch(batch, bd + h)
     y, cb, cr = frames(len(params), h, w, bd, sub_x, sub_y, mono, seed=bd * 7 + h)
     jb = grain_jax.pack_params(params)
-    chroma_static = tg._touches_chroma(params)
-    assert chroma_static == (batch not in LUMA_ONLY)
+    pb = tg.pack_params(params, "cpu")
+    assert pb.touches_chroma == (batch not in LUMA_ONLY)
     cb_t, cr_t = _t(cb), _t(cr)
+    key = pg.ProgramKey.of(_t(y), bd, sub_x, sub_y, mono, pb.touches_chroma)
     outs = {
-        "host patterns": tg.apply_grain(_t(y), cb_t, cr_t, tg.pack_params(params, "cpu"), bd,
-                                        sub_x, sub_y, mono, host_params=params),
-        "card patterns": tg.apply_grain(_t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), bd,
-                                        sub_x, sub_y, mono),
-        "card patterns, host facts": tg.apply_grain_device_patterns(
-            _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), bd, sub_x, sub_y, mono,
-            chroma_static=chroma_static),
-        # the benchmark's path: pack_params, then apply_grain, card patterns
-        "card patterns, packed": tg.apply_grain(_t(y), cb_t, cr_t, tg.pack_params(params, "cpu"),
-                                                bd, sub_x, sub_y, mono),
+        # the grain kernels on the program's tables and grain_ref's patterns
+        "given patterns": tg.apply_with_tables(
+            _t(y), cb_t, cr_t, pg.program_tables(pb, key),
+            ref_patterns(params, bd, sub_x, sub_y, mono), bd, sub_x, sub_y, mono),
+        # a bare buffer: the chroma tables and kernel on, whatever the tables
+        "card patterns, JAX's buffer": tg.apply_grain(
+            _t(y), cb_t, cr_t, tg.from_jax_params(jb, "cpu"), bd, sub_x, sub_y, mono),
+        # render's and the benchmark's path: pack_params (the tables' chroma
+        # fact), then apply_grain, card patterns
+        "card patterns, packed": tg.apply_grain(_t(y), cb_t, cr_t, pb, bd, sub_x, sub_y, mono),
     }
     want = grain_jax.apply_grain(y, cb, cr, jb, bd, sub_x, sub_y, mono, backend="pallas",
                                  host_params=params)
     nplanes = 1 if mono else 3
     if batch in LUMA_ONLY:  # the chroma kernel skipped: cb/cr returned as they came
-        assert outs["host patterns"][1] is cb_t and outs["card patterns, host facts"][2] is cr_t
+        for what in ("given patterns", "card patterns, packed"):
+            assert outs[what][1] is cb_t and outs[what][2] is cr_t, what
     for what, out in outs.items():
         assert all(o is None for o in out[nplanes:]), what
         for k in range(nplanes):
@@ -655,7 +662,8 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
         ref = grain_ref.apply_grain_frame([pl[i].astype(np.int32) for pl in planes], p, bd,
                                           sub_x, sub_y)
         for k in range(nplanes):
-            _equal(outs["host patterns"][k][i], ref[k], f"grain_ref frame {i} plane {k}")
+            _equal(outs["card patterns, packed"][k][i], ref[k],
+                   f"grain_ref frame {i} plane {k}")
     if batch not in ("mixed", "luma"):
         # the frozen reference that decides the cell's ``correct``
         bench_ref = _bench_module("reference.grain_ref")
@@ -701,19 +709,20 @@ def test_no_host_tensors_mode_catches_uploads_and_read_backs():
         x.sum().item()
 
 
-@pytest.mark.parametrize("patterns", ["host", "device"])
+@pytest.mark.parametrize("chroma_static", [pytest.param(True, id="device"),
+                                           pytest.param(False, id="luma-only")])
 @pytest.mark.parametrize("layout,sub_x,sub_y,mono", [LAYOUTS[0], LAYOUTS[3]],
                          ids=[LAYOUTS[0][0], LAYOUTS[3][0]])
-def test_program_body_is_capture_safe(layout, sub_x, sub_y, mono, patterns):
+def test_program_body_is_capture_safe(layout, sub_x, sub_y, mono, chroma_static):
     """The program's body on a meta-device buffer, after one warm-up run
     (as the card warms up before capturing), under a mode that fails on any
-    CPU tensor: nothing is made from host data and nothing is read back.
-    The pattern kernel's launch is left out (the meta device has no
-    kernels); its rows are in."""
+    CPU tensor: nothing is made from host data and nothing is read back,
+    with the Cb|Cr rows and without. The pattern kernel's launch is left
+    out (the meta device has no kernels); its rows are in."""
     params = mixed_batch(4)
     buf = tg.pack_params(params, "cpu").buffer.to("meta")
     key = pg.ProgramKey(torch.device("meta"), len(params), 2160, 3840, 10, sub_x, sub_y, mono,
-                        True, patterns)
+                        chroma_static)
     p = tg.GrainParamsBatch(buf)
     pg.program_tables(p, key)  # warm-up: fills the LFSR basis cache
     with NoHostTensors():
@@ -721,5 +730,5 @@ def test_program_body_is_capture_safe(layout, sub_x, sub_y, mono, patterns):
     assert out.offsets.device.type == "meta"
     assert tuple(out.offsets.shape) == (len(params), 68, 120)
     assert tuple(out.params_y.shape) == (len(params), gk.P_LEN)
-    assert (out.params2 is None) == mono
-    assert (out.rows is None) == (patterns == "host")
+    assert (out.params2 is None) == (mono or not chroma_static)
+    assert tuple(out.rows.shape) == (len(params), gk.Q_LEN) and out.rows.device.type == "meta"

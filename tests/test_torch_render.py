@@ -159,8 +159,8 @@ def test_cli(tmp_path, capsys):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Imports every module of the port, runs the plain apply, with host
-    and with device patterns, sharded over a two-entry CPU mesh, the diff
+    """Imports every module of the port, runs the plain apply, with the
+    tables' chroma fact and sharded over a two-entry CPU mesh, the diff
     and estimate statistics, and the host subcommand ``inspect`` through
     the port's CLI, in a fresh interpreter (this test process has JAX
     loaded by conftest): neither jax nor any module of the JAX package
@@ -186,8 +186,7 @@ def test_port_never_imports_jax(tmp_path):
                             cb_luma_mult=192, cb_offset=256, overlap_flag=True)
         y = torch.full((1, 40, 40), 100, dtype=torch.int16)
         c = torch.full((1, 20, 20), 128, dtype=torch.int16)
-        out = grain.apply_grain(y, c, c.clone(), grain.pack_params([p], "cpu"), 8,
-                                host_params=[p])
+        out = grain.apply_grain(y, c, c.clone(), grain.pack_params([p], "cpu"), 8)
         assert out[0].shape == y.shape and not torch.equal(out[0], y)
         pb = grain.pack_params([p, p], "cpu")
         y2, c2 = y.repeat(2, 1, 1), c.repeat(2, 1, 1)
