@@ -20,13 +20,14 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    .bench_cache/bench_4k10_grainy.ivf (3840x2160, 10-bit, 4:2:0), parsed
    on the host and reseeded to batches of 16 and 112, applied through
    ``ops.grain.apply_grain`` on the card (3-plane and luma-only tables;
-   each batch one parameter program with the pattern kernel in it,
-   captured here and replayed, then the grain kernels), first frames
-   checked against grain_ref and every frame against the grain kernels on
-   grain_ref's patterns, the pattern, luma and chroma-pair kernels'
-   launches and the programs' replays counted, one a batch once the
-   programs are captured (the chroma-pair kernel skipped for the luma-only
-   tables); then kernel times (CUDA events, on grain_ref's patterns)
+   each batch one parameter program with the tables and pattern kernels
+   in it, captured here and replayed, then the grain kernels), first
+   frames checked against grain_ref and every frame against the grain
+   kernels on grain_ref's patterns, the tables, pattern, luma and
+   chroma-pair kernels' launches and the programs' replays counted, one a
+   batch once the programs are captured (the chroma-pair kernel skipped
+   for the luma-only tables); then kernel times (CUDA events, on
+   grain_ref's patterns)
    beside the plain versions', and apply frames/s;
 5. the two diff kernels against their plain versions on the card, equal
    to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
@@ -112,7 +113,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    ``sharded_apply_with_stats`` over the ``ProcessMesh`` (patterns made on
    the card): every frame equal by sha256 to phase 10's unsharded output,
    frames 16 and energy equal to the int64 recount on both ranks, the
-   pattern, luma and chroma-pair kernels launched once in each rank; then
+   tables, pattern, luma and chroma-pair kernels launched once in each
+   rank; then
    ``mesh_pair_stats_per_frame`` over the two ranks on phase 6's first
    batch of 16 (lag 2): the whole batch's per-frame statistics on each
    rank equal to the single-process ones to the last bit, both diff
@@ -128,9 +130,15 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    every frame of the graph path equal to the
    program's eager body on the card followed by the same kernels, frame 0
    to grain_ref (chroma to the input where it is off); captures, replays and the
-   pattern, luma and chroma-pair kernels' launches counted exactly; each
-   program's graph nodes (read through libcuda), capture ms and device
-   time a replay; the host ms of ``pack_params`` (on one table with new
+   tables, pattern, luma and chroma-pair kernels' launches counted exactly;
+   each program's graph nodes (read through libcuda: two kernel nodes, the
+   tables and pattern kernels, and at most one memset or memcpy), capture
+   ms and device time a replay; the tables kernel on each program's whole
+   static input equal (tolerance 0) to its plain version, the PyTorch ops
+   of ``program.program_tables`` captured as a graph of their own, and
+   both timed (the kernel as 20 launches in one graph, the plain tables'
+   graph a replay) beside the kernel's bound and both graphs' nodes; the
+   host ms of ``pack_params`` (on one table with new
    seeds and on a table a frame, with the rows it built); per batch the
    host issue ms, device busy
    ms and idle share (torch.profiler) of both paths, and both paths'
@@ -194,6 +202,7 @@ SOURCES = {
     "grain_chroma_pair": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_chroma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_pattern": "grav1synth_tpu_torch/csrc/pattern_kernels.cu",
+    "grain_tables": "grav1synth_tpu_torch/csrc/tables_kernels.cu",
     "flat_block_activity": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
     "plane_stats": "grav1synth_tpu_torch/csrc/diff_kernels.cu",
     "self_blur": "grav1synth_tpu_torch/csrc/estimate_kernels.cu",
@@ -206,6 +215,9 @@ REPLACES = {
     # _ar_filter: an XLA lax.scan (with _gaussian_base and
     # _ar_filter_chroma), not a Pallas kernel
     "grain_pattern": "grav1synth_tpu/ops/grain_jax.py:266",
+    # not a Pallas kernel: the jitted apply's glue, block_offsets (:400) with
+    # lfsr_outputs (:206), _scaling_eval8 (:553) and the per-plane rows
+    "grain_tables": "grav1synth_tpu/ops/grain_jax.py:400",
     "flat_block_activity": "grav1synth_tpu/ops/diff_pallas.py:272",  # _act_kernel
     "plane_stats": "grav1synth_tpu/ops/diff_pallas.py:108",  # _stats_kernel
     # not Pallas kernels: XLA inside the jitted frame_self_stats (:77) and
@@ -222,7 +234,7 @@ TOLERANCE = 0
 # taken in another order, may round
 ESTIMATE_RTOL = 1e-9
 KERNELS = (
-    "grain_luma", "grain_chroma_pair", "grain_chroma", "grain_pattern",
+    "grain_luma", "grain_chroma_pair", "grain_chroma", "grain_pattern", "grain_tables",
     "flat_block_activity", "plane_stats", "self_blur", "self_stats",
 )
 # energy of the sharded apply (an exact int64 sum per shard, added in
@@ -258,6 +270,11 @@ FP64_CORE_OPS_PER_S = 33.5e12
 GRAIN_OPS, AVG_OPS, COMBINE_OPS = 8, 3, 8
 # flat-block activity: two differences, two absolute values, two adds
 ACTIVITY_OPS = 6
+# the tables kernel: a LUT node's test of one segment (two compares, their
+# AND, the select) and the segment's value (a subtraction, a multiply-add,
+# the shift, the add): 8; an LFSR update (three shifts, three XORs, the
+# mask, the shift and the OR) with its 8-bit output: 10
+TABLE_SEGMENT_OPS, LFSR_OPS = 8, 10
 # blur, per sample: the vertical and horizontal running sums (an add and a
 # subtraction each), the rounding add and the division by 81 (a multiply-
 # high and a shift), the clip (2) and q = 81 f - S (a multiply-add)
@@ -419,6 +436,7 @@ LIBRARY_NOTE = {
     "grain_chroma_pair": "none: the chroma grain of grain_luma with the luma pair average",
     "grain_chroma": "none: one plane of grain_chroma_pair's function",
     "grain_pattern": "none: an AR recurrence over LFSR Gaussian noise",
+    "grain_tables": "none: scaling LUTs, parameter rows and LFSR block offsets",
     "flat_block_activity": "none: per-block sum of absolute gradients",
     "plane_stats": "none: a masked lag-window Gram and binned moments",
     "self_blur": "torch.nn.functional.conv2d of the box sum (float32; den and q not formed)",
@@ -2079,7 +2097,8 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
         spans.reset()
         out = sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)
         torch.cuda.synchronize()
-        launches = launch_counts("grain_pattern", "grain_luma", "grain_chroma_pair")
+        launches = launch_counts("grain_tables", "grain_pattern", "grain_luma",
+                                 "grain_chroma_pair")
         programs = program_counts()
         if set(launches.values()) != {len(mesh)} or programs != {"captures": 0,
                                                                  "replays": len(mesh)}:
@@ -2128,8 +2147,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-DIST_KERNELS = ("grain_pattern", "grain_luma", "grain_chroma_pair", "flat_block_activity",
-                "plane_stats")
+DIST_KERNELS = ("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair",
+                "flat_block_activity", "plane_stats")
 
 
 def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, diff_want):
@@ -2163,7 +2182,7 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     spans.reset()
     out = sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
     torch.cuda.synchronize()
-    launches = launch_counts(*DIST_KERNELS[:3])
+    launches = launch_counts(*DIST_KERNELS[:4])
     programs = program_counts()
     if set(launches.values()) != {1} or programs != {"captures": 0, "replays": 1}:
         raise AssertionError(f"rank {rank}: sharded apply launches {launches}, programs {programs}")
@@ -2193,7 +2212,7 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     stats = de.mesh_pair_stats_per_frame(pm, *planes, lag=2, bit_depth=BD, sub_x=1, sub_y=1,
                                          has_chroma=True)
     torch.cuda.synchronize()
-    diff_launches = launch_counts(*DIST_KERNELS[3:])
+    diff_launches = launch_counts(*DIST_KERNELS[4:])
     launches.update(diff_launches)
     if min(diff_launches.values()) < 3:
         raise AssertionError(f"rank {rank}: diff kernels launched {diff_launches}")
@@ -2311,6 +2330,58 @@ def distributed_phase(card, dev, eff, apply4, dev_outs, clean, grainy, two_shard
     return {k: [res["launches"][k] for res in results] for k in DIST_KERNELS}
 
 
+def graph_ms(fn, n: int) -> float:
+    """Device ms of one call of ``fn`` (kernel launches only): ``n`` calls
+    captured back to back in one CUDA graph, its replays timed by CUDA
+    events, so the host's launch cost is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 10) / n
+
+
+def plain_tables_graph(buf, key):
+    """(graph, outputs): the plain tables (``program.program_tables``, the
+    PyTorch ops the parameter program ran before the tables kernel) of the
+    static input ``buf``, captured as one CUDA graph (made with
+    ``keep_graph=True``, so ``graph_nodes`` reads it)."""
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import program as pg
+
+    def body():
+        out = pg.program_tables(tg.GrainParamsBatch(buf), key)
+        return out.params_y, out.params2, out.offsets, out.rows
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        out = body()
+    graph.instantiate()
+    return graph, out
+
+
+def tables_work(buf, outs):
+    """(bytes, operations) of the tables kernel: the parameter buffer read
+    and its four outputs written; per frame and plane 256 LUT nodes, each a
+    walk over 13 segments (TABLE_SEGMENT_OPS each), and per block offset
+    one LFSR update with its output (LFSR_OPS)."""
+    params_y, params2, offsets, _ = outs
+    planes = 1 if params2 is None else 3
+    ops = (buf.shape[0] * planes * 256 * 13 * TABLE_SEGMENT_OPS
+           + offsets.numel() * LFSR_OPS)
+    return nbytes(buf, *outs), ops
+
+
 def program_cells(apply4, lum112):
     """Phase 12's cells: (B, kind, params) at 4K10 4:2:0 for B = 16 and
     112, 3-plane tables (the chroma tables and kernel on) and luma-only
@@ -2402,6 +2473,7 @@ def program_phase(card, dev, apply4):
     share of both paths; frames/s of both in turns (eager, graph, graph,
     eager)."""
     from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
     from grav1synth_tpu_torch.ops import grain_ref
     from grav1synth_tpu_torch.ops import program as pg
 
@@ -2412,7 +2484,8 @@ def program_phase(card, dev, apply4):
     for kind, p0 in (("3-plane", apply4["batches"][16][0]), ("luma-only", apply4["lum16"][0])):
         refs[kind] = grain_ref.apply_grain_frame(
             [host16[k][0].astype(np.int32) for k in range(3)], p0, BD, SX, SY)
-    kernels = ("grain_pattern", "grain_luma", "grain_chroma_pair")
+    kernels = ("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair")
+    t, err = {}, 0
     pg.clear_programs()
     for b in (16, 112):
         cells = [c for c in program_cells(apply4, lum112) if c[0] == b]
@@ -2443,9 +2516,11 @@ def program_phase(card, dev, apply4):
         if first["captures"] != len(keys) or first["replays"] != len(cells):
             raise AssertionError(f"B={b} first pass: {first}, {len(keys)} keys, {len(cells)} cells")
         # second pass, every program captured: one replay a batch, and the
-        # pattern, luma and chroma-pair kernels once a batch where they run
+        # tables, pattern, luma and chroma-pair kernels once a batch where
+        # they run
         want_counts = {
             "captures": 0, "replays": len(cells),
+            "grain_tables": len(cells),
             "grain_pattern": len(cells),
             "grain_luma": len(cells),
             "grain_chroma_pair": sum(key.chroma_static for _, _, key in paths),
@@ -2463,21 +2538,50 @@ def program_phase(card, dev, apply4):
             f"{first}, {len(keys)} programs, their captures (with the eager warm-up; span "
             f"program.capture) {capture['total_ms'] / capture['count']:.1f} ms on average, "
             f"{capture['max_ms']:.1f} at most; then one batch a cell: {counts}")
-        # each program alone: graph nodes, device ms per replay
+        # each program alone: its graph (the tables and pattern kernels,
+        # nothing else), device ms per replay, against the plain tables'
+        # graph; the tables kernel on the whole static input against its
+        # plain version, and both timed
         for (_, kind, params), (_, _, key) in zip(cells, paths):
             if key not in keys:
                 continue
             keys.remove(key)
             prog = pg.program_for(key)
             pb = tg.pack_params(params, dev)
+            prog.run(pb)
+            nodes = graph_nodes(prog.graph)
+            if (nodes.get("kernel") != 2 or nodes["nodes"] - 2 > 1
+                    or prog.kernels != {"grain_tables": 1, "grain_pattern": 1}):
+                raise AssertionError(f"B={b} {kind}: the program's graph {nodes}, kernels "
+                                     f"recorded {prog.kernels}")
             replay_ms = cuda_ms(lambda: prog.run(pb), 50)
             alone = profile_batches(lambda: prog.run(pb), 20)
+            tables_args = (prog.static_in, key.height, key.width, key.bit_depth,
+                           key.chroma_static)
+            got = gk.grain_tables(*tables_args)
+            plain_graph, plain_out = plain_tables_graph(prog.static_in, key)
+            plain_graph.replay()
+            e = max(max_abs_err(g, w) for g, w in zip(got, plain_out) if w is not None)
+            if e > TOLERANCE or (got[1] is None) != (plain_out[1] is None):
+                raise AssertionError(f"B={b} {kind}: tables kernel vs plain max |err| {e}")
+            err = max(err, e)
+            plain_nodes = graph_nodes(plain_graph)
+            rec = timing(graph_ms(lambda: gk.grain_tables(*tables_args), 20),
+                         cuda_ms(plain_graph.replay, 20), *tables_work(prog.static_in, got))
+            rec["label"] = (f"4K10 4:2:0 B={b} (made at {key.batch}), chroma "
+                            f"{'on' if key.chroma_static else 'off'}")
+            t[rec["label"]] = rec
+            log(time_line("grain_tables", rec["label"], rec, card) +
+                " (kernel: 20 launches in one graph; plain: the plain tables' graph, "
+                f"{plain_nodes})")
             log(f"[program] B={b} (made at {key.batch}), chroma "
                 f"{'on' if key.chroma_static else 'off'} ({kind}): "
-                f"graph {graph_nodes(prog.graph)}, "
-                f"kernels recorded {prog.kernels}; "
+                f"graph {nodes} (the plain tables' graph and the pattern kernel: "
+                f"{plain_nodes['nodes'] + 1} nodes), kernels recorded {prog.kernels}; "
+                f"tables equal to the plain version's on all {key.batch} rows; "
                 f"replay {replay_ms:.4f} ms back to back (CUDA events), "
                 f"device busy {alone['busy_ms']:.4f} ms a replay (torch.profiler) on {card}")
+            del plain_graph, plain_out, got
         # the host's two pieces of a batch left outside the program;
         # pack_params on one table with new seeds (one row built) and on
         # a table a frame (a row each)
@@ -2523,6 +2627,9 @@ def program_phase(card, dev, apply4):
                 f"idle {prof['eager']['idle']:.3f}; on {card}")
         del paths
         torch.cuda.empty_cache()
+    main_case = t.pop("4K10 4:2:0 B=16 (made at 16), chroma on")
+    main_case["other_cases"] = list(t.values())
+    return {"grain_tables": main_case}, {"grain_tables": err}
 
 
 def main() -> int:
@@ -2628,12 +2735,13 @@ def main() -> int:
     spans.reset()
     outs = {key: run(b, params) for b, key, params in cases}
     torch.cuda.synchronize()
-    launches = launch_counts("grain_pattern", "grain_luma", "grain_chroma_pair")
+    launches = launch_counts("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair")
     programs = program_counts()
     log(f"[main path] launches {launches}, parameter programs {programs}")
-    # one program replay (the pattern kernel in it) and one luma kernel a
-    # batch, the chroma-pair kernel but for the luma-only batch
-    if launches != {"grain_pattern": 3, "grain_luma": 3, "grain_chroma_pair": 2} or \
+    # one program replay (the tables and pattern kernels in it) and one
+    # luma kernel a batch, the chroma-pair kernel but for the luma-only batch
+    if launches != {"grain_tables": 3, "grain_pattern": 3, "grain_luma": 3,
+                    "grain_chroma_pair": 2} or \
             programs != {"captures": 0, "replays": 3}:
         raise AssertionError(f"main path: launches {launches}, programs {programs}")
     out16, out112, outl = outs[16], outs[112], outs["luma16"]
@@ -2730,7 +2838,9 @@ def main() -> int:
     two_shard_fps = sharded_phase(card, dev, apply4, outs, clean, grainy)
     rank_launches = distributed_phase(card, dev, eff, apply4, outs, clean, grainy,
                                       two_shard_fps)
-    program_phase(card, dev, apply4)
+    phase_times, phase_errs = program_phase(card, dev, apply4)
+    times.update(phase_times)
+    errs.update(phase_errs)
     staging_phase(card, dev)
 
     summary = {

@@ -34,7 +34,8 @@ NVCC_FLAGS = [
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # argtypes of the C entry points in csrc/grain_kernels.cu,
-# csrc/pattern_kernels.cu, csrc/diff_kernels.cu and csrc/estimate_kernels.cu
+# csrc/pattern_kernels.cu, csrc/tables_kernels.cu, csrc/diff_kernels.cu and
+# csrc/estimate_kernels.cu
 SIGNATURES = {
     "grain_luma": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P],
     "grain_chroma_pair": [
@@ -42,6 +43,7 @@ SIGNATURES = {
     ],
     "grain_chroma": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "grain_pattern": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    "grain_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "diff_flat_block_activity": [_P, _P, _I, _I, _I, _P],
     "diff_plane_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "estimate_self_blur": [_P, _I, _P, _P, _I, _I, _I, _I, _P],

@@ -283,7 +283,7 @@ def _lfsr_basis(n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _lfsr_basis_on(n: int, device: torch.device) -> torch.Tensor:
     """``_lfsr_basis(n)`` on ``device``, uploaded once per (n, device) and
-    never freed: a captured parameter program reads it in place."""
+    never freed."""
     return torch.as_tensor(_lfsr_basis(n), device=device)
 
 

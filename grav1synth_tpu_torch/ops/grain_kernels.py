@@ -15,6 +15,11 @@ version.
   (replaces ``grain_jax.generate_patterns``, an XLA wavefront scan: the
   Gaussian base and AR filter of every plane, written as the packed int16
   buffer the kernels above read)
+- ``grain_tables`` -> CUDA ``grain_tables_kernel``
+  (replaces the glue of ``grain_jax``'s jitted apply: ``block_offsets``
+  with ``lfsr_outputs``, ``_scaling_eval8`` and the per-plane rows; its
+  plain version, ``grain_tables_reference``, is ``pack_plane_params``,
+  ``block_offsets`` and ``pattern_params``)
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
@@ -32,7 +37,7 @@ the kernels read the LUT directly (and interpolate between nodes above
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,10 +47,12 @@ from .grain import (
     BLOCK,
     GRAIN_H,
     GRAIN_W,
+    PARAMS_WIDTH,
     GrainParamsBatch,
     _avg_luma,
     _noise_plane,
     _round_shift,
+    block_offsets,
     chroma_pattern_shape,
     gaussian_table,
     generate_patterns,
@@ -162,6 +169,20 @@ def pattern_params(p: GrainParamsBatch) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
+
+
+def grain_tables_reference(
+    buf: torch.Tensor, height: int, width: int, bit_depth: int, chroma: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The tables of ``grain_tables`` from PyTorch ops: the luma rows, the
+    Cb|Cr rows (None unless ``chroma``), the block offsets and the pattern
+    rows of the (B, PARAMS_WIDTH) parameter buffer ``buf``."""
+    p = GrainParamsBatch(buf)
+    offsets = block_offsets(p.seed, (height + BLOCK - 1) // BLOCK, (width + BLOCK - 1) // BLOCK)
+    params2 = None
+    if chroma:
+        params2 = torch.cat([pack_plane_params(p, plane, bit_depth) for plane in ("cb", "cr")])
+    return pack_plane_params(p, "y", bit_depth), params2, offsets, pattern_params(p)
 
 
 def _grain_plane(src, noise, prm, bit_depth, scale_in):
@@ -476,3 +497,47 @@ def pattern_kernel(
     _raise_on(err, "grain_pattern launch")
     _launched("grain_pattern")
     return out
+
+
+def grain_tables(
+    buf: torch.Tensor,  # (B, PARAMS_WIDTH) int32 parameter buffer
+    height: int,
+    width: int,
+    bit_depth: int,
+    chroma: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """A batch's tables for frames of ``height`` x ``width``, in one
+    launch: new (B, P_LEN) luma rows, (2B, P_LEN) Cb then Cr rows (None
+    unless ``chroma``), (B, S, NB) block offsets and (B, Q_LEN) pattern
+    rows, all int32, equal to ``grain_tables_reference``'s."""
+    if buf.dtype != torch.int32:
+        raise TypeError(f"buf: expected torch.int32, got {buf.dtype}")
+    if buf.dim() != 2 or buf.shape[1] != PARAMS_WIDTH:
+        raise ValueError(f"buf: expected shape (B, {PARAMS_WIDTH}), got {tuple(buf.shape)}")
+    if bit_depth not in (8, 10, 12):
+        raise ValueError(f"bit depth {bit_depth} not in (8, 10, 12)")
+    if height < 0 or width < 0:
+        raise ValueError(f"frames of {height}x{width}")
+    if _on_cpu(buf):
+        return grain_tables_reference(buf, height, width, bit_depth, chroma)
+    if not buf.is_contiguous():
+        raise ValueError("buf: must be contiguous")
+    b = buf.shape[0]
+    s, nb = (height + BLOCK - 1) // BLOCK, (width + BLOCK - 1) // BLOCK
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=buf.device)
+
+    params_y, offsets, rows = empty(b, P_LEN), empty(b, s, nb), empty(b, Q_LEN)
+    params2 = empty(2 * b, P_LEN) if chroma else None
+    if b == 0:
+        return params_y, params2, offsets, rows
+    lib = _build.load()
+    with torch.cuda.device(buf.device):
+        err = lib.grain_tables(
+            buf.data_ptr(), params_y.data_ptr(), None if params2 is None else params2.data_ptr(),
+            offsets.data_ptr(), rows.data_ptr(), b, s, nb, bit_depth, _stream(buf),
+        )
+    _raise_on(err, "grain_tables launch")
+    _launched("grain_tables")
+    return params_y, params2, offsets, rows

@@ -7,14 +7,17 @@ arguments.
 The program takes a batch's one parameter buffer
 (``GrainParamsBatch.buffer``) to what the grain kernels read: the luma
 and the Cb|Cr per-plane parameter tables, the block offsets, the pattern
-rows and the pattern kernel's packed patterns (``program_body``). ``GrainProgram`` runs it for one
-``ProgramKey``. On a CUDA device it runs the body once eagerly on a side
-stream (which builds the kernels and fills the lazy device caches), then
-captures it into a ``torch.cuda.CUDAGraph``; each ``run`` copies the
-batch's buffer into the graph's static input and replays the graph on the
-current stream. On the CPU ``run`` calls the body eagerly: the same code,
-no graph. A failed capture or replay raises; nothing falls back to the
-eager body on the card.
+rows and the pattern kernel's packed patterns (``program_body``). On a
+CUDA device that is two kernel launches: the tables kernel
+(``grain_kernels.grain_tables``) and the pattern kernel on its rows.
+``GrainProgram`` runs it for one ``ProgramKey``. On a CUDA device it runs
+the body once eagerly on a side stream (which builds the kernels and
+fills the lazy device cache), then captures it into a
+``torch.cuda.CUDAGraph`` of those two kernel nodes; each ``run`` copies
+the batch's buffer into the graph's static input and replays the graph on
+the current stream. On the CPU ``run`` calls the body eagerly, with the
+plain versions of the two kernels, and no graph. A failed capture or
+replay raises; nothing falls back to the eager body on the card.
 
 A program is keyed by its batch rounded up to a power of two
 (``batch_bucket``), not by the batch itself: a batch of fewer frames
@@ -22,8 +25,8 @@ fills the first rows of the static input, and takes the first rows of
 the outputs. Every step of the body works frame by frame, so the rows
 past the batch (zeros, or an earlier batch's frames) touch nothing of
 it. The JAX package's segment bound ``n_seg`` is not in the key: the
-body evaluates every curve segment in one broadcast, at the same device
-time (``PERF.md`` §5), with the same tables.
+body evaluates every curve segment (a LUT node walks all 13), with the
+same tables.
 
 The outputs of a replay are the graph's static tensors: the next replay
 of the same program overwrites them. A caller consumes them on the stream
@@ -48,12 +51,7 @@ import torch
 
 from ..utils import spans
 from . import grain_kernels as gk
-from .grain import (
-    BLOCK,
-    PARAMS_WIDTH,
-    GrainParamsBatch,
-    block_offsets,
-)
+from .grain import PARAMS_WIDTH, GrainParamsBatch
 
 # programs kept per process, least recently used dropped first. One
 # geometry at batches of up to 2^k frames makes at most 2 (k + 1) keys
@@ -119,30 +117,26 @@ class ProgramOutputs:
                               rows_of(self.rows), rows_of(self.patterns))
 
 
+def _table_args(key: ProgramKey) -> Tuple[int, int, int, bool]:
+    return key.height, key.width, key.bit_depth, key.chroma_static and not key.monochrome
+
+
 def program_tables(p: GrainParamsBatch, key: ProgramKey) -> ProgramOutputs:
     """Everything of the program but the pattern kernel's launch, from
-    ``p``'s tensors: nothing made from host data, nothing read back."""
-    offsets = block_offsets(
-        p.seed, (key.height + BLOCK - 1) // BLOCK, (key.width + BLOCK - 1) // BLOCK
-    )
-    params_y = gk.pack_plane_params(p, "y", key.bit_depth)
-    params2 = None
-    if key.chroma_static and not key.monochrome:
-        params2 = torch.cat(
-            [gk.pack_plane_params(p, plane, key.bit_depth) for plane in ("cb", "cr")]
-        )
-    return ProgramOutputs(params_y, params2, offsets, gk.pattern_params(p))
+    ``p``'s tensors by PyTorch ops (``grain_kernels.grain_tables_reference``):
+    nothing made from host data, nothing read back. The tables kernel's
+    plain version."""
+    return ProgramOutputs(*gk.grain_tables_reference(p.buffer, *_table_args(key)))
 
 
 def program_body(buf: torch.Tensor, key: ProgramKey) -> ProgramOutputs:
     """The whole program on the (B, PARAMS_WIDTH) parameter buffer
-    ``buf``, eagerly: ``program_tables``, then the pattern kernel on its
-    rows (on the CPU, its plain version)."""
-    p = GrainParamsBatch(buf)
-    out = program_tables(p, key)
+    ``buf``, eagerly: on a CUDA device the tables kernel, then the pattern
+    kernel on its rows; on the CPU their plain versions."""
+    out = ProgramOutputs(*gk.grain_tables(buf, *_table_args(key)))
     layout = (key.bit_depth, key.sub_x, key.sub_y, key.monochrome)
     out.patterns = (gk.pattern_kernel(out.rows, *layout) if buf.is_cuda
-                    else gk.generate_patterns_packed_reference(p, *layout))
+                    else gk.generate_patterns_packed_reference(GrainParamsBatch(buf), *layout))
     return out
 
 
@@ -196,8 +190,8 @@ class GrainProgram:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                # builds the kernels and fills the lazy caches (the LFSR
-                # basis, the Gaussian table) before the capture
+                # builds the kernels and fills the lazy cache (the
+                # Gaussian table) before the capture
                 program_body(self.static_in, self.key)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=True)

@@ -331,6 +331,16 @@ def test_kernel_wrappers_check_inputs_on_cuda(cuda):
         gk.apply_plane_chroma(c, c[:, :20], pat, offs(3), prm, 8, 1, 1)
     with pytest.raises(ValueError, match="pattern: expected shape"):
         gk.apply_plane_chroma(c, c, pat, offs(3), prm, 8, 0, 0)
+    buf = torch.zeros((4, tg.PARAMS_WIDTH), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        gk.grain_tables(buf.to(torch.int64), 64, 64, 10, True)
+    with pytest.raises(ValueError, match="expected shape"):
+        gk.grain_tables(buf[:, 1:], 64, 64, 10, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.grain_tables(torch.zeros((tg.PARAMS_WIDTH, 4), dtype=torch.int32, device=cuda).t(),
+                        64, 64, 10, True)
+    with pytest.raises(ValueError, match="bit depth"):
+        gk.grain_tables(buf, 64, 64, 9, True)
 
 
 # --- the diff kernels -------------------------------------------------------
@@ -1078,7 +1088,8 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
     program: the luma kernel at 12 bits and the chroma-pair kernel's
     unsubsampled 12-bit path, whose 56,736 B of dynamic shared memory pass
     the 48 KB default, equal to their plain versions on the program's own
-    tables and patterns, frame 0 equal to grain_ref; one launch each."""
+    tables and patterns, frame 0 equal to grain_ref; one launch each, the
+    program's tables and pattern kernels included."""
     from grav1synth_tpu_torch.ops import grain_ref
 
     h, w, bd = 2160, 3840, 12
@@ -1091,7 +1102,8 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
     got = tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, 0, 0)
     torch.cuda.synchronize()
     assert _programs() == {"captures": 0, "replays": 1}
-    assert spans.counters("launch.") == {"grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1}
+    assert spans.counters("launch.") == {"grain_tables": 1, "grain_pattern": 1, "grain_luma": 1,
+                                         "grain_chroma_pair": 1}
     key = pg.ProgramKey.of(y, bd, 0, 0, False, True)
     tables = pg.program_body(tg.pack_params(params, cuda).buffer, key)
     luma_pat, cb_pat, cr_pat = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(0, 0))
@@ -1196,8 +1208,8 @@ CHROMA_STATIC = [pytest.param(False, id="luma-only"), pytest.param(True, id="dev
 def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, chroma_static):
     """The apply through the captured program equals the eager body with
     the same kernels, and the CPU run; after the capture a batch is one
-    replay, with the pattern kernel in it, and the chroma-pair kernel after
-    it unless ``chroma_static`` is False."""
+    replay, with the tables and pattern kernels in it, and the chroma-pair
+    kernel after it unless ``chroma_static`` is False."""
     params = pattern_zoo(60 + 2 * sub_x + sub_y + 4 * mono)
     if not chroma_static:
         params = luma_tables(params)
@@ -1217,6 +1229,7 @@ def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, chrom
     again = graph()
     torch.cuda.synchronize()
     assert _programs() == {"captures": 0, "replays": 1}
+    assert spans.counter("launch.grain_tables") == 1
     assert spans.counter("launch.grain_pattern") == 1
     assert spans.counter("launch.grain_luma") == 1
     assert spans.counter("launch.grain_chroma_pair") == (chroma_static and not mono)
@@ -1363,3 +1376,119 @@ def test_upload_keeps_a_batch_in_flight_on_cuda(cuda, dtype, bd):
     check(*pending.pop())
     assert host_stats().get("num_host_alloc") == allocs
     assert spans.counter("upload.frames") - frames0 == 10 * 6
+
+
+# --- the tables kernel --------------------------------------------------------
+
+DENSE_Y = [(x, (x * 7 + 13 * (i % 5)) % 256) for i, x in enumerate(range(0, 256, 19))][:14]
+# (frames, the bucket whose program runs them)
+TABLE_BATCHES = [(1, 1), (5, 8), (16, 16), (112, 128)]
+TABLE_GEOMETRIES = [(1080, 1920), (2160, 3840)]
+
+
+def tables_zoo(seed: int, n: int):
+    """``pattern_zoo``'s tables (AR lag 0-3, chroma scaling from luma, no
+    luma points, no Cr points, no points at all) with, in turn, the clip to
+    the restricted range, luma-only tables, a one-point curve on every
+    plane, a 14-point luma curve with the clip, and the overlap off."""
+    out = pattern_zoo(seed, n)
+    for i, p in enumerate(out):
+        kind = i % 7
+        if kind == 1:
+            p.clip_to_restricted_range = True
+        elif kind == 2:
+            out[i] = luma_tables([p])[0]
+        elif kind == 4:
+            p.scaling_points_y, p.scaling_points_cb = [(100, 50)], [(20, 90)]
+            p.scaling_points_cr = [(255, 7)]
+        elif kind == 5:
+            p.scaling_points_y, p.clip_to_restricted_range = DENSE_Y, True
+        elif kind == 6:
+            p.overlap_flag = False
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_tables_kernel_equals_plain_program_tables_on_cuda(cuda, bd, sub_x, sub_y, mono):
+    """The program's tables on the card (the tables kernel: luma rows, Cb|Cr
+    rows, block offsets, pattern rows) equal the plain ``program_tables`` on
+    the CPU at tolerance 0, with the chroma tables and without, at 1080p and
+    4K, for ragged batches of 1, 5, 16 and 112 frames on the whole static
+    input of their bucket: the batch's rows, then zeros or another batch's
+    rows; and on rows no table makes (points out of order or repeated,
+    every count, switches at random), as PyTorch's int32 arithmetic gives
+    them. One launch a body."""
+    rng = np.random.default_rng(bd)
+    raw = torch.from_numpy(rng.integers(0, 256, (16, tg.PARAMS_WIDTH)).astype(np.int32))
+    for field, top in (("num_y", 15), ("num_cb", 11), ("num_cr", 11), ("csfl", 2), ("overlap", 2),
+                       ("clip", 2)):
+        raw[:, tg.PARAM_COLUMNS[field][0]] = torch.from_numpy(rng.integers(0, top, 16).astype(np.int32))
+    cases = [(16, 16, "raw", raw)]
+    for b, bucket in TABLE_BATCHES:
+        batch = tg.pack_params(tables_zoo(100 + b + bd, b), "cpu").buffer
+        other = tg.pack_params(tables_zoo(200 + b, bucket), "cpu").buffer
+        for past in (torch.zeros_like(other), other):
+            buf = past.clone()
+            buf[:b] = batch
+            cases.append((b, bucket, "zeros past the batch" if past is not other else
+                          "another batch past it", buf))
+    for b, bucket, kind, buf in cases:
+        for h, w in TABLE_GEOMETRIES:
+            for chroma_static in (False, True):
+                key = pg.ProgramKey(cuda, bucket, h, w, bd, sub_x, sub_y, mono, chroma_static)
+                want = pg.program_tables(tg.GrainParamsBatch(buf),
+                                         dataclasses.replace(key, device=torch.device("cpu")))
+                launched = spans.counter("launch.grain_tables")
+                got = pg.program_body(buf.to(cuda), key)
+                assert spans.counter("launch.grain_tables") == launched + 1
+                what = f"B={b} of {bucket}, {kind}, {h}x{w}, chroma {chroma_static}"
+                for name in ("params_y", "params2", "offsets", "rows"):
+                    g, wt = getattr(got, name), getattr(want, name)
+                    assert (g is None) == (wt is None), (what, name)
+                    if wt is not None:
+                        assert g.dtype == torch.int32 and g.is_cuda, (what, name)
+                        assert torch.equal(g.cpu(), wt), (what, name)
+                assert (got.params2 is None) == (mono or not chroma_static), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chroma_static", CHROMA_STATIC)
+@pytest.mark.parametrize("sub_x,sub_y,mono", PATTERN_LAYOUTS, ids=PATTERN_LAYOUT_IDS)
+def test_program_graph_is_the_tables_and_pattern_kernels_on_cuda(cuda, sub_x, sub_y, mono,
+                                                                  chroma_static):
+    """The captured program of every key is two kernel nodes, the tables
+    kernel and the pattern kernel (read through libcuda), and at most one
+    memset or memcpy; a replay counts one launch of each, and its tables
+    equal the plain ``program_tables``."""
+    from chip_smoke import graph_nodes
+
+    params = tables_zoo(300 + 2 * sub_x + sub_y + 4 * mono, 5)
+    if not chroma_static:
+        params = luma_tables(params)
+    y = torch.zeros((len(params), 2160, 3840), dtype=torch.int16, device=cuda)
+    key = pg.ProgramKey.of(y, 10, sub_x, sub_y, mono, chroma_static)
+    pg.clear_programs()
+    prog = pg.program_for(key)
+    pb = tg.pack_params(params, cuda)
+    prog.run(pb)  # captures
+    torch.cuda.synchronize()
+    nodes = graph_nodes(prog.graph)
+    assert nodes.get("kernel") == 2, nodes
+    assert nodes["nodes"] - 2 <= 1 and set(nodes) <= {"nodes", "kernel", "memset", "memcpy"}, nodes
+    assert prog.kernels == {"grain_tables": 1, "grain_pattern": 1}
+    spans.reset()
+    out = prog.run(pb)
+    torch.cuda.synchronize()
+    assert _programs() == {"captures": 0, "replays": 1}
+    assert spans.counter("launch.grain_tables") == 1
+    assert spans.counter("launch.grain_pattern") == 1
+    want = pg.program_tables(tg.GrainParamsBatch(pb.buffer.cpu()),
+                             dataclasses.replace(key, device=torch.device("cpu")))
+    for name in ("params_y", "params2", "offsets", "rows"):
+        g, wt = getattr(out, name), getattr(want, name)
+        assert (g is None) == (wt is None), name
+        if wt is not None:
+            assert torch.equal(g.cpu(), wt), name
+    pg.clear_programs()

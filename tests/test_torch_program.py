@@ -46,10 +46,11 @@ from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
 from grav1synth_tpu_torch.ops import program as pg
 from grav1synth_tpu_torch.parallel import mesh as tmesh
+from grav1synth_tpu_torch.utils import spans
 
-from test_torch_cuda import pattern_zoo, ref_packed, ref_patterns, stray_slot_frames, stray_slots
-
-DENSE_Y = [(x, (x * 7 + 13 * (i % 5)) % 256) for i, x in enumerate(range(0, 256, 19))][:14]
+from test_torch_cuda import (
+    DENSE_Y, pattern_zoo, ref_packed, ref_patterns, stray_slot_frames, stray_slots,
+)
 
 # (id, sub_x, sub_y, mono)
 LAYOUTS = [("420", 1, 1, False), ("422", 1, 0, False), ("444", 0, 0, False), ("mono", 1, 1, True)]
@@ -515,6 +516,34 @@ def test_program_outputs_equal_parent_tables(bd, layout, sub_x, sub_y, mono):
     assert torch.equal(card.patterns, ref_packed(params, bd, sub_x, sub_y, mono))
     again = pg.program_for(keys[0]).run(pb)
     assert again.params_y is not card.params_y and torch.equal(again.params_y, card.params_y)
+
+
+@pytest.mark.parametrize("chroma", [pytest.param(True, id="chroma"),
+                                    pytest.param(False, id="luma-only")])
+def test_tables_wrapper_takes_the_plain_version_on_the_cpu(chroma):
+    """``grain_tables`` on a CPU buffer is its plain version, the program's
+    tables, with no kernel launched; a buffer of another dtype or width, or
+    another bit depth, is refused before anything runs."""
+    pb = tg.pack_params(mixed_batch(6), "cpu")
+    y = torch.zeros((len(pb.seed), 70, 130), dtype=torch.int16)
+    key = pg.ProgramKey.of(y, 12, 1, 1, False, chroma)
+    launched = spans.counter("launch.grain_tables")
+    got = gk.grain_tables(pb.buffer, 70, 130, 12, chroma)
+    want = pg.program_tables(pb, key)
+    assert spans.counter("launch.grain_tables") == launched
+    assert (got[1] is None) == (not chroma)
+    for g, (name, w) in zip(got, [(n, getattr(want, n))
+                                  for n in ("params_y", "params2", "offsets", "rows")]):
+        if w is not None:
+            _equal(g, w, name)
+    with pytest.raises(TypeError, match="int32"):
+        gk.grain_tables(pb.buffer.to(torch.int64), 70, 130, 12, chroma)
+    with pytest.raises(ValueError, match="expected shape"):
+        gk.grain_tables(pb.buffer[:, 1:], 70, 130, 12, chroma)
+    with pytest.raises(ValueError, match="expected shape"):
+        gk.grain_tables(pb.buffer[0], 70, 130, 12, chroma)
+    with pytest.raises(ValueError, match="bit depth"):
+        gk.grain_tables(pb.buffer, 70, 130, 9, chroma)
 
 
 def test_program_refuses_a_batch_it_was_not_made_for():
