@@ -28,7 +28,17 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    batch once the programs are captured (the chroma-pair kernel skipped
    for the luma-only tables); then kernel times (CUDA events, on
    grain_ref's patterns)
-   beside the plain versions', and apply frames/s;
+   beside the plain versions', and apply frames/s; then the same main
+   path at the uhd10_422 benchmark cell's layout (3840x2160 10-bit 4:2:2)
+   on tables drawn as that cell draws them (the benchmark's own
+   ``draw_tables``: 14 luma, 10 Cb and 10 Cr points, AR lag 3, overlap and
+   the restricted-range clip on; frame k of a batch takes table k % 64):
+   batches of 16 and 112, the chroma-pair kernel's ``<1,0>``
+   instantiation counted (``launch.grain_chroma_pair.10``), the kernels
+   against their plain versions at B = 16, every frame against the grain
+   kernels on grain_ref's patterns and the first and last frames against
+   grain_ref, then the luma and chroma-pair kernels' times at B = 112
+   beside their bytes bounds, and apply frames/s;
 5. the two diff kernels against their plain versions on the card, equal
    to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
    small odd and even sizes (a plane under 16 px included) and at
@@ -2632,6 +2642,101 @@ def program_phase(card, dev, apply4):
     return {"grain_tables": main_case}, {"grain_tables": err}
 
 
+def cell_tables(config: str, seed: int, n: int):
+    """A benchmark configuration (``benchmark/configs/<config>.json``) and
+    ``n`` tables of its shape, drawn by the benchmark's own ``draw_tables``
+    as its apply cells draw them, as the port's parameters."""
+    from grav1synth_tpu_torch.obu.types import FilmGrainParams
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark")
+    with open(os.path.join(bench, "configs", config + ".json")) as fh:
+        cfg = json.load(fh)
+    sys.path.insert(0, bench)
+    try:
+        import inputs
+    finally:
+        sys.path.remove(bench)
+    return cfg, [FilmGrainParams(**t) for t in inputs.draw_tables(seed, cfg["grain"], n)]
+
+
+def layout_422_phase(card, dev) -> None:
+    """Phase 4's main path at the uhd10_422 cell's layout and tables: 4K
+    10-bit 4:2:2, AR lag 3, 14/10/10 points, overlap and clip on."""
+    from grav1synth_tpu_torch.ops import grain as tg
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    cfg, pool = cell_tables("uhd10_422", 2**33 + 4221, 64)
+    h, w, bd = cfg["height"], cfg["width"], cfg["bit_depth"]
+    sx, sy = cfg["subsampling"]
+    shape = {(p.ar_coeff_lag, len(p.scaling_points_y), len(p.scaling_points_cb),
+              len(p.scaling_points_cr), p.overlap_flag, p.clip_to_restricted_range) for p in pool}
+    if (h, w, bd, sx, sy) != (2160, 3840, 10, 1, 0) or shape != {(3, 14, 10, 10, True, True)}:
+        raise AssertionError(f"uhd10_422: geometry {(w, h, bd, sx, sy)}, tables {shape}")
+    what = "4K10 4:2:2 uhd10_422 tables"
+    # as the cell's batches take them: frame k the table k % 64
+    batches = {b: [pool[k % len(pool)] for k in range(b)] for b in (16, 112)}
+    host16 = random_planes(np.random.default_rng(422), 16, h, w, bd, sx, sy)
+    dev16 = [torch.from_numpy(a).to(dev) for a in host16]
+    frames = {16: dev16, 112: [t.repeat(7, 1, 1) for t in dev16]}
+    pats = {b: tg.generate_patterns_ref(ps, bd, sx, sy) for b, ps in batches.items()}
+
+    def run(b):
+        return tg.apply_grain(*frames[b], tg.pack_params(batches[b], dev), bd, sx, sy)
+
+    for b in batches:  # the captures
+        run(b)
+    torch.cuda.synchronize()
+    spans.reset()
+    outs = {b: run(b) for b in batches}
+    torch.cuda.synchronize()
+    launches = launch_counts("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair")
+    layouts = spans.counters("launch.grain_chroma_pair.")
+    programs = program_counts()
+    packed = {k: spans.counter("pack." + k) for k in ("frames", "rows")}
+    log(f"[main path 4:2:2] launches {launches}, chroma-pair by layout {layouts}, parameter "
+        f"programs {programs}, pack {packed}")
+    # one program replay, one luma and one chroma-pair kernel a batch, the
+    # chroma-pair kernel's <1,0>; the cell's 64 tables differ only in
+    # grain_seed, so each batch packs one parameter row
+    if launches != {"grain_tables": 2, "grain_pattern": 2, "grain_luma": 2,
+                    "grain_chroma_pair": 2} or layouts != {"10": 2} or \
+            programs != {"captures": 0, "replays": 2} or packed != {"frames": 128, "rows": 2}:
+        raise AssertionError(f"{what}: launches {launches}, by layout {layouts}, "
+                             f"programs {programs}, pack {packed}")
+    for b, o in outs.items():
+        for k, t in enumerate(o):
+            if tuple(t.shape) != tuple(frames[b][k].shape) or t.dtype != torch.int16:
+                raise AssertionError(f"{what} B={b} plane {k}: shape {tuple(t.shape)} {t.dtype}")
+    errs = {"grain_luma": 0, "grain_chroma_pair": 0}
+    compare_kernels(batches[16], frames[16], bd, sx, sy, dev, errs, f"{what} B=16",
+                    lambda *a: pats[16])
+    check_against_grain_ref(outs[16], host16, batches[16], bd, sx, sy, [0], f"{what} B=16")
+    check_against_grain_ref([t[96:] for t in outs[112]], host16, batches[112][96:], bd, sx, sy,
+                            [15], f"{what} B=112 last frame")
+    args = {b: kernel_inputs(batches[b], frames[b], bd, sx, sy, dev, lambda *a, b=b: pats[b])
+            for b in batches}
+    for b, (la, pa) in args.items():
+        want = [gk.apply_plane_luma(*la), *gk.apply_planes_pair(*pa)]
+        for k, wt in enumerate(want):
+            if not torch.equal(outs[b][k], wt):
+                raise AssertionError(f"{what} B={b} plane {k}: differs from the grain kernels "
+                                     "on grain_ref's patterns")
+        del want
+    log(f"[main path 4:2:2] {what}, B=16 and B=112: the kernels equal to their plain versions "
+        f"at B=16 (max |err| {errs}); every frame equal to the grain kernels on grain_ref's "
+        "patterns; first/last frames equal to grain_ref")
+    luma112, pair112 = args[112]
+    log(time_line("grain_luma", f"{what} B=112", timing(
+        cuda_ms(lambda: gk.apply_plane_luma(*luma112), 10), None, *luma_work(luma112)), card))
+    log(time_line("grain_chroma_pair", f"{what} B=112 (<1,0>)", timing(
+        cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10), None, *pair_work(pair112)), card))
+    fps = frames_per_s(lambda: run(112), 112, 3)
+    log(f"[apply] {what} B=112: {fps:.1f} frames/s (param pack, the parameter program with the "
+        f"tables and pattern kernels, the grain kernels) on {card}")
+    del outs, args, luma112, pair112, frames, dev16
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # 1. card identity
     if not torch.cuda.is_available():
@@ -2817,6 +2922,7 @@ def main() -> int:
     )
     del luma_args, pair_args, luma112, pair112, pats16
     torch.cuda.empty_cache()
+    layout_422_phase(card, dev)
     clean, grainy = grained_film(eff, dev)
     for phase in (
         lambda: diff_phases(card, eff, dev, clean, grainy),

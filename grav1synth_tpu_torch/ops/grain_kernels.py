@@ -24,7 +24,9 @@ version.
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it checks device, dtype, shape and contiguity, then launches the
 kernel or raises, and counts the launch in ``utils.spans``'
-``launch.<kernel>`` counter. A launch recorded into a CUDA graph under
+``launch.<kernel>`` counter (the chroma-pair kernel's also under
+``launch.grain_chroma_pair.<sub_x><sub_y>``, its layout's instantiation:
+``.11``, ``.10``, ``.00``). A launch recorded into a CUDA graph under
 capture launches nothing: it is counted in ``recorded.<kernel>``, and the
 graph's owner (``ops.program``) adds what its graph holds to
 ``launch.<kernel>`` on each replay.
@@ -91,13 +93,12 @@ Q_COEFFS_CR = Q_COEFFS_CB + 24
 Q_LEN = Q_COEFFS_CR + 24
 
 
-def _launched(name: str) -> None:
-    """Count one launch of ``name``'s kernel, or, under graph capture,
+def _launched(*names: str) -> None:
+    """Count one launch under each of ``names``, or, under graph capture,
     one launch recorded into the graph."""
-    if torch.cuda.is_current_stream_capturing():
-        spans.count("recorded." + name)
-    else:
-        spans.count("launch." + name)
+    kind = "recorded." if torch.cuda.is_current_stream_capturing() else "launch."
+    for name in names:
+        spans.count(kind + name)
 
 
 def pack_plane_params(p: GrainParamsBatch, plane: str, bit_depth: int) -> torch.Tensor:
@@ -354,8 +355,13 @@ def apply_plane_luma(
     return out
 
 
+# the chroma-pair kernel's counter of each layout's instantiation
+_PAIR_LAYOUT = {(sx, sy): f"grain_chroma_pair.{sx}{sy}"
+                for sx, sy in ((1, 1), (1, 0), (0, 0))}
+
+
 def _check_depth_and_subsampling(bit_depth: int, sub_x: int, sub_y: int) -> None:
-    if (sub_x, sub_y) not in ((1, 1), (1, 0), (0, 0)):
+    if (sub_x, sub_y) not in _PAIR_LAYOUT:
         raise ValueError(f"unsupported subsampling {(sub_x, sub_y)}")
     if bit_depth not in (8, 10, 12):
         raise ValueError(f"bit depth {bit_depth} not in (8, 10, 12)")
@@ -452,7 +458,7 @@ def apply_planes_pair(
             b, h, w, sub_x, sub_y, bit_depth, _stream(y),
         )
     _raise_on(err, "grain_chroma_pair launch")
-    _launched("grain_chroma_pair")
+    _launched("grain_chroma_pair", _PAIR_LAYOUT[sub_x, sub_y])
     return out_cb, out_cr
 
 

@@ -10,6 +10,9 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 import copy
 import dataclasses
+import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,6 +23,28 @@ from grav1synth_tpu_torch.ops import grain as tg
 from grav1synth_tpu_torch.ops import grain_kernels as gk
 from grav1synth_tpu_torch.ops import program as pg
 from grav1synth_tpu_torch.utils import spans
+
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
+
+
+def bench_module(name):
+    """A module of the benchmark's folder by its dotted name under it
+    (``inputs``, ``reference.grain_ref``), with the folder on the path
+    while it imports."""
+    if name not in sys.modules:
+        sys.path.insert(0, BENCH)
+        try:
+            __import__(name)
+        finally:
+            sys.path.remove(BENCH)
+    return sys.modules[name]
+
+
+def bench_config(name):
+    """A configuration of the benchmark (``benchmark/configs/<name>.json``)."""
+    with open(os.path.join(BENCH, "configs", name + ".json")) as fh:
+        return json.load(fh)
 
 
 def _programs():
@@ -1103,7 +1128,7 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
     torch.cuda.synchronize()
     assert _programs() == {"captures": 0, "replays": 1}
     assert spans.counters("launch.") == {"grain_tables": 1, "grain_pattern": 1, "grain_luma": 1,
-                                         "grain_chroma_pair": 1}
+                                         "grain_chroma_pair": 1, "grain_chroma_pair.00": 1}
     key = pg.ProgramKey.of(y, bd, 0, 0, False, True)
     tables = pg.program_body(tg.pack_params(params, cuda).buffer, key)
     luma_pat, cb_pat, cr_pat = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(0, 0))
@@ -1119,6 +1144,58 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
                                       params[0], bd, 0, 0)
     for k in range(3):
         assert np.array_equal(got[k][0].cpu().numpy().astype(np.int32), ref[k]), f"plane {k}"
+
+
+@pytest.mark.cuda
+def test_apply_at_4k_10bit_422_on_the_cells_tables_on_cuda(cuda):
+    """3840x2160 10-bit 4:2:2, B = 2, on tables of the uhd10_422 cell's
+    shape drawn by the benchmark's own ``draw_tables`` (14 luma, 10 Cb and
+    10 Cr points, AR lag 3, overlap on, restricted-range clip), through
+    ``pack_params`` and ``apply_grain``, the benchmark's path: both frames
+    equal to the benchmark's frozen grain_ref on every plane, the
+    chroma-pair kernel's <1,0> instantiation launched once."""
+    from grav1synth_tpu_torch.obu.types import FilmGrainParams
+
+    cfg = bench_config("uhd10_422")
+    h, w, bd = cfg["height"], cfg["width"], cfg["bit_depth"]
+    sub_x, sub_y = cfg["subsampling"]
+    tables = bench_module("inputs").draw_tables(2**33 + 422, cfg["grain"], 2)
+    params = [FilmGrainParams(**t) for t in tables]
+    assert len(tables[0]["ar_coeffs_y"]) == 24 and len(tables[0]["scaling_points_y"]) == 14
+    y, cb, cr = _random_planes(np.random.default_rng(422), 2, h, w, bd, sub_x, sub_y, cuda)
+    tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, sub_x, sub_y)  # the capture
+    torch.cuda.synchronize()
+    spans.reset()
+    got = tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, sub_x, sub_y)
+    got = [t.cpu().numpy().astype(np.int32) for t in got]
+    assert spans.counter("launch.grain_chroma_pair") == 1
+    assert spans.counters("launch.grain_chroma_pair.") == {"10": 1}
+    grain_ref = bench_module("reference.grain_ref")
+    ref_params = bench_module("reference.types").FilmGrainParams
+    for i, t in enumerate(tables):
+        planes = [p[i].cpu().numpy().astype(np.int32) for p in (y, cb, cr)]
+        want = grain_ref.apply_grain_frame(planes, ref_params(**t), bd, sub_x, sub_y)
+        for k in range(3):
+            wrong = int(np.count_nonzero(got[k][i] != want[k]))
+            assert wrong == 0, f"frame {i} plane {k}: {wrong} samples differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)], ids=["420", "422", "444"])
+def test_chroma_pair_launches_counted_by_layout_on_cuda(cuda, sub_x, sub_y):
+    """``launch.grain_chroma_pair.<sub_x><sub_y>`` counts the chroma-pair
+    kernel's launches of a batch's own layout, once an ``apply_grain``,
+    and no other layout's."""
+    params = _params()
+    rng = np.random.default_rng(7)
+    y, cb, cr = _random_planes(rng, len(params), 64, 96, 10, sub_x, sub_y, cuda)
+    tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), 10, sub_x, sub_y)  # the capture
+    spans.reset()
+    for n in (1, 2):
+        tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), 10, sub_x, sub_y)
+        assert spans.counters("launch.grain_chroma_pair.") == {f"{sub_x}{sub_y}": n}
+        assert spans.counter("launch.grain_chroma_pair") == n
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -29,9 +29,6 @@ Inputs come from numpy seeds. Integer arithmetic: every comparison is exact.
 """
 
 import dataclasses
-import json
-import os
-import sys
 
 import numpy as np
 import pytest
@@ -49,7 +46,8 @@ from grav1synth_tpu_torch.parallel import mesh as tmesh
 from grav1synth_tpu_torch.utils import spans
 
 from test_torch_cuda import (
-    DENSE_Y, pattern_zoo, ref_packed, ref_patterns, stray_slot_frames, stray_slots,
+    DENSE_Y, bench_config, bench_module, pattern_zoo, ref_packed, ref_patterns,
+    stray_slot_frames, stray_slots,
 )
 
 # (id, sub_x, sub_y, mono)
@@ -90,22 +88,6 @@ def luma_batch(seed: int):
     return out
 
 
-BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
-
-
-def _bench_module(name):
-    """A module of the benchmark's folder by its dotted name under it
-    (``inputs``, ``reference.grain_ref``), with the folder on the path
-    while it imports."""
-    if name not in sys.modules:
-        sys.path.insert(0, BENCH)
-        try:
-            __import__(name)
-        finally:
-            sys.path.remove(BENCH)
-    return sys.modules[name]
-
-
 # generate's table shape (``ops/photon_noise.py``): 14 luma points, no
 # chroma points, AR lag 0, overlap on
 PHOTON_GRAIN = {"y_points": 14, "cb_points": 0, "cr_points": 0, "ar_lag": 0, "overlap": True,
@@ -116,20 +98,26 @@ def drawn_batch(flags, seed: int = 2**31 + 17):
     """Three tables drawn by the benchmark's own ``draw_tables``, as the JAX
     package's parameters. With ``photon`` in ``flags``, of generate's
     shape; else of the uhd12_444 cell's shape (4 Y, 2 Cb, 2 Cr points, AR
-    lag 2) with overlap and clipping on where ``flags`` name them, chroma
-    scaled from luma (and no chroma points) with ``cfl``, AR lag 3 with
-    ``lag3``."""
+    lag 2), or with ``cell422`` of the uhd10_422 cell's (14 Y, 10 Cb, 10 Cr
+    points, AR lag 3), with overlap and clipping on where ``flags`` name
+    them, chroma scaled from luma (and no chroma points) with ``cfl``, AR
+    lag 3 with ``lag3``. One draw's tables differ only in ``grain_seed``,
+    so they make one run of frames sharing a parameter row; with ``runs``
+    the last table comes from a second draw, a second run."""
     if "photon" in flags:
         grain = PHOTON_GRAIN
     else:
-        with open(os.path.join(BENCH, "configs", "uhd12_444.json")) as fh:
-            grain = json.load(fh)["grain"]
-        grain = dict(grain, overlap="overlap" in flags, clip_to_restricted_range="clip" in flags)
+        cell = "uhd10_422" if "cell422" in flags else "uhd12_444"
+        grain = dict(bench_config(cell)["grain"], overlap="overlap" in flags,
+                     clip_to_restricted_range="clip" in flags)
         if "cfl" in flags:
             grain.update(cb_points=0, cr_points=0, chroma_scaling_from_luma=True)
         if "lag3" in flags:
             grain["ar_lag"] = 3
-    tables = _bench_module("inputs").draw_tables(seed, grain, 3)
+    draw = bench_module("inputs").draw_tables
+    tables = draw(seed, grain, 3)
+    if "runs" in flags:
+        tables[2:] = draw(seed + 1, grain, 1)
     return [JaxParams(**t) for t in tables]
 
 
@@ -635,6 +623,16 @@ APPLY_CASES = [
     ("444-12-71x134-cell", 0, 0, False, 12, 71, 134, "cell"),
     ("444-12-71x134-cell-cfl", 0, 0, False, 12, 71, 134, "cell overlap cfl"),
     ("444-12-71x134-cell-lag3", 0, 0, False, 12, 71, 134, "cell overlap lag3"),
+    # the uhd10_422 cell's layout, depth and table shape, B = 3, at an even
+    # and an odd size: one run of frames sharing a row, and two runs
+    ("422-10-70x100-cell422-overlap-clip", 1, 0, False, 10, 70, 100, "cell422 overlap clip"),
+    ("422-10-70x100-cell422-overlap", 1, 0, False, 10, 70, 100, "cell422 overlap"),
+    ("422-10-70x100-cell422-overlap-clip-runs", 1, 0, False, 10, 70, 100,
+     "cell422 overlap clip runs"),
+    ("422-10-41x527-cell422-overlap-clip", 1, 0, False, 10, 41, 527, "cell422 overlap clip"),
+    ("422-10-41x527-cell422-overlap", 1, 0, False, 10, 41, 527, "cell422 overlap"),
+    ("422-10-41x527-cell422-overlap-clip-runs", 1, 0, False, 10, 41, 527,
+     "cell422 overlap clip runs"),
     # generate's table shape: at 4:4:4 12-bit, and at 1080p8's layout and depth
     ("444-12-71x134-photon", 0, 0, False, 12, 71, 134, "photon"),
     ("420-8-67x120-photon", 1, 1, False, 8, 67, 120, "photon"),
@@ -660,8 +658,13 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
     params = _batch(batch, bd + h)
     y, cb, cr = frames(len(params), h, w, bd, sub_x, sub_y, mono, seed=bd * 7 + h)
     jb = grain_jax.pack_params(params)
+    rows, n = spans.counter("pack.rows"), spans.counter("pack.frames")
     pb = tg.pack_params(params, "cpu")
     assert pb.touches_chroma == (batch not in LUMA_ONLY)
+    if batch not in ("mixed", "luma"):
+        # a parameter row a run of frames sharing a table
+        assert spans.counter("pack.frames") - n == 3
+        assert spans.counter("pack.rows") - rows == (2 if "runs" in batch else 1)
     cb_t, cr_t = _t(cb), _t(cr)
     key = pg.ProgramKey.of(_t(y), bd, sub_x, sub_y, mono, pb.touches_chroma)
     outs = {
@@ -695,8 +698,8 @@ def test_apply_through_program_matches_jax_and_ref(sub_x, sub_y, mono, bd, h, w,
                    f"grain_ref frame {i} plane {k}")
     if batch not in ("mixed", "luma"):
         # the frozen reference that decides the cell's ``correct``
-        bench_ref = _bench_module("reference.grain_ref")
-        ref_params = _bench_module("reference.types").FilmGrainParams
+        bench_ref = bench_module("reference.grain_ref")
+        ref_params = bench_module("reference.types").FilmGrainParams
         for i, p in enumerate(params):
             ref = bench_ref.apply_grain_frame([pl[i].astype(np.int32) for pl in planes],
                                               ref_params(**dataclasses.asdict(p)), bd, sub_x, sub_y)
