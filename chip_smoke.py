@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 2. build the CUDA kernels from grav1synth_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card, integer-
    equal, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x small odd and even sizes,
-   the edge geometries of the vectorised luma and chroma-pair kernels
+   the edge geometries of the vectorised luma, chroma-pair and fused
+   kernels
    (widths 520-535, every residue mod 8, at odd and even heights, with
    planes switched off in mixed batches; a batch slice whose frame bases
    are not 16-byte aligned; more work units than resident CTAs) and at
@@ -21,24 +22,28 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    on the host and reseeded to batches of 16 and 112, applied through
    ``ops.grain.apply_grain`` on the card (3-plane and luma-only tables;
    each batch one parameter program with the tables and pattern kernels
-   in it, captured here and replayed, then the grain kernels), first
-   frames checked against grain_ref and every frame against the grain
-   kernels on grain_ref's patterns, the tables, pattern, luma and
+   in it, captured here and replayed, then the fused grain kernel, or
+   the luma kernel alone for luma-only tables), first frames checked
+   against grain_ref and every frame against the luma and chroma-pair
+   kernels on grain_ref's patterns, the tables, pattern, fused, luma and
    chroma-pair kernels' launches and the programs' replays counted, one a
-   batch once the programs are captured (the chroma-pair kernel skipped
-   for the luma-only tables); then kernel times (CUDA events, on
-   grain_ref's patterns)
-   beside the plain versions', and apply frames/s; then the same main
-   path at the uhd10_422 benchmark cell's layout (3840x2160 10-bit 4:2:2)
-   on tables drawn as that cell draws them (the benchmark's own
-   ``draw_tables``: 14 luma, 10 Cb and 10 Cr points, AR lag 3, overlap and
-   the restricted-range clip on; frame k of a batch takes table k % 64):
-   batches of 16 and 112, the chroma-pair kernel's ``<1,0>``
-   instantiation counted (``launch.grain_chroma_pair.10``), the kernels
-   against their plain versions at B = 16, every frame against the grain
-   kernels on grain_ref's patterns and the first and last frames against
-   grain_ref, then the luma and chroma-pair kernels' times at B = 112
-   beside their bytes bounds, and apply frames/s;
+   batch once the programs are captured (the luma kernel only for the
+   luma-only tables, the chroma-pair kernel never); then kernel times
+   (CUDA events, on grain_ref's patterns) beside the plain versions', the
+   fused kernel's at B = 16 and 112 beside the luma and chroma-pair
+   kernels' on the same inputs, and apply frames/s; then the same main
+   path at the 4K benchmark cells' layouts and tables (``CELL_LAYOUTS``:
+   uhd10_420, uhd10_422 at 3840x2160 10-bit 4:2:2 and uhd12_444 at 12-bit
+   4:4:4, tables drawn as those cells draw them by the benchmark's own
+   ``draw_tables``, uhd10_422's with 14 luma, 10 Cb and 10 Cr points, AR
+   lag 3, overlap and the restricted-range clip on; frame k of a batch
+   takes table k % 64): batches of 16 and 112, the fused kernel's
+   instantiation of the layout counted (``launch.grain_fused.<sx><sy>``),
+   the kernels against their plain versions at B = 16, every frame
+   against the luma and chroma-pair kernels on grain_ref's patterns and
+   the first and last frames against grain_ref, then the fused kernel's
+   times at B = 16 and 112 beside its bytes bound and beside the luma and
+   chroma-pair kernels on the same inputs, and apply frames/s;
 5. the two diff kernels against their plain versions on the card, equal
    to the last bit, over 4:2:0/4:2:2/4:4:4 x 8/10/12-bit x lag 1-3 x
    small odd and even sizes (a plane under 16 px included) and at
@@ -123,8 +128,7 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    ``sharded_apply_with_stats`` over the ``ProcessMesh`` (patterns made on
    the card): every frame equal by sha256 to phase 10's unsharded output,
    frames 16 and energy equal to the int64 recount on both ranks, the
-   tables, pattern, luma and chroma-pair kernels launched once in each
-   rank; then
+   tables, pattern and fused kernels launched once in each rank; then
    ``mesh_pair_stats_per_frame`` over the two ranks on phase 6's first
    batch of 16 (lag 2): the whole batch's per-frame statistics on each
    rank equal to the single-process ones to the last bit, both diff
@@ -140,7 +144,7 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    every frame of the graph path equal to the
    program's eager body on the card followed by the same kernels, frame 0
    to grain_ref (chroma to the input where it is off); captures, replays and the
-   tables, pattern, luma and chroma-pair kernels' launches counted exactly;
+   tables, pattern, fused and luma kernels' launches counted exactly;
    each program's graph nodes (read through libcuda: two kernel nodes, the
    tables and pattern kernels, and at most one memset or memcpy), capture
    ms and device time a replay; the tables kernel on each program's whole
@@ -210,6 +214,7 @@ IVF = ".bench_cache/bench_4k10_grainy.ivf"
 SOURCES = {
     "grain_luma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_chroma_pair": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
+    "grain_fused": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_chroma": "grav1synth_tpu_torch/csrc/grain_kernels.cu",
     "grain_pattern": "grav1synth_tpu_torch/csrc/pattern_kernels.cu",
     "grain_tables": "grav1synth_tpu_torch/csrc/tables_kernels.cu",
@@ -221,6 +226,7 @@ SOURCES = {
 REPLACES = {
     "grain_luma": "grav1synth_tpu/ops/grain_pallas.py:575",  # _luma_kernel
     "grain_chroma_pair": "grav1synth_tpu/ops/grain_pallas.py:775",  # _chroma_pair_kernel
+    "grain_fused": "grav1synth_tpu/ops/grain_pallas.py:885",  # _fused_kernel
     "grain_chroma": "grav1synth_tpu/ops/grain_pallas.py:584",  # _chroma_kernel
     # _ar_filter: an XLA lax.scan (with _gaussian_base and
     # _ar_filter_chroma), not a Pallas kernel
@@ -244,7 +250,8 @@ TOLERANCE = 0
 # taken in another order, may round
 ESTIMATE_RTOL = 1e-9
 KERNELS = (
-    "grain_luma", "grain_chroma_pair", "grain_chroma", "grain_pattern", "grain_tables",
+    "grain_luma", "grain_chroma_pair", "grain_fused", "grain_chroma", "grain_pattern",
+    "grain_tables",
     "flat_block_activity", "plane_stats", "self_blur", "self_stats",
 )
 # energy of the sharded apply (an exact int64 sum per shard, added in
@@ -444,6 +451,7 @@ extern "C" int dmma_gram(const void* d, int p, void* g, int shape, void* stream)
 LIBRARY_NOTE = {
     "grain_luma": "none: per-block pattern gather, LUT scaling and overlap blend",
     "grain_chroma_pair": "none: the chroma grain of grain_luma with the luma pair average",
+    "grain_fused": "none: grain_luma's and grain_chroma_pair's functions in one pass",
     "grain_chroma": "none: one plane of grain_chroma_pair's function",
     "grain_pattern": "none: an AR recurrence over LFSR Gaussian noise",
     "grain_tables": "none: scaling LUTs, parameter rows and LFSR block offsets",
@@ -542,6 +550,48 @@ def pair_work(pair_args):
     on = (p2[:b, gk.P_ACTIVE] > 0) | (p2[b:, gk.P_ACTIVE] > 0)
     ops = AVG_OPS * float(on.sum()) * samples + chroma_ops(p2[:b], samples) + chroma_ops(p2[b:], samples)
     return luma + 2 * nbytes(cb, cr) + nbytes(cbp, crp, offs, p2), ops
+
+
+def fused_args(luma_args, pair_args):
+    """The fused kernel's arguments from the luma and chroma-pair
+    kernels'."""
+    y, lp, offs, py, bd = luma_args
+    _, cb, cr, cbp, crp, _, p2, _, sx, sy = pair_args
+    return (y, cb, cr, lp, cbp, crp, offs, py, p2, bd, sx, sy)
+
+
+def fused_work(luma_args, pair_args):
+    """(bytes, operations) of the fused kernel: every plane read and
+    written once, its luma too; patterns, randoms and parameter rows read
+    once; the luma and chroma-pair kernels' operations."""
+    y, lp, offs, py, _ = luma_args
+    _, cb, cr, cbp, crp, _, p2, _, _, _ = pair_args
+    ops = luma_work(luma_args)[1] + pair_work(pair_args)[1]
+    return 2 * nbytes(y, cb, cr) + nbytes(lp, cbp, crp, offs, py, p2), ops
+
+
+def time_fused(what: str, luma_args, pair_args, card: str, plain: bool = False) -> dict:
+    """The fused kernel's ``[time]`` line on the luma and chroma-pair
+    kernels' inputs (its plain version's time where ``plain``), then the
+    two kernels on the same inputs: their time, their own bound (the luma
+    read twice) and the share of the fused kernel's bound their time
+    reaches. Returns the fused kernel's record."""
+    from grav1synth_tpu_torch.ops import grain_kernels as gk
+
+    fa = fused_args(luma_args, pair_args)
+    k3 = timing(cuda_ms(lambda: gk.apply_planes_fused(*fa), 10),
+                cuda_ms(lambda: gk.apply_planes_fused_reference(*fa), 3, 1) if plain else None,
+                *fused_work(luma_args, pair_args))
+    log(time_line("grain_fused", what, k3, card))
+    two_ms = cuda_ms(lambda: (gk.apply_plane_luma(*luma_args), gk.apply_planes_pair(*pair_args)), 10)
+    (lb, lo), (pb, po) = luma_work(luma_args), pair_work(pair_args)
+    two = timing(two_ms, None, lb + pb, lo + po)
+    log(f"[time] grain_luma + grain_chroma_pair {what}: kernels {two_ms:.4f} ms; their bound "
+        f"{two['bound_ms']:.4f} ms by {two['bound_by']} ({two['bytes'] / 1e6:.1f} MB, the luma "
+        f"read twice), share {two['bound_ms'] / two_ms:.3f}; the fused kernel's bound over their "
+        f"time {k3['bound_ms'] / two_ms:.3f}; the fused kernel {two_ms / k3['ms']:.3f}x their "
+        f"speed, on {card}")
+    return k3
 
 
 def pattern_work(params, packed, rows, sub_x: int, sub_y: int):
@@ -732,7 +782,8 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def compare_kernels(params, planes, bd, sub_x, sub_y, device, errs, what, generate=None):
-    """Each kernel against its plain version on the same device inputs."""
+    """Each kernel (luma, chroma-pair, fused) against its plain version on
+    the same device inputs."""
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
     luma_args, pair_args = kernel_inputs(params, planes, bd, sub_x, sub_y, device, generate)
@@ -742,10 +793,14 @@ def compare_kernels(params, planes, bd, sub_x, sub_y, device, errs, what, genera
     got2 = gk.apply_planes_pair(*pair_args)
     want2 = gk.apply_planes_pair_reference(*pair_args)
     e_c = max(max_abs_err(g, w) for g, w in zip(got2, want2))
+    got3 = gk.apply_planes_fused(*fused_args(luma_args, pair_args))
+    e_f = max(max_abs_err(g, w) for g, w in zip(got3, (want, *want2)))
     errs["grain_luma"] = max(errs["grain_luma"], e_l)
     errs["grain_chroma_pair"] = max(errs["grain_chroma_pair"], e_c)
-    if e_l > TOLERANCE or e_c > TOLERANCE:
-        raise AssertionError(f"{what}: kernel vs plain max |err| luma {e_l}, chroma {e_c}")
+    errs["grain_fused"] = max(errs["grain_fused"], e_f)
+    if e_l > TOLERANCE or e_c > TOLERANCE or e_f > TOLERANCE:
+        raise AssertionError(f"{what}: kernel vs plain max |err| luma {e_l}, chroma {e_c}, "
+                             f"fused {e_f}")
 
 
 def check_against_grain_ref(out, planes, params, bd, sub_x, sub_y, frames, what):
@@ -2107,12 +2162,12 @@ def sharded_phase(card, dev, apply4, dev_outs, clean, grainy):
         spans.reset()
         out = sharded_apply_with_stats(mesh, y, cb, cr, pb, BD)
         torch.cuda.synchronize()
-        launches = launch_counts("grain_tables", "grain_pattern", "grain_luma",
-                                 "grain_chroma_pair")
+        launches = launch_counts("grain_tables", "grain_pattern", "grain_fused")
+        others = launch_counts("grain_luma", "grain_chroma_pair")
         programs = program_counts()
-        if set(launches.values()) != {len(mesh)} or programs != {"captures": 0,
-                                                                 "replays": len(mesh)}:
-            raise AssertionError(f"sharded apply over {name}: launches {launches}, "
+        if set(launches.values()) != {len(mesh)} or set(others.values()) != {0} or \
+                programs != {"captures": 0, "replays": len(mesh)}:
+            raise AssertionError(f"sharded apply over {name}: launches {launches}, {others}, "
                                  f"programs {programs}")
         for k in range(3):
             if not torch.equal(out[k], want[k]):
@@ -2157,8 +2212,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-DIST_KERNELS = ("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair",
-                "flat_block_activity", "plane_stats")
+DIST_KERNELS = ("grain_tables", "grain_pattern", "grain_fused", "flat_block_activity",
+                "plane_stats")
 
 
 def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, diff_want):
@@ -2192,7 +2247,7 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     spans.reset()
     out = sharded_apply_with_stats(pm, y, cb, cr, pb, BD)
     torch.cuda.synchronize()
-    launches = launch_counts(*DIST_KERNELS[:4])
+    launches = launch_counts(*DIST_KERNELS[:3])
     programs = program_counts()
     if set(launches.values()) != {1} or programs != {"captures": 0, "replays": 1}:
         raise AssertionError(f"rank {rank}: sharded apply launches {launches}, programs {programs}")
@@ -2222,7 +2277,7 @@ def distributed_rank(rank, world, port, work, eff, digests, recount, diff_mine, 
     stats = de.mesh_pair_stats_per_frame(pm, *planes, lag=2, bit_depth=BD, sub_x=1, sub_y=1,
                                          has_chroma=True)
     torch.cuda.synchronize()
-    diff_launches = launch_counts(*DIST_KERNELS[4:])
+    diff_launches = launch_counts(*DIST_KERNELS[3:])
     launches.update(diff_launches)
     if min(diff_launches.values()) < 3:
         raise AssertionError(f"rank {rank}: diff kernels launched {diff_launches}")
@@ -2494,7 +2549,7 @@ def program_phase(card, dev, apply4):
     for kind, p0 in (("3-plane", apply4["batches"][16][0]), ("luma-only", apply4["lum16"][0])):
         refs[kind] = grain_ref.apply_grain_frame(
             [host16[k][0].astype(np.int32) for k in range(3)], p0, BD, SX, SY)
-    kernels = ("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair")
+    kernels = ("grain_tables", "grain_pattern", "grain_fused", "grain_luma", "grain_chroma_pair")
     t, err = {}, 0
     pg.clear_programs()
     for b in (16, 112):
@@ -2525,15 +2580,17 @@ def program_phase(card, dev, apply4):
         first = {**program_counts(), **launch_counts(*kernels)}
         if first["captures"] != len(keys) or first["replays"] != len(cells):
             raise AssertionError(f"B={b} first pass: {first}, {len(keys)} keys, {len(cells)} cells")
-        # second pass, every program captured: one replay a batch, and the
-        # tables, pattern, luma and chroma-pair kernels once a batch where
-        # they run
+        # second pass, every program captured: one replay a batch, the
+        # tables and pattern kernels once a batch, then the fused kernel, or
+        # the luma kernel alone where the tables touch no chroma
+        chroma = sum(key.chroma_static for _, _, key in paths)
         want_counts = {
             "captures": 0, "replays": len(cells),
             "grain_tables": len(cells),
             "grain_pattern": len(cells),
-            "grain_luma": len(cells),
-            "grain_chroma_pair": sum(key.chroma_static for _, _, key in paths),
+            "grain_fused": chroma,
+            "grain_luma": len(cells) - chroma,
+            "grain_chroma_pair": 0,
         }
         torch.cuda.synchronize()
         spans.reset()
@@ -2659,23 +2716,39 @@ def cell_tables(config: str, seed: int, n: int):
     return cfg, [FilmGrainParams(**t) for t in inputs.draw_tables(seed, cfg["grain"], n)]
 
 
-def layout_422_phase(card, dev) -> None:
-    """Phase 4's main path at the uhd10_422 cell's layout and tables: 4K
-    10-bit 4:2:2, AR lag 3, 14/10/10 points, overlap and clip on."""
+# The 4K benchmark cells' layouts phase 4 runs: a configuration of
+# benchmark/configs, its geometry (H, W, bit depth, sub_x, sub_y), the shape
+# of its tables (AR lag, Y/Cb/Cr points, overlap, clip) and the seed of the
+# draw.
+CELL_LAYOUTS = {
+    "uhd10_420": ((2160, 3840, 10, 1, 1), (2, 4, 2, 2, True, False), 2**33 + 4201),
+    "uhd10_422": ((2160, 3840, 10, 1, 0), (3, 14, 10, 10, True, True), 2**33 + 4221),
+    "uhd12_444": ((2160, 3840, 12, 0, 0), (2, 4, 2, 2, True, False), 2**33 + 4441),
+}
+
+
+LAYOUT_NAMES = {(1, 1): "4:2:0", (1, 0): "4:2:2", (0, 0): "4:4:4"}
+
+
+def cell_layout_phase(card, dev, config: str) -> None:
+    """Phase 4's main path at a 4K benchmark cell's layout and tables
+    (``CELL_LAYOUTS``)."""
     from grav1synth_tpu_torch.ops import grain as tg
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
-    cfg, pool = cell_tables("uhd10_422", 2**33 + 4221, 64)
+    geometry, table_shape, seed = CELL_LAYOUTS[config]
+    cfg, pool = cell_tables(config, seed, 64)
     h, w, bd = cfg["height"], cfg["width"], cfg["bit_depth"]
     sx, sy = cfg["subsampling"]
     shape = {(p.ar_coeff_lag, len(p.scaling_points_y), len(p.scaling_points_cb),
               len(p.scaling_points_cr), p.overlap_flag, p.clip_to_restricted_range) for p in pool}
-    if (h, w, bd, sx, sy) != (2160, 3840, 10, 1, 0) or shape != {(3, 14, 10, 10, True, True)}:
-        raise AssertionError(f"uhd10_422: geometry {(w, h, bd, sx, sy)}, tables {shape}")
-    what = "4K10 4:2:2 uhd10_422 tables"
+    if (h, w, bd, sx, sy) != geometry or shape != {table_shape}:
+        raise AssertionError(f"{config}: geometry {(h, w, bd, sx, sy)}, tables {shape}")
+    what = f"4K{bd} {LAYOUT_NAMES[sx, sy]} {config} tables"
+    layout = f"{sx}{sy}"
     # as the cell's batches take them: frame k the table k % 64
     batches = {b: [pool[k % len(pool)] for k in range(b)] for b in (16, 112)}
-    host16 = random_planes(np.random.default_rng(422), 16, h, w, bd, sx, sy)
+    host16 = random_planes(np.random.default_rng(seed % 1000), 16, h, w, bd, sx, sy)
     dev16 = [torch.from_numpy(a).to(dev) for a in host16]
     frames = {16: dev16, 112: [t.repeat(7, 1, 1) for t in dev16]}
     pats = {b: tg.generate_patterns_ref(ps, bd, sx, sy) for b, ps in batches.items()}
@@ -2689,17 +2762,18 @@ def layout_422_phase(card, dev) -> None:
     spans.reset()
     outs = {b: run(b) for b in batches}
     torch.cuda.synchronize()
-    launches = launch_counts("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair")
-    layouts = spans.counters("launch.grain_chroma_pair.")
+    launches = launch_counts("grain_tables", "grain_pattern", "grain_fused", "grain_luma",
+                             "grain_chroma_pair")
+    layouts = spans.counters("launch.grain_fused.")
     programs = program_counts()
     packed = {k: spans.counter("pack." + k) for k in ("frames", "rows")}
-    log(f"[main path 4:2:2] launches {launches}, chroma-pair by layout {layouts}, parameter "
+    log(f"[main path {config}] launches {launches}, fused by layout {layouts}, parameter "
         f"programs {programs}, pack {packed}")
-    # one program replay, one luma and one chroma-pair kernel a batch, the
-    # chroma-pair kernel's <1,0>; the cell's 64 tables differ only in
+    # one program replay and one fused kernel (of the layout's
+    # instantiation) a batch; the cell's 64 tables differ only in
     # grain_seed, so each batch packs one parameter row
-    if launches != {"grain_tables": 2, "grain_pattern": 2, "grain_luma": 2,
-                    "grain_chroma_pair": 2} or layouts != {"10": 2} or \
+    if launches != {"grain_tables": 2, "grain_pattern": 2, "grain_fused": 2, "grain_luma": 0,
+                    "grain_chroma_pair": 0} or layouts != {layout: 2} or \
             programs != {"captures": 0, "replays": 2} or packed != {"frames": 128, "rows": 2}:
         raise AssertionError(f"{what}: launches {launches}, by layout {layouts}, "
                              f"programs {programs}, pack {packed}")
@@ -2707,7 +2781,7 @@ def layout_422_phase(card, dev) -> None:
         for k, t in enumerate(o):
             if tuple(t.shape) != tuple(frames[b][k].shape) or t.dtype != torch.int16:
                 raise AssertionError(f"{what} B={b} plane {k}: shape {tuple(t.shape)} {t.dtype}")
-    errs = {"grain_luma": 0, "grain_chroma_pair": 0}
+    errs = {"grain_luma": 0, "grain_chroma_pair": 0, "grain_fused": 0}
     compare_kernels(batches[16], frames[16], bd, sx, sy, dev, errs, f"{what} B=16",
                     lambda *a: pats[16])
     check_against_grain_ref(outs[16], host16, batches[16], bd, sx, sy, [0], f"{what} B=16")
@@ -2719,21 +2793,19 @@ def layout_422_phase(card, dev) -> None:
         want = [gk.apply_plane_luma(*la), *gk.apply_planes_pair(*pa)]
         for k, wt in enumerate(want):
             if not torch.equal(outs[b][k], wt):
-                raise AssertionError(f"{what} B={b} plane {k}: differs from the grain kernels "
-                                     "on grain_ref's patterns")
+                raise AssertionError(f"{what} B={b} plane {k}: differs from the luma and "
+                                     "chroma-pair kernels on grain_ref's patterns")
         del want
-    log(f"[main path 4:2:2] {what}, B=16 and B=112: the kernels equal to their plain versions "
-        f"at B=16 (max |err| {errs}); every frame equal to the grain kernels on grain_ref's "
-        "patterns; first/last frames equal to grain_ref")
-    luma112, pair112 = args[112]
-    log(time_line("grain_luma", f"{what} B=112", timing(
-        cuda_ms(lambda: gk.apply_plane_luma(*luma112), 10), None, *luma_work(luma112)), card))
-    log(time_line("grain_chroma_pair", f"{what} B=112 (<1,0>)", timing(
-        cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10), None, *pair_work(pair112)), card))
+    log(f"[main path {config}] {what}, B=16 and B=112: the kernels equal to their plain "
+        f"versions at B=16 (max |err| {errs}); every frame equal to the luma and chroma-pair "
+        "kernels on grain_ref's patterns; first/last frames equal to grain_ref")
+    del outs
+    for b, (la, pa) in args.items():
+        time_fused(f"{what} B={b} (<{sx},{sy}>)", la, pa, card)
     fps = frames_per_s(lambda: run(112), 112, 3)
     log(f"[apply] {what} B=112: {fps:.1f} frames/s (param pack, the parameter program with the "
-        f"tables and pattern kernels, the grain kernels) on {card}")
-    del outs, args, luma112, pair112, frames, dev16
+        f"tables and pattern kernels, the fused grain kernel) on {card}")
+    del args, frames, dev16
     torch.cuda.empty_cache()
 
 
@@ -2765,7 +2837,7 @@ def main() -> int:
     if (W, H, BD, (SX, SY)) != (3840, 2160, 10, (1, 1)) or not eff:
         raise AssertionError(f"unexpected stream geometry {(W, H, BD, SX, SY)}, {len(eff)} frames")
     base = eff[0]
-    errs = {"grain_luma": 0, "grain_chroma_pair": 0}
+    errs = {"grain_luma": 0, "grain_chroma_pair": 0, "grain_fused": 0}
     rng = np.random.default_rng(2024)
     n_cases = 0
     for bd in (8, 10, 12):
@@ -2775,7 +2847,7 @@ def main() -> int:
                 planes = random_planes(rng, len(params), h, w, bd, sub_x, sub_y)
                 compare_kernels(params, planes, bd, sub_x, sub_y, dev, errs, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
                 n_cases += 1
-    # the edge geometries of the vectorised luma and chroma-pair kernels:
+    # the edge geometries of the vectorised luma, chroma-pair and fused kernels:
     # widths 520-535 (every residue mod 8, luma and chroma) at odd and even
     # heights, with frames whose planes are off; planes whose base is not
     # 16-byte aligned; more work units than CTAs on the card
@@ -2840,13 +2912,14 @@ def main() -> int:
     spans.reset()
     outs = {key: run(b, params) for b, key, params in cases}
     torch.cuda.synchronize()
-    launches = launch_counts("grain_tables", "grain_pattern", "grain_luma", "grain_chroma_pair")
+    launches = launch_counts("grain_tables", "grain_pattern", "grain_fused", "grain_luma",
+                             "grain_chroma_pair")
     programs = program_counts()
     log(f"[main path] launches {launches}, parameter programs {programs}")
-    # one program replay (the tables and pattern kernels in it) and one
-    # luma kernel a batch, the chroma-pair kernel but for the luma-only batch
-    if launches != {"grain_tables": 3, "grain_pattern": 3, "grain_luma": 3,
-                    "grain_chroma_pair": 2} or \
+    # one program replay (the tables and pattern kernels in it) a batch,
+    # then the fused kernel, or the luma kernel alone for the luma-only batch
+    if launches != {"grain_tables": 3, "grain_pattern": 3, "grain_fused": 2, "grain_luma": 1,
+                    "grain_chroma_pair": 0} or \
             programs != {"captures": 0, "replays": 3}:
         raise AssertionError(f"main path: launches {launches}, programs {programs}")
     out16, out112, outl = outs[16], outs[112], outs["luma16"]
@@ -2881,6 +2954,7 @@ def main() -> int:
     }
     for k, t in times.items():
         log(time_line(k, "4K10 4:2:0 B=16", t, card))
+    times["grain_fused"] = time_fused("4K10 4:2:0 B=16", luma_args, pair_args, card, plain=True)
     # at B = 112 the plain versions' intermediates (a gathered window per
     # block per frame) run to gigabytes: kernels only
     luma112, pair112 = kernel_inputs(
@@ -2890,24 +2964,25 @@ def main() -> int:
         cuda_ms(lambda: gk.apply_plane_luma(*luma112), 10), None, *luma_work(luma112)), card))
     log(time_line("grain_chroma_pair", "4K10 4:2:0 B=112", timing(
         cuda_ms(lambda: gk.apply_planes_pair(*pair112), 10), None, *pair_work(pair112)), card))
-    # every frame of the main path against the grain kernels on grain_ref's
-    # patterns, with tables built outside the program
+    time_fused("4K10 4:2:0 B=112", luma112, pair112, card)
+    # every frame of the main path against the luma and chroma-pair kernels
+    # on grain_ref's patterns, with tables built outside the program
     lum_args = kernel_inputs(lum16, frames[16], BD, SX, SY, dev, lambda *a: pats["luma16"])[0]
     for key, la, pa in ((16, luma_args, pair_args), (112, luma112, pair112),
                         ("luma16", lum_args, None)):
         want = [gk.apply_plane_luma(*la)] + ([] if pa is None else list(gk.apply_planes_pair(*pa)))
         for k, w in enumerate(want):
             if not torch.equal(outs[key][k], w):
-                raise AssertionError(f"main path {key} plane {k}: differs from the grain kernels "
-                                     "on grain_ref's patterns")
+                raise AssertionError(f"main path {key} plane {k}: differs from the luma and "
+                                     "chroma-pair kernels on grain_ref's patterns")
     del want, lum_args
-    log("[main path] 4K10 B=16, B=112 and luma-only batches: every frame equal to the grain "
-        "kernels on grain_ref's patterns")
+    log("[main path] 4K10 B=16, B=112 and luma-only batches: every frame equal to the luma and "
+        "chroma-pair kernels on grain_ref's patterns")
     for b, key, params in cases:
         fps = frames_per_s(lambda: run(b, params), b, 10 if b == 16 else 3)
         kind = "luma-only" if key == "luma16" else "3-plane"
         log(f"[apply] 4K10 4:2:0 {kind} B={b}: {fps:.1f} frames/s (param pack, the parameter "
-            f"program with the pattern kernel, the grain kernels) on {card}")
+            f"program with the pattern kernel, the grain kernel) on {card}")
     pats16 = given_patterns(pats[16], SX, SY, dev)
     pb16 = tg.pack_params(batches[16], dev)
     plain_s = cuda_ms(
@@ -2922,7 +2997,8 @@ def main() -> int:
     )
     del luma_args, pair_args, luma112, pair112, pats16
     torch.cuda.empty_cache()
-    layout_422_phase(card, dev)
+    for config in CELL_LAYOUTS:
+        cell_layout_phase(card, dev, config)
     clean, grainy = grained_film(eff, dev)
     for phase in (
         lambda: diff_phases(card, eff, dev, clean, grainy),

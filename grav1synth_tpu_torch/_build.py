@@ -41,6 +41,9 @@ SIGNATURES = {
     "grain_chroma_pair": [
         _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ],
+    "grain_fused": [
+        _P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
     "grain_chroma": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "grain_pattern": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     "grain_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,13 +1,15 @@
 // AV1 film grain application on Hopper (sm_90a): a luma kernel, a Cb+Cr
-// chroma-pair kernel and a single-chroma-plane kernel, bound to Python
-// through a plain C interface (ctypes; see grav1synth_tpu_torch/_build.py).
+// chroma-pair kernel, a fused luma+Cb+Cr kernel and a single-chroma-plane
+// kernel, bound to Python through a plain C interface (ctypes; see
+// grav1synth_tpu_torch/_build.py).
 //
 // grain_luma_kernel replaces grav1synth_tpu/ops/grain_pallas.py:
 // _luma_kernel (body _apply_groups); grain_chroma_pair_kernel replaces
-// grain_pallas.py: _chroma_pair_kernel (body _apply_groups_pair). Run back
-// to back on one stream they also replace _fused_kernel, which is the two
-// bodies in one launch. grain_chroma_kernel replaces grain_pallas.py:
-// _chroma_kernel (one chroma plane, its averaged luma read from an input).
+// grain_pallas.py: _chroma_pair_kernel (body _apply_groups_pair);
+// grain_fused_kernel replaces grain_pallas.py: _fused_kernel, the two
+// bodies in one launch (see its own note below). grain_chroma_kernel
+// replaces grain_pallas.py: _chroma_kernel (one chroma plane, its averaged
+// luma read from an input).
 //
 // What bounds them on this card: bytes. A 3840x2160 4:2:0 frame moves
 // about 50 MB of int16 samples in and out; a frame's patterns, scaling
@@ -244,12 +246,14 @@ __device__ __forceinline__ void noise8(const int16_t* pat, const Windows& w, int
 }
 
 // Stage one plane's tables: its (GH, GW) pattern, and its scaling LUT
-// expanded to one entry per sample value (scale_lookup of every value).
-__device__ __forceinline__ void stage_tables(int16_t* spat, int* slut, const int16_t* pat,
+// expanded to one entry per sample value (scale_lookup of every value,
+// 0-255, so any integer type holds it).
+template <typename Lut>
+__device__ __forceinline__ void stage_tables(int16_t* spat, Lut* slut, const int16_t* pat,
                                              int n, const int* prm, int bit_depth) {
   for (int i = threadIdx.x; i < n; i += THREADS) spat[i] = pat[i];
   for (int v = threadIdx.x; v < (1 << bit_depth); v += THREADS)
-    slut[v] = scale_lookup(prm + P_LUT, v, bit_depth);
+    slut[v] = (Lut)scale_lookup(prm + P_LUT, v, bit_depth);
 }
 
 // The scalars of a plane's parameter row that the kernels read.
@@ -547,6 +551,271 @@ grain_chroma_pair_kernel(const int16_t* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fused kernel: luma, Cb and Cr of a frame region in one pass
+//
+// grain_fused_kernel replaces grain_pallas.py: _fused_kernel. What bounds
+// it is bytes, as the two kernels it stands for: but where the luma kernel
+// then the chroma-pair kernel read the luma twice (all of it, then every
+// row the chroma collocates with for the scaling input), this kernel reads
+// every sample of every plane once and writes it once, which is the least
+// the apply can move. Its design, each point timed on the card at B = 112
+// in the three layouts (PERF.md):
+//
+// - A work unit is (frame, 32-row luma stripe, 256 chroma columns), so
+//   256 << SX luma columns. Each luma row of a unit is read once. The luma
+//   pass grains it and writes the chroma scaling input's luma of every
+//   collocated row (the pair average at 4:2:0 and 4:2:2, the sample at
+//   4:4:4) into shared memory from the source samples it holds in
+//   registers; after one barrier the chroma pass reads it there, not from
+//   device memory.
+// - The luma pass is laid out as the luma kernel: thread (phase, lane)
+//   owns the unit's 8-column group lane + 32 (phase & SX) on its rows
+//   phase >> SX, + (8 >> SX), ..., so each 16-byte load and store of a
+//   warp covers one contiguous 512 bytes of a row. (A thread owning the 16 luma columns
+//   of its 8 chroma columns stores two 16-byte halves 32 bytes apart into
+//   every sector: 0.70-0.72 of the bound at 4:2:0 and 4:2:2 against 0.76
+//   at 4:4:4; a copy with such stores reaches 0.77 of the HBM rate where a
+//   plain one reaches 0.87.) The chroma pass is the chroma-pair kernel's:
+//   thread (phase, lane) owns chroma columns 256 xs + 8 lane of the rows
+//   phase, phase + 8, ... (BH = 32 >> SY rows).
+// - Bytes in flight: a thread issues its unit's Cb and Cr loads, then its
+//   luma loads, before any arithmetic, so the chroma arrives under the
+//   luma pass (3-6% against loading the chroma after the barrier). The
+//   averages alternate between two buffers, so one barrier a unit keeps
+//   the next unit's writes off the averages still read. Two CTAs an SM:
+//   three spill the registers and run slower.
+// - As the luma and chroma-pair kernels: persistent, 16-byte streaming
+//   loads and stores, tables staged when the frame changes, the same edges
+//   (per-sample loads and stores where a row is not 16-byte aligned or ends
+//   inside a group; an odd width pairs the last luma sample with itself),
+//   and an inactive plane copied through (its luma still averaged).
+// - Shared memory holds three patterns, three expanded LUTs and the two
+//   buffers of averages. The scaling values are 0-255, so a LUT entry is
+//   one byte (FusedLut; faster than 2 or 4 bytes), and the LUTs sit 4096
+//   entries apart whatever the bit depth: every table's offset is a
+//   constant of the layout. 47,344 B at 4:2:0, 69,888 B at 4:2:2 and
+//   81,008 B at 4:4:4 (with int32 LUTs at 12 bits 4:4:4, 117,872).
+// - The chroma scaling input ((avg lm + src m) >> 6) + offset folds the
+//   offset into the sum before the shift, ((avg lm + src m + 64 offset)
+//   >> 6), which is equal for integers; a plane that takes its scaling
+//   from luma runs the same expression with lm = 64, m = 0, offset = 0,
+//   which gives avg exactly. The clamps are Hopper's DPX min/max
+//   instructions (a clamp at 0 and an add with a min in one each).
+
+using FusedLut = uint8_t;
+constexpr int FUSED_LUT = 1 << 12;  // entries of an expanded LUT, the 12-bit range
+constexpr int FUSED_CTAS = 2;       // CTAs an SM holds at once: the registers' budget
+
+// Byte offsets in the fused kernel's dynamic shared memory: the Y, Cb and
+// Cr LUTs, the luma pattern, Cb's and Cr's, then two buffers of a unit's
+// chroma scaling input luma, (BH, 256) int16 each.
+template <int SX, int SY>
+struct FusedSmem {
+  static constexpr int PAT_Y = 3 * FUSED_LUT * (int)sizeof(FusedLut);
+  static constexpr int PAT_C = PAT_Y + Geo<0, 0>::PAT_BYTES;
+  static constexpr int AVG = PAT_C + 2 * Geo<SX, SY>::PAT_BYTES;
+  static constexpr int AVG_BYTES = Geo<SX, SY>::BH * UNIT_W * 2;
+  static constexpr int BYTES = AVG + 2 * AVG_BYTES;
+};
+
+// clamp(v, 0, hi), and grained() with its clamp, as DPX instructions
+__device__ __forceinline__ int clamp0(int v, int hi) { return __vimin_s32_relu(v, hi); }
+__device__ __forceinline__ int grained_dpx(int src, int noise, int scale, int ss, int lo, int hi) {
+  return max(__viaddmin_s32(src, (scale * noise + (1 << (ss - 1))) >> ss, hi), lo);
+}
+
+// A plane's scalars for the fused kernel: plane_params, with a chroma
+// plane's combination written as the kernel evaluates it (see above).
+__device__ __forceinline__ PlaneParams fused_params(const int* prm, int bit_depth) {
+  PlaneParams q = plane_params(prm, bit_depth);
+  if (!q.use_mult) {
+    q.luma_mult = 64;
+    q.mult = 0;
+    q.offset = 0;
+  }
+  q.offset *= 64;
+  return q;
+}
+
+template <int SX, int SY>
+__global__ void __launch_bounds__(THREADS, FUSED_CTAS)
+grain_fused_kernel(const int16_t* __restrict__ y, const int16_t* __restrict__ cb,
+                   const int16_t* __restrict__ cr, int16_t* __restrict__ out_y,
+                   int16_t* __restrict__ out_cb, int16_t* __restrict__ out_cr,
+                   const int16_t* __restrict__ y_pat, int64_t y_stride,
+                   const int16_t* __restrict__ cb_pat, int64_t cb_stride,
+                   const int16_t* __restrict__ cr_pat, int64_t cr_stride,
+                   const int* __restrict__ offsets, const int* __restrict__ params_y,
+                   const int* __restrict__ params2, int B, int H, int W, int S, int NB,
+                   int NX, int units, int bit_depth) {
+  using L = Geo<0, 0>;
+  using C = Geo<SX, SY>;
+  using M = FusedSmem<SX, SY>;
+  constexpr int RT = C::BH / RPW;  // chroma rows of a unit per thread
+  constexpr int LP = RPW >> SX;    // luma rows one pass of the CTA covers
+  constexpr int RL = BLOCK / LP;   // luma rows of a unit per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  FusedLut* slut = reinterpret_cast<FusedLut*>(smem);  // plane p's at p * FUSED_LUT
+  int16_t* spat[3] = {reinterpret_cast<int16_t*>(smem + M::PAT_Y),
+                      reinterpret_cast<int16_t*>(smem + M::PAT_C),
+                      reinterpret_cast<int16_t*>(smem + M::PAT_C + C::PAT_BYTES)};
+  __shared__ PlaneParams sq[3];
+
+  const int Hc = (H + SY) >> SY, Wc = (W + SX) >> SX;
+  const int lane = threadIdx.x % TX, phase = threadIdx.x / TX;
+  // luma: the thread's group of 8 columns within a unit's 256 << SX, on
+  // the unit's rows lrow0, lrow0 + LP, ...; each 16-byte access of a warp
+  // covers one contiguous 512 bytes of a row
+  const int lcol = ((phase & SX) * TX + lane) * GROUP;
+  const int lrow0 = phase >> SX;
+  const int maxv = (1 << bit_depth) - 1;
+  const int16_t* csrc[2] = {cb, cr};
+  int16_t* cout[2] = {out_cb, out_cr};
+  int u0, u1;
+  Unit u;
+  unit_range(units, S, NX, u0, u1, u);
+  int staged = -1;  // the frame whose tables are in shared memory
+  PlaneParams qy{}, qc[2] = {};
+  for (int i = u0; i < u1; ++i, u.next(S, NX)) {
+    if (u.b != staged) {  // uniform across the CTA
+      staged = u.b;
+      __syncthreads();  // the previous frame's tables are no longer read
+      const int* prm[3] = {params_y + (int64_t)u.b * P_LEN, params2 + (int64_t)u.b * P_LEN,
+                           params2 + ((int64_t)B + u.b) * P_LEN};
+      const int16_t* pats[3] = {y_pat + u.b * y_stride, cb_pat + u.b * cb_stride,
+                                cr_pat + u.b * cr_stride};
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        if (threadIdx.x == 0) sq[p] = fused_params(prm[p], bit_depth);
+        if (prm[p][P_ACTIVE])
+          stage_tables(spat[p], slut + p * FUSED_LUT, pats[p],
+                       p ? C::GH * C::GW : L::GH * L::GW, prm[p], bit_depth);
+      }
+      __syncthreads();
+      qy = sq[0];
+      qc[0] = sq[1];
+      qc[1] = sq[2];
+    }
+    // the unit's chroma scaling input luma, (BH, 256) int16; units alternate
+    // between two buffers, so one barrier a unit keeps writes of the next
+    // unit off the averages still read
+    int16_t* avgs = reinterpret_cast<int16_t*>(smem + M::AVG + ((i - u0) & 1) * M::AVG_BYTES);
+    const int crows = min(C::BH, Hc - u.s * C::BH);
+    const int lrows = min(BLOCK, H - u.s * BLOCK);
+    const int64_t lbase = ((int64_t)u.b * H + u.s * BLOCK) * W;
+    const int64_t cbase = ((int64_t)u.b * Hc + u.s * C::BH) * Wc;
+    const int* orow = offsets + ((int64_t)u.b * S + u.s) * NB;
+    const int xc = u.xs * UNIT_W + lane * GROUP;
+    // a chroma row's group moves as 16 bytes where it lies inside the row
+    // and source and output rows start on a 16-byte boundary
+    auto cvec = [&](int p, int64_t o) {
+      return xc + GROUP <= Wc && aligned16(csrc[p] + o, cout[p] + o);
+    };
+    // the unit's Cb and Cr loads first: they arrive under the luma pass
+    int4 vc[2][RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r < crows && xc < Wc) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int64_t o = cbase + (int64_t)r * Wc;
+          vc[p][t] = load8(csrc[p] + o, xc, Wc, cvec(p, o));
+        }
+      }
+    }
+
+    // luma: grained, and the averages (or samples) of the collocated rows
+    // into shared memory from the source samples
+    const int xg = ((u.xs * UNIT_W) << SX) + lcol;
+    if (xg < W) {
+      int4 v[RL];
+#pragma unroll
+      for (int k = 0; k < RL; ++k) {
+        const int rl = lrow0 + k * LP;
+        if (rl < lrows) {
+          const int64_t o = lbase + (int64_t)rl * W;
+          v[k] = load8(y + o, xg, W, xg + GROUP <= W && aligned16(y + o, out_y + o));
+        }
+      }
+      const Windows w = windows<0, 0>(orow, NB, xg / BLOCK, xg % BLOCK, u.s, qy.overlap);
+#pragma unroll
+      for (int k = 0; k < RL; ++k) {
+        const int rl = lrow0 + k * LP;
+        if (rl >= lrows) continue;
+        int sm[GROUP];
+        unpack8(v[k], sm);
+        if (!SY || !(rl & 1)) {
+          int16_t* arow = avgs + (rl >> SY) * UNIT_W;
+          if (SX) {
+            int a[GROUP];
+#pragma unroll
+            for (int k2 = 0; k2 < GROUP; ++k2) a[k2] = sm[k2];
+            if (xg + GROUP > W) {  // an odd width pairs the last sample with itself
+#pragma unroll
+              for (int k2 = 1; k2 < GROUP; k2 += 2)
+                if (xg + k2 >= W) a[k2] = a[k2 - 1];
+            }
+            unsigned pw[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              pw[h] = ((unsigned)((a[4 * h] + a[4 * h + 1] + 1) >> 1) & 0xFFFFu) |
+                      ((unsigned)((a[4 * h + 2] + a[4 * h + 3] + 1) >> 1) << 16);
+            *reinterpret_cast<uint2*>(arow + lcol / 2) = make_uint2(pw[0], pw[1]);
+          } else {
+            *reinterpret_cast<int4*>(arow + lcol) = v[k];
+          }
+        }
+        if (qy.active) {
+          int g[GROUP];
+          noise8<0, 0>(spat[0], w, rl, qy.gmin, qy.gmax, g);
+#pragma unroll
+          for (int k2 = 0; k2 < GROUP; ++k2)
+            sm[k2] = grained_dpx(sm[k2], g[k2], slut[clamp0(sm[k2], maxv)], qy.ss, qy.lo, qy.hi);
+          v[k] = pack8(sm);
+        }
+        const int64_t o = lbase + (int64_t)rl * W;
+        store8(out_y + o, xg, W, xg + GROUP <= W && aligned16(y + o, out_y + o), v[k]);
+      }
+    }
+    __syncthreads();  // the unit's averages are in shared memory
+
+    // chroma, with the averages from shared memory
+    if (xc >= Wc) continue;
+    Windows wc[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      wc[p] = windows<SX, SY>(orow, NB, xc / C::BW, xc % C::BW, u.s, qc[p].overlap);
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int r = phase + t * RPW;
+      if (r >= crows) continue;
+      int avg[GROUP];
+      unpack8(*reinterpret_cast<const int4*>(avgs + r * UNIT_W + lane * GROUP), avg);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int64_t o = cbase + (int64_t)r * Wc;
+        int4 res = vc[p][t];
+        if (qc[p].active) {
+          const PlaneParams& q = qc[p];
+          int sm[GROUP], g[GROUP];
+          unpack8(res, sm);
+          noise8<SX, SY>(spat[1 + p], wc[p], r, q.gmin, q.gmax, g);
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            const int val = (avg[k] * q.luma_mult + sm[k] * q.mult + q.offset) >> 6;
+            sm[k] = grained_dpx(sm[k], g[k], slut[(1 + p) * FUSED_LUT + clamp0(val, maxv)], q.ss,
+                                q.lo, q.hi);
+          }
+          res = pack8(sm);
+        }
+        store8(cout[p] + o, xc, Wc, cvec(p, o), res);
+      }
+    }
+  }
+}
+
 // One chroma plane, its scaling input's averaged luma given as an input:
 // the chroma-pair kernel's form for one plane. Grid as the luma kernel's,
 // over units of (frame, chroma stripe of BH rows, 256 chroma samples): SC
@@ -697,6 +966,30 @@ int grain_chroma_pair(const void* y, const void* cb, const void* cr, void* out_c
                            (int16_t*)out_cb, (int16_t*)out_cr, (const int16_t*)cb_pat, \
                            cb_stride, (const int16_t*)cr_pat, cr_stride,              \
                            (const int*)offsets, (const int*)params2, B, H, W, S, NB, NX)
+  if (sub_x == 1 && sub_y == 1) LAUNCH(1, 1);
+  if (sub_x == 1 && sub_y == 0) LAUNCH(1, 0);
+  if (sub_x == 0 && sub_y == 0) LAUNCH(0, 0);
+#undef LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+int grain_fused(const void* y, const void* cb, const void* cr, void* out_y, void* out_cb,
+                void* out_cr, const void* y_pat, int64_t y_stride, const void* cb_pat,
+                int64_t cb_stride, const void* cr_pat, int64_t cr_stride, const void* offsets,
+                const void* params_y, const void* params2, int B, int H, int W, int sub_x,
+                int sub_y, int bit_depth, void* stream) {
+  const int S = nblocks(H), NB = nblocks(W);
+  const int NX = (((W + sub_x) >> sub_x) + UNIT_W - 1) / UNIT_W;
+  const int64_t units = (int64_t)B * S * NX;
+#define LAUNCH(SX, SY)                                                                     \
+  return launch_persistent(grain_fused_kernel<SX, SY>, units, bit_depth,                   \
+                           (size_t)FusedSmem<SX, SY>::BYTES, (cudaStream_t)stream,         \
+                           (const int16_t*)y, (const int16_t*)cb, (const int16_t*)cr,       \
+                           (int16_t*)out_y, (int16_t*)out_cb, (int16_t*)out_cr,             \
+                           (const int16_t*)y_pat, y_stride, (const int16_t*)cb_pat,         \
+                           cb_stride, (const int16_t*)cr_pat, cr_stride,                    \
+                           (const int*)offsets, (const int*)params_y, (const int*)params2, \
+                           B, H, W, S, NB, NX)
   if (sub_x == 1 && sub_y == 1) LAUNCH(1, 1);
   if (sub_x == 1 && sub_y == 0) LAUNCH(1, 0);
   if (sub_x == 0 && sub_y == 0) LAUNCH(0, 0);

@@ -1,7 +1,7 @@
 """Entry points of the port (counterparts of ``__graft_entry__.py``).
 
 ``entry()`` returns the port's single-device grain step (patterns made on
-the device, then the luma and chroma-pair kernels) with example inputs.
+the device, then the fused luma, Cb and Cr kernel) with example inputs.
 ``dryrun_multichip(n)`` runs one sharded application step with its
 statistics, then the sharded diff statistics, over an n-entry mesh on
 small shapes. Both run on the card unless the caller asks for the CPU.

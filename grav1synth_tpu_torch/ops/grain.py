@@ -733,10 +733,10 @@ def apply_grain(
     Frames go to the kernels as int16 (every AV1 bit depth fits) and come
     back as int16. The batch's parameter program (``ops.program``) runs
     first, the pattern kernel inside it: one graph replay on a CUDA device,
-    eager on the CPU. Then the CUDA kernels run (luma, then Cb+Cr); on the
-    CPU their plain versions. A batch whose tables touch no chroma
-    (``p.touches_chroma`` False) skips the chroma tables and kernel and
-    returns ``cb``/``cr`` untouched."""
+    eager on the CPU. Then the CUDA grain kernel runs (the fused luma, Cb
+    and Cr kernel); on the CPU its plain version. A batch whose tables
+    touch no chroma (``p.touches_chroma`` False) skips the chroma tables,
+    runs the luma kernel alone and returns ``cb``/``cr`` untouched."""
     with spans.span("program.replay"):
         from .program import ProgramKey, program_for
 
@@ -760,26 +760,23 @@ def apply_with_tables(
     sub_y: int = 1,
     monochrome: bool = False,
 ):
-    """The grain kernels after a parameter program: the luma kernel, then,
-    unless monochrome or the program made no chroma rows, the chroma-pair
-    kernel, on the stream the program ran on. ``tables`` is the program's
-    ``ProgramOutputs``, ``patterns`` the (luma, cb, cr) pattern views."""
+    """The grain kernels after a parameter program, on the stream the
+    program ran on: the fused kernel (luma, Cb and Cr in one pass) where
+    the program made chroma rows, else, for a monochrome batch or one whose
+    tables touch no chroma, the luma kernel alone. ``tables`` is the
+    program's ``ProgramOutputs``, ``patterns`` the (luma, cb, cr) pattern
+    views."""
     from . import grain_kernels as gk
 
     luma_pat, cb_pat, cr_pat = patterns
     y16 = y.to(torch.int16)
-    # the luma kernel writes a fresh tensor, so the chroma kernel below
-    # still reads the ungrained luma for its scaling input
-    y_out = gk.apply_plane_luma(y16, luma_pat, tables.offsets, tables.params_y, bit_depth)
-    if monochrome:
-        return y_out, None, None
-    if tables.params2 is None:
-        return y_out, cb, cr
-    cb_out, cr_out = gk.apply_planes_pair(
-        y16, cb.to(torch.int16), cr.to(torch.int16), cb_pat, cr_pat, tables.offsets,
-        tables.params2, bit_depth, sub_x, sub_y,
+    if monochrome or tables.params2 is None:
+        y_out = gk.apply_plane_luma(y16, luma_pat, tables.offsets, tables.params_y, bit_depth)
+        return (y_out, None, None) if monochrome else (y_out, cb, cr)
+    return gk.apply_planes_fused(
+        y16, cb.to(torch.int16), cr.to(torch.int16), luma_pat, cb_pat, cr_pat, tables.offsets,
+        tables.params_y, tables.params2, bit_depth, sub_x, sub_y,
     )
-    return y_out, cb_out, cr_out
 
 
 def apply_grain_reference(

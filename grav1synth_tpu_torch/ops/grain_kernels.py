@@ -5,8 +5,11 @@ version.
 - ``apply_plane_luma``   -> CUDA ``grain_luma_kernel``
   (replaces ``grain_pallas._luma_kernel``)
 - ``apply_planes_pair``  -> CUDA ``grain_chroma_pair_kernel``
-  (replaces ``grain_pallas._chroma_pair_kernel``; run after the luma
-  kernel on one stream, the pair also covers ``_fused_kernel``)
+  (replaces ``grain_pallas._chroma_pair_kernel``)
+- ``apply_planes_fused`` -> CUDA ``grain_fused_kernel``
+  (replaces ``grain_pallas._fused_kernel``: luma, Cb and Cr in one pass
+  that reads each luma sample once; the apply path's kernel for every
+  three-plane batch)
 - ``apply_plane_chroma`` -> CUDA ``grain_chroma_kernel``
   (replaces ``grain_pallas._chroma_kernel``: one chroma plane, with the
   averaged luma of its scaling input given as an input)
@@ -26,10 +29,11 @@ tensors it checks device, dtype, shape and contiguity, then launches the
 kernel or raises, and counts the launch in ``utils.spans``'
 ``launch.<kernel>`` counter (the chroma-pair kernel's also under
 ``launch.grain_chroma_pair.<sub_x><sub_y>``, its layout's instantiation:
-``.11``, ``.10``, ``.00``). A launch recorded into a CUDA graph under
-capture launches nothing: it is counted in ``recorded.<kernel>``, and the
-graph's owner (``ops.program``) adds what its graph holds to
-``launch.<kernel>`` on each replay.
+``.11``, ``.10``, ``.00``; the fused kernel's likewise under
+``launch.grain_fused.<sub_x><sub_y>``). A launch recorded into a CUDA
+graph under capture launches nothing: it is counted in
+``recorded.<kernel>``, and the graph's owner (``ops.program``) adds what
+its graph holds to ``launch.<kernel>`` on each replay.
 
 Per-plane parameter rows (``pack_plane_params``) carry the scalars the
 kernels read and the plane's 256-entry scaling LUT at the 8-bit nodes;
@@ -264,6 +268,26 @@ def apply_planes_pair_reference(
     )
 
 
+def apply_planes_fused_reference(
+    y: torch.Tensor,  # (B, H, W) ungrained source luma
+    cb: torch.Tensor,  # (B, Hc, Wc)
+    cr: torch.Tensor,
+    luma_pat: torch.Tensor,  # (B, 73, 82)
+    cb_pat: torch.Tensor,  # (B, ch, cw)
+    cr_pat: torch.Tensor,
+    offsets: torch.Tensor,  # (B, S, NB)
+    params_y: torch.Tensor,  # (B, P_LEN) from pack_plane_params "y"
+    params2: torch.Tensor,  # (2B, P_LEN): cb rows, then cr rows
+    bit_depth: int,
+    sub_x: int,
+    sub_y: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The luma kernel's plain version, then the chroma-pair kernel's."""
+    y_out = apply_plane_luma_reference(y, luma_pat, offsets, params_y, bit_depth)
+    return (y_out, *apply_planes_pair_reference(
+        y, cb, cr, cb_pat, cr_pat, offsets, params2, bit_depth, sub_x, sub_y))
+
+
 def generate_patterns_packed_reference(
     p: GrainParamsBatch, bit_depth: int, sub_x: int = 1, sub_y: int = 1,
     monochrome: bool = False,
@@ -355,9 +379,10 @@ def apply_plane_luma(
     return out
 
 
-# the chroma-pair kernel's counter of each layout's instantiation
+# the chroma-pair and fused kernels' counters of each layout's instantiation
 _PAIR_LAYOUT = {(sx, sy): f"grain_chroma_pair.{sx}{sy}"
                 for sx, sy in ((1, 1), (1, 0), (0, 0))}
+_FUSED_LAYOUT = {(sx, sy): f"grain_fused.{sx}{sy}" for sx, sy in _PAIR_LAYOUT}
 
 
 def _check_depth_and_subsampling(bit_depth: int, sub_x: int, sub_y: int) -> None:
@@ -415,6 +440,23 @@ def apply_plane_chroma(
     return out
 
 
+def _check_pair(y, cb, cr, cb_pat, cr_pat, offsets, params2, bit_depth, sub_x, sub_y):
+    """The checks of the chroma-pair kernel's CUDA arguments; returns the
+    Cb and Cr patterns' frame strides."""
+    _check_depth_and_subsampling(bit_depth, sub_x, sub_y)
+    b, h, w = y.shape
+    hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
+    s, nb = (h + BLOCK - 1) // BLOCK, (w + BLOCK - 1) // BLOCK
+    gh, gw = chroma_pattern_shape(sub_x, sub_y)
+    _check("y", y, torch.int16, (b, h, w))
+    _check("cb", cb, torch.int16, (b, hc, wc))
+    _check("cr", cr, torch.int16, (b, hc, wc))
+    _check("offsets", offsets, torch.int32, (b, s, nb))
+    _check("params2", params2, torch.int32, (2 * b, P_LEN))
+    return (_check_pattern("cb_pat", cb_pat, b, gh, gw),
+            _check_pattern("cr_pat", cr_pat, b, gh, gw))
+
+
 def apply_planes_pair(
     y: torch.Tensor,  # (B, H, W) int16, ungrained
     cb: torch.Tensor,  # (B, Hc, Wc) int16
@@ -432,18 +474,9 @@ def apply_planes_pair(
         return apply_planes_pair_reference(
             y, cb, cr, cb_pat, cr_pat, offsets, params2, bit_depth, sub_x, sub_y
         )
-    _check_depth_and_subsampling(bit_depth, sub_x, sub_y)
+    cb_stride, cr_stride = _check_pair(
+        y, cb, cr, cb_pat, cr_pat, offsets, params2, bit_depth, sub_x, sub_y)
     b, h, w = y.shape
-    hc, wc = (h + sub_y) >> sub_y, (w + sub_x) >> sub_x
-    s, nb = (h + BLOCK - 1) // BLOCK, (w + BLOCK - 1) // BLOCK
-    gh, gw = chroma_pattern_shape(sub_x, sub_y)
-    _check("y", y, torch.int16, (b, h, w))
-    _check("cb", cb, torch.int16, (b, hc, wc))
-    _check("cr", cr, torch.int16, (b, hc, wc))
-    _check("offsets", offsets, torch.int32, (b, s, nb))
-    _check("params2", params2, torch.int32, (2 * b, P_LEN))
-    cb_stride = _check_pattern("cb_pat", cb_pat, b, gh, gw)
-    cr_stride = _check_pattern("cr_pat", cr_pat, b, gh, gw)
     out_cb = torch.empty_like(cb)
     out_cr = torch.empty_like(cr)
     if b == 0:
@@ -460,6 +493,49 @@ def apply_planes_pair(
     _raise_on(err, "grain_chroma_pair launch")
     _launched("grain_chroma_pair", _PAIR_LAYOUT[sub_x, sub_y])
     return out_cb, out_cr
+
+
+def apply_planes_fused(
+    y: torch.Tensor,  # (B, H, W) int16, ungrained
+    cb: torch.Tensor,  # (B, Hc, Wc) int16
+    cr: torch.Tensor,
+    luma_pat: torch.Tensor,  # (B, 73, 82) int16
+    cb_pat: torch.Tensor,  # (B, ch, cw) int16
+    cr_pat: torch.Tensor,
+    offsets: torch.Tensor,  # (B, S, NB) int32
+    params_y: torch.Tensor,  # (B, P_LEN) int32
+    params2: torch.Tensor,  # (2B, P_LEN) int32: cb rows, then cr rows
+    bit_depth: int,
+    sub_x: int,
+    sub_y: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Luma, Cb and Cr grain in one pass that reads each luma sample once;
+    returns new (y, cb, cr) int16 planes, equal to ``apply_plane_luma``
+    then ``apply_planes_pair``."""
+    if _on_cpu(y, cb, cr, luma_pat, cb_pat, cr_pat, offsets, params_y, params2):
+        return apply_planes_fused_reference(
+            y, cb, cr, luma_pat, cb_pat, cr_pat, offsets, params_y, params2, bit_depth,
+            sub_x, sub_y,
+        )
+    cb_stride, cr_stride = _check_pair(
+        y, cb, cr, cb_pat, cr_pat, offsets, params2, bit_depth, sub_x, sub_y)
+    b, h, w = y.shape
+    _check("params_y", params_y, torch.int32, (b, P_LEN))
+    y_stride = _check_pattern("luma_pat", luma_pat, b, GRAIN_H, GRAIN_W)
+    outs = tuple(torch.empty_like(t) for t in (y, cb, cr))
+    if b == 0:
+        return outs
+    lib = _build.load()
+    with torch.cuda.device(y.device):
+        err = lib.grain_fused(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), *(t.data_ptr() for t in outs),
+            luma_pat.data_ptr(), y_stride, cb_pat.data_ptr(), cb_stride,
+            cr_pat.data_ptr(), cr_stride, offsets.data_ptr(), params_y.data_ptr(),
+            params2.data_ptr(), b, h, w, sub_x, sub_y, bit_depth, _stream(y),
+        )
+    _raise_on(err, "grain_fused launch")
+    _launched("grain_fused", _FUSED_LAYOUT[sub_x, sub_y])
+    return outs
 
 
 def generate_patterns_packed(

@@ -31,7 +31,7 @@ same tables.
 The outputs of a replay are the graph's static tensors: the next replay
 of the same program overwrites them. A caller consumes them on the stream
 that replayed the graph before it runs the program again, and keeps none
-of them (``grain.apply_with_tables`` reads them in the two grain kernels
+of them (``grain.apply_with_tables`` reads them in the grain kernel
 right after the replay). A replay on another stream than the last one
 first waits for that stream.
 

@@ -22,9 +22,9 @@ bitstream syntax elements, a user feature, not time).
 ``count(name, n)`` adds to an integer counter; counters are always on:
 
 - ``launch.<kernel>``: launches of a kernel wrapper's CUDA kernel (a
-  graph replay adds the launches its graph holds); the chroma-pair
-  kernel's also by layout, ``launch.grain_chroma_pair.<sub_x><sub_y>``
-  (``.10`` for 4:2:2);
+  graph replay adds the launches its graph holds); the chroma-pair and
+  fused kernels' also by layout, ``launch.grain_chroma_pair.<sub_x><sub_y>``
+  and ``launch.grain_fused.<sub_x><sub_y>`` (``.10`` for 4:2:2);
 - ``recorded.<kernel>``: launches recorded into a CUDA graph under
   capture, which launch nothing then;
 - ``program.captures``, ``program.replays``: the apply's parameter

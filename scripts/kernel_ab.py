@@ -19,7 +19,8 @@ that both builds give the same output on the inputs, then times them with
 CUDA events in the order old, new, new, old. Every line carries the card's
 name and power limit.
 
-- ``grain_kernels.cu``: the luma and chroma-pair kernels on 3840x2160
+- ``grain_kernels.cu``: the luma, chroma-pair and fused kernels (the
+  fused one where both builds have it) on 3840x2160
   10-bit 4:2:0 frames from a numpy seed with the frame parameters of
   .bench_cache/bench_4k10_grainy.ivf reseeded per frame (``chip_smoke.py``
   phase 4's inputs) at B = 16 and B = 112, and the single-chroma-plane
@@ -29,9 +30,10 @@ name and power limit.
   the same turns end to end:
   phase 4's ``ops.grain.apply_grain`` (the batch's parameter program with
   the pattern kernel in it, captured once with the package's own library,
-  then the grain kernels) with each build loaded, as frames/s on the host
-  clock, and under torch.profiler as device-busy ms per batch and the
-  device's idle share.
+  then the fused grain kernel) with each build loaded, as frames/s on the
+  host clock, and under torch.profiler as device-busy ms per batch and the
+  device's idle share; skipped, with a note, where OLD has no fused
+  kernel, which the apply path launches.
 - ``pattern_kernels.cu``: the grain-pattern kernel on the stream's
   parameters at 4:2:0 10-bit, B = 16 and B = 112, with AR lag 0, 1, 2 and
   3 (``chip_smoke.lagged``), each time beside the operations bound and the
@@ -77,7 +79,8 @@ import chip_smoke as cs  # noqa: E402
 
 
 ENTRY_POINTS = {
-    "grain_kernels.cu": ("grain_luma", "grain_chroma_pair", "grain_chroma", "grain_error_string"),
+    "grain_kernels.cu": ("grain_luma", "grain_chroma_pair", "grain_fused", "grain_chroma",
+                         "grain_error_string"),
     "pattern_kernels.cu": ("grain_pattern",),
     "diff_kernels.cu": ("diff_flat_block_activity", "diff_plane_stats"),
     "estimate_kernels.cu": ("estimate_self_blur", "estimate_self_stats"),
@@ -108,8 +111,10 @@ def build_old(source: str, src: str) -> ctypes.CDLL:
 
     lib = ctypes.CDLL(cs.nvcc_shared(src, "old_" + source.split(".")[0]))
     for name in ENTRY_POINTS[source]:
-        getattr(lib, name).argtypes = _build.SIGNATURES[name]
-        getattr(lib, name).restype = ctypes.c_int
+        fn = getattr(lib, name, None)  # an older source may lack a later entry point
+        if fn is not None:
+            fn.argtypes = _build.SIGNATURES[name]
+            fn.restype = ctypes.c_int
     if hasattr(lib, "grain_error_string"):
         lib.grain_error_string.restype = ctypes.c_char_p
     return lib
@@ -181,7 +186,17 @@ def launchers(lib, luma_args, pair_args, chroma_args):
             coffs.shape[2], sub_x, sub_y, bd, stream))
         return out_c
 
-    return luma, pair, chroma
+    outs3 = [torch.empty_like(t) for t in (y, cb, cr)]
+
+    def fused():
+        check(lib.grain_fused(
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), *(t.data_ptr() for t in outs3),
+            pat.data_ptr(), pat.stride(0), cbp.data_ptr(), cbp.stride(0), crp.data_ptr(),
+            crp.stride(0), offs.data_ptr(), prm.data_ptr(), p2.data_ptr(), b, h, w, sub_x, sub_y,
+            bd, stream))
+        return outs3
+
+    return luma, pair, chroma, fused
 
 
 def grain_ab(libs, card: str, iters: int) -> None:
@@ -189,6 +204,7 @@ def grain_ab(libs, card: str, iters: int) -> None:
     from grav1synth_tpu_torch.ops import grain_kernels as gk
 
     dev = torch.device("cuda")
+    with_fused = all(hasattr(lib, "grain_fused") for lib in libs.values())
     eff, (w, h, bd, (sx, sy)) = cs.stream_params(os.path.join(REPO, cs.IVF))
     planes16 = [torch.from_numpy(a).to(dev)
                 for a in cs.random_planes(np.random.default_rng(7), 16, h, w, bd, sx, sy)]
@@ -201,17 +217,21 @@ def grain_ab(libs, card: str, iters: int) -> None:
         runs = {k: launchers(lib, luma_args, pair_args, cb_args) for k, lib in libs.items()}
         want_y = gk.apply_plane_luma(*luma_args)
         want_c = gk.apply_planes_pair(*pair_args)
-        for k, (luma, pair, chroma) in runs.items():
+        for k, (luma, pair, chroma, fused) in runs.items():
             if not torch.equal(luma(), want_y) or not all(
                 torch.equal(g, wc) for g, wc in zip(pair(), want_c)
-            ) or not torch.equal(chroma(), want_c[0]):
+            ) or not torch.equal(chroma(), want_c[0]) or (with_fused and not all(
+                torch.equal(g, wt) for g, wt in zip(fused(), (want_y, *want_c)))):
                 raise AssertionError(f"B={b}: the {k} build differs from the package's wrappers")
         del want_y, want_c
         src, avg, cpat, coffs, cprm = cb_args[:5]
         work = {"grain_luma": cs.luma_work(luma_args), "grain_chroma_pair": cs.pair_work(pair_args),
                 "grain_chroma": (2 * cs.nbytes(src) + cs.nbytes(avg, cpat, coffs, cprm),
-                                 cs.chroma_ops(cprm, src.shape[1] * src.shape[2]))}
-        for idx, name in enumerate(("grain_luma", "grain_chroma_pair", "grain_chroma")):
+                                 cs.chroma_ops(cprm, src.shape[1] * src.shape[2])),
+                "grain_fused": cs.fused_work(luma_args, pair_args)}
+        names = ("grain_luma", "grain_chroma_pair", "grain_chroma") + (
+            ("grain_fused",) if with_fused else ())
+        for idx, name in enumerate(names):
             ms = turns({k: r[idx] for k, r in runs.items()}, iters)
             report(name, f"4K10 4:2:0 B={b}" + (", Cb" if idx == 2 else ""), ms, card, work[name])
         # what a plain device copy of the luma planes (K1's sample bytes,
@@ -223,6 +243,13 @@ def grain_ab(libs, card: str, iters: int) -> None:
         print(f"[ab] copy_ of the luma planes B={b}: {t:.4f} ms, {moved / t / 1e9:.3f} TB/s, "
               f"{moved / cs.HBM_BYTES_PER_S * 1e3 / t:.3f} of 3.35 TB/s on {card}", flush=True)
         del dst
+
+        if not with_fused:
+            print("[ab] apply_grain end to end: skipped, the old build has no grain_fused, "
+                  "which the apply path launches", flush=True)
+            del runs, luma_args, pair_args, cb_args, planes
+            torch.cuda.empty_cache()
+            continue
 
         # end to end: phase 4's apply, each build loaded; the program (its
         # pattern kernel the package's) is captured first, outside both turns

@@ -112,8 +112,9 @@ def test_kernels_match_plain_on_cuda(cuda, sub_x, sub_y, bd):
         before = spans.counters("launch.")
         got = tg.apply_with_tables(y, cb, cr, tables, pats, bd, sub_x, sub_y)
         outs[str(dev)] = [t.cpu() for t in got]
-    assert spans.counter("launch.grain_luma") == before.get("grain_luma", 0) + 1
-    assert spans.counter("launch.grain_chroma_pair") == before.get("grain_chroma_pair", 0) + 1
+    assert spans.counter("launch.grain_fused") == before.get("grain_fused", 0) + 1
+    assert spans.counter("launch.grain_luma") == before.get("grain_luma", 0)
+    assert spans.counter("launch.grain_chroma_pair") == before.get("grain_chroma_pair", 0)
     for pi in range(3):
         assert torch.equal(outs["cuda"][pi], outs["cpu"][pi]), f"plane {pi}"
 
@@ -132,8 +133,8 @@ def _mixed_params():
 
 class _KernelCase:
     """One parameter batch's tables at one bit depth and subsampling, on
-    the card: patterns once, then the luma, chroma-pair and single-chroma-
-    plane kernels against their plain versions on any planes."""
+    the card: patterns once, then the luma, chroma-pair, fused and single-
+    chroma-plane kernels against their plain versions on any planes."""
 
     def __init__(self, params, bd, sub_x, sub_y, device):
         self.bd, self.sub_x, self.sub_y = bd, sub_x, sub_y
@@ -158,6 +159,22 @@ class _KernelCase:
                 *gk.apply_planes_pair_reference(*pair_args)]
         for pi, (g, wnt) in enumerate(zip(got, want)):
             assert torch.equal(g, wnt), f"{what}: plane {pi}"
+
+    def check_fused(self, y, cb, cr, what):
+        """The fused kernel on y, cb, cr (any views the wrapper takes)
+        against its plain version on the same planes: one launch of its
+        layout's instantiation."""
+        _, h, w = y.shape
+        offs = tg.block_offsets(self.pb.seed, (h + 31) // 32, (w + 31) // 32)
+        args = (y, cb, cr, *self.pats, offs, self.py, self.p2, self.bd, self.sub_x, self.sub_y)
+        before = spans.counters("launch.")
+        got = gk.apply_planes_fused(*args)
+        layout = f"grain_fused.{self.sub_x}{self.sub_y}"
+        assert spans.counter("launch.grain_fused") == before.get("grain_fused", 0) + 1
+        assert spans.counter("launch." + layout) == before.get(layout, 0) + 1
+        want = gk.apply_planes_fused_reference(*args)
+        for pi, (g, wnt) in enumerate(zip(got, want)):
+            assert g.dtype == torch.int16 and torch.equal(g, wnt), f"{what}: plane {pi}"
 
     def check_chroma(self, y, cb, cr, what, avg=None, more=(0, 0)):
         """The single-chroma-plane kernel on Cb and on Cr against its plain
@@ -232,6 +249,75 @@ def test_kernels_match_plain_beyond_one_wave_on_cuda(cuda, sub_x, sub_y):
     case = _KernelCase(params, 10, sub_x, sub_y, cuda)
     planes = _random_planes(np.random.default_rng(8), len(params), 520, 1000, 10, sub_x, sub_y, cuda)
     case.check(*planes, f"{sub_x}{sub_y} 9 x 1000x520")
+    torch.cuda.synchronize()
+
+
+def _fused_params():
+    """_mixed_params() (luma-only, chroma-only and one-chroma-plane frames
+    among clipped, overlap-off and chroma-scaling-from-luma ones) and a
+    frame with every plane off."""
+    off_all = copy.deepcopy(_params()[0])
+    off_all.grain_seed, off_all.scaling_points_y = 14, []
+    off_all.scaling_points_cb, off_all.scaling_points_cr = [], []
+    return _mixed_params() + [off_all]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_fused_kernel_matches_plain_at_edge_geometries_on_cuda(cuda, sub_x, sub_y, bd):
+    """The fused kernel at luma widths 520-535 (every residue mod 8, luma
+    and chroma; odd widths pair the last luma sample with itself) and odd
+    and even heights, on a batch that mixes luma-only, chroma-only,
+    one-chroma-plane, all-inactive, clipped, overlap-off and
+    chroma-scaling-from-luma frames."""
+    params = _fused_params()
+    case = _KernelCase(params, bd, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(300 + bd)
+    for w in range(520, 536):
+        h = (41, 33, 64, 71)[w % 4]
+        planes = _random_planes(rng, len(params), h, w, bd, sub_x, sub_y, cuda)
+        case.check_fused(*planes, f"{bd}-bit {sub_x}{sub_y} {w}x{h}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_fused_kernel_matches_plain_on_unaligned_bases_on_cuda(cuda, sub_x, sub_y, bd):
+    """The fused kernel on planes whose bases are not 16-byte aligned: a
+    batch slice ``[1:]`` of 41x301 frames, and 64x256 planes viewed 3
+    samples into their storage; and on one plane of each kind alone
+    unaligned (luma only, Cb only)."""
+    params = _fused_params()
+    case = _KernelCase(params, bd, sub_x, sub_y, cuda)
+    rng = np.random.default_rng(310 + bd)
+    b = len(params)
+    big = _random_planes(rng, b + 1, 41, 301, bd, sub_x, sub_y, cuda)
+    sliced = [t[1:] for t in big]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in sliced)
+    case.check_fused(*sliced, "batch slice [1:] of 41x301")
+    planes = _random_planes(rng, b, 64, 256, bd, sub_x, sub_y, cuda)
+    flat = [_shifted(t) for t in planes]
+    assert all(t.data_ptr() % 16 == 6 for t in flat)
+    case.check_fused(*flat, "64x256 planes 3 samples into their storage")
+    case.check_fused(flat[0], *planes[1:], "64x256, luma alone unaligned")
+    case.check_fused(planes[0], flat[1], planes[2], "64x256, Cb alone unaligned")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_fused_kernel_matches_plain_beyond_one_wave_on_cuda(cuda, sub_x, sub_y, bd):
+    """More work units than CTAs resident on the card (10 frames of
+    1000x520: 640 units at 4:2:0 and 4:2:2, 960 at 4:4:4), with a batch
+    size that divides no grid, so CTAs' unit ranges cross frames."""
+    params = _fused_params() + _params()[:1]
+    case = _KernelCase(params, bd, sub_x, sub_y, cuda)
+    planes = _random_planes(np.random.default_rng(320 + bd), len(params), 520, 1000, bd, sub_x,
+                            sub_y, cuda)
+    case.check_fused(*planes, f"{bd}-bit {sub_x}{sub_y} {len(params)} x 1000x520")
     torch.cuda.synchronize()
 
 
@@ -1098,8 +1184,9 @@ def test_device_pattern_apply_equals_host_pattern_apply_on_cuda(cuda, sub_x, sub
     spans.reset()
     got = tg.apply_grain(*planes, pb, 10, sub_x, sub_y)
     torch.cuda.synchronize()
-    assert {k: spans.counter("launch." + k) for k in ("grain_pattern", "grain_luma", "grain_chroma_pair")} == {
-        "grain_pattern": 1, "grain_luma": 1, "grain_chroma_pair": 1,
+    assert {k: spans.counter("launch." + k)
+            for k in ("grain_pattern", "grain_fused", "grain_luma", "grain_chroma_pair")} == {
+        "grain_pattern": 1, "grain_fused": 1, "grain_luma": 0, "grain_chroma_pair": 0,
     }
     assert _programs() == {"captures": 0, "replays": 1}
     for pi in range(3):
@@ -1113,8 +1200,9 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
     program: the luma kernel at 12 bits and the chroma-pair kernel's
     unsubsampled 12-bit path, whose 56,736 B of dynamic shared memory pass
     the 48 KB default, equal to their plain versions on the program's own
-    tables and patterns, frame 0 equal to grain_ref; one launch each, the
-    program's tables and pattern kernels included."""
+    tables and patterns, frame 0 equal to grain_ref; the fused kernel's
+    <0,0> instantiation launched once, the program's tables and pattern
+    kernels once each."""
     from grav1synth_tpu_torch.ops import grain_ref
 
     h, w, bd = 2160, 3840, 12
@@ -1127,8 +1215,8 @@ def test_apply_at_4k_12bit_444_through_the_program_on_cuda(cuda):
     got = tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, 0, 0)
     torch.cuda.synchronize()
     assert _programs() == {"captures": 0, "replays": 1}
-    assert spans.counters("launch.") == {"grain_tables": 1, "grain_pattern": 1, "grain_luma": 1,
-                                         "grain_chroma_pair": 1, "grain_chroma_pair.00": 1}
+    assert spans.counters("launch.") == {"grain_tables": 1, "grain_pattern": 1, "grain_fused": 1,
+                                         "grain_fused.00": 1}
     key = pg.ProgramKey.of(y, bd, 0, 0, False, True)
     tables = pg.program_body(tg.pack_params(params, cuda).buffer, key)
     luma_pat, cb_pat, cr_pat = tg._unpack_patterns(tables.patterns, tg.chroma_pattern_shape(0, 0))
@@ -1153,7 +1241,7 @@ def test_apply_at_4k_10bit_422_on_the_cells_tables_on_cuda(cuda):
     10 Cr points, AR lag 3, overlap on, restricted-range clip), through
     ``pack_params`` and ``apply_grain``, the benchmark's path: both frames
     equal to the benchmark's frozen grain_ref on every plane, the
-    chroma-pair kernel's <1,0> instantiation launched once."""
+    fused kernel's <1,0> instantiation launched once."""
     from grav1synth_tpu_torch.obu.types import FilmGrainParams
 
     cfg = bench_config("uhd10_422")
@@ -1168,8 +1256,9 @@ def test_apply_at_4k_10bit_422_on_the_cells_tables_on_cuda(cuda):
     spans.reset()
     got = tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), bd, sub_x, sub_y)
     got = [t.cpu().numpy().astype(np.int32) for t in got]
-    assert spans.counter("launch.grain_chroma_pair") == 1
-    assert spans.counters("launch.grain_chroma_pair.") == {"10": 1}
+    assert spans.counter("launch.grain_fused") == 1
+    assert spans.counters("launch.grain_fused.") == {"10": 1}
+    assert spans.counter("launch.grain_chroma_pair") == 0
     grain_ref = bench_module("reference.grain_ref")
     ref_params = bench_module("reference.types").FilmGrainParams
     for i, t in enumerate(tables):
@@ -1183,9 +1272,10 @@ def test_apply_at_4k_10bit_422_on_the_cells_tables_on_cuda(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)], ids=["420", "422", "444"])
 def test_chroma_pair_launches_counted_by_layout_on_cuda(cuda, sub_x, sub_y):
-    """``launch.grain_chroma_pair.<sub_x><sub_y>`` counts the chroma-pair
-    kernel's launches of a batch's own layout, once an ``apply_grain``,
-    and no other layout's."""
+    """``launch.grain_fused.<sub_x><sub_y>`` counts the fused kernel's
+    launches of a batch's own layout, once an ``apply_grain``, and no
+    other layout's; the apply path launches the chroma-pair kernel no
+    more."""
     params = _params()
     rng = np.random.default_rng(7)
     y, cb, cr = _random_planes(rng, len(params), 64, 96, 10, sub_x, sub_y, cuda)
@@ -1193,8 +1283,30 @@ def test_chroma_pair_launches_counted_by_layout_on_cuda(cuda, sub_x, sub_y):
     spans.reset()
     for n in (1, 2):
         tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), 10, sub_x, sub_y)
-        assert spans.counters("launch.grain_chroma_pair.") == {f"{sub_x}{sub_y}": n}
-        assert spans.counter("launch.grain_chroma_pair") == n
+        assert spans.counters("launch.grain_fused.") == {f"{sub_x}{sub_y}": n}
+        assert spans.counter("launch.grain_fused") == n
+        assert spans.counter("launch.grain_chroma_pair") == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub_x,sub_y", [(1, 1), (1, 0), (0, 0)], ids=["420", "422", "444"])
+def test_apply_launches_the_fused_kernel_or_the_luma_kernel_alone_on_cuda(cuda, sub_x, sub_y):
+    """A three-plane ``apply_grain`` launches the fused kernel once and the
+    luma and chroma-pair kernels not at all; a batch whose tables touch no
+    chroma launches the luma kernel once and the fused kernel not at
+    all."""
+    rng = np.random.default_rng(9)
+    y, cb, cr = _random_planes(rng, 5, 64, 96, 10, sub_x, sub_y, cuda)
+    for params, want in ((_params(), {"grain_fused": 1, "grain_luma": 0}),
+                         (luma_tables(_params()), {"grain_fused": 0, "grain_luma": 1})):
+        tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), 10, sub_x, sub_y)  # the capture
+        spans.reset()
+        tg.apply_grain(y, cb, cr, tg.pack_params(params, cuda), 10, sub_x, sub_y)
+        got = {k: spans.counter("launch." + k) for k in ("grain_fused", "grain_luma")}
+        assert got == want and spans.counter("launch.grain_chroma_pair") == 0
+        assert spans.counters("launch.grain_fused.") == (
+            {f"{sub_x}{sub_y}": 1} if want["grain_fused"] else {})
     torch.cuda.synchronize()
 
 
@@ -1275,7 +1387,7 @@ def program_paths(params, planes, bd, sub_x, sub_y, mono, device):
 
 
 # chroma_static False: the batch's tables touch no chroma (``luma_tables``),
-# so the program makes no Cb|Cr rows and the chroma-pair kernel is skipped
+# so the program makes no Cb|Cr rows and the luma kernel runs alone
 CHROMA_STATIC = [pytest.param(False, id="luma-only"), pytest.param(True, id="device")]
 
 
@@ -1285,8 +1397,9 @@ CHROMA_STATIC = [pytest.param(False, id="luma-only"), pytest.param(True, id="dev
 def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, chroma_static):
     """The apply through the captured program equals the eager body with
     the same kernels, and the CPU run; after the capture a batch is one
-    replay, with the tables and pattern kernels in it, and the chroma-pair
-    kernel after it unless ``chroma_static`` is False."""
+    replay, with the tables and pattern kernels in it, and the fused
+    kernel after it, or the luma kernel alone where ``chroma_static`` is
+    False or the batch is monochrome."""
     params = pattern_zoo(60 + 2 * sub_x + sub_y + 4 * mono)
     if not chroma_static:
         params = luma_tables(params)
@@ -1308,8 +1421,9 @@ def test_program_graph_equals_eager_body_on_cuda(cuda, sub_x, sub_y, mono, chrom
     assert _programs() == {"captures": 0, "replays": 1}
     assert spans.counter("launch.grain_tables") == 1
     assert spans.counter("launch.grain_pattern") == 1
-    assert spans.counter("launch.grain_luma") == 1
-    assert spans.counter("launch.grain_chroma_pair") == (chroma_static and not mono)
+    assert spans.counter("launch.grain_fused") == (chroma_static and not mono)
+    assert spans.counter("launch.grain_luma") == (not chroma_static or mono)
+    assert spans.counter("launch.grain_chroma_pair") == 0
     if not (chroma_static or mono):
         assert got[1] is planes[1] and got[2] is planes[2]
     assert all(torch.equal(a, b) for a, b in zip(again[:1 if mono else 3], got))

@@ -1,4 +1,4 @@
-"""The port's two grain kernels, one at a time.
+"""The port's grain kernels, one at a time.
 
 On the CPU, each wrapper runs its plain PyTorch version; those are held
 against the Pallas kernels they replace (interpret mode), fed the same
@@ -47,15 +47,15 @@ def test_luma_plain_matches_pallas(bd, h, w, variant):
     _equal(got, want, "luma")
 
 
-@pytest.mark.parametrize(
-    "sub_x,sub_y,bd,h,w,variant",
-    [
-        (1, 1, 10, 70, 100, "mixed"),
-        (1, 1, 8, 40, 99, "dense"),
-        (1, 0, 12, 64, 64, "mixed"),
-        (0, 0, 8, 40, 99, "mixed"),
-    ],
-)
+PAIR_CASES = [
+    (1, 1, 10, 70, 100, "mixed"),
+    (1, 1, 8, 40, 99, "dense"),
+    (1, 0, 12, 64, 64, "mixed"),
+    (0, 0, 8, 40, 99, "mixed"),
+]
+
+
+@pytest.mark.parametrize("sub_x,sub_y,bd,h,w,variant", PAIR_CASES)
 def test_pair_plain_matches_pallas_split(sub_x, sub_y, bd, h, w, variant):
     _, jb, (y, cb, cr), (lp, cbp, crp), offs = _setup(variant, bd, h, w, sub_x, sub_y)
     params3 = np.concatenate(
@@ -73,6 +73,30 @@ def test_pair_plain_matches_pallas_split(sub_x, sub_y, bd, h, w, variant):
     )
     _equal(got_cb, want_cb, "cb")
     _equal(got_cr, want_cr, "cr")
+
+
+@pytest.mark.parametrize("sub_x,sub_y,bd,h,w,variant", PAIR_CASES)
+def test_fused_plain_matches_pallas_fused(sub_x, sub_y, bd, h, w, variant):
+    """The fused kernel's plain version (the luma kernel's, then the
+    chroma-pair kernel's) against the Pallas fused kernel, all three
+    planes."""
+    _, jb, (y, cb, cr), (lp, cbp, crp), offs = _setup(variant, bd, h, w, sub_x, sub_y)
+    params3 = np.concatenate(
+        [np.asarray(grain_pallas.pack_plane_params(jb, pl, bd)) for pl in ("y", "cb", "cr")]
+    )
+    want = grain_pallas.apply_planes_fused(
+        y, cb, cr, lp, cbp, crp, offs, params3, bd, sub_x, sub_y
+    )
+    pt = tg.from_jax_params(jb, "cpu")
+    params2 = torch.cat([gk.pack_plane_params(pt, pl, bd) for pl in ("cb", "cr")])
+    got = gk.apply_planes_fused(
+        *(torch.from_numpy(a) for a in (y, cb, cr)),
+        *(torch.from_numpy(a.astype(np.int16)) for a in (lp, cbp, crp)),
+        torch.from_numpy(offs), gk.pack_plane_params(pt, "y", bd), params2, bd, sub_x, sub_y,
+    )
+    for name, g, wnt in zip(("y", "cb", "cr"), got, want):
+        assert g.dtype == torch.int16
+        _equal(g, wnt, name)
 
 
 def test_wrappers_refuse_other_devices():
